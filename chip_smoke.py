@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's batched EKF path once on one CUDA card.
+"""Drive the PyTorch/CUDA port's paths once on one CUDA card: the batched
+EKF and the single-filter particle filter.
 
 Run from the repository root with no arguments::
 
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``tpuslam_torch/csrc``, holds each kernel
-against its plain torch version on the card, checks the noisy filter
-against the reference's statistical bands, runs the package's entry
-point, and times the kernel and the plain version at the main path's
-shapes, holding the kernel's output there to the plain version's too.  Each phase prints one line; a failing phase raises, so the script
-exits non-zero and prints no result.  The second-to-last line is a JSON
-object describing each kernel; the last line is
+against its plain torch version on the card, checks the noisy filters
+against their statistical bands, drives each path through the calls a
+user makes (the EKF entry point; the fused PF rollout at 2,097,152
+particles x 400 steps) with the kernels' launch counts set to 0 just
+before and read just after, and times the kernels and the plain versions
+at the main paths' shapes, holding the timed outputs to the plain
+versions' too.  Each phase prints one line; a failing phase raises, so
+the script exits non-zero and prints no result.  The second-to-last
+line is a JSON object describing each kernel; the last line is
 ``{"ok": true, "device": {...}}``.  It needs a CUDA device and imports no
 JAX.
 """
@@ -34,6 +38,31 @@ SWEEPS = (64, 8192, 400)
 # posterior position, as the JAX package's on-chip gate holds them.
 RMSE_BAND = (0.25, 0.50)
 NEES_BAND = (0.7, 2.5)
+
+# The PF path at bench.py's sizes (bench.py:569, :559, :553: particles x
+# steps through bench_pf_pallas, bench.py:109), and the band of the fused
+# PF's position RMSE at 100,000 x 100 (bench.py:468-474).
+PF_SIZES = (2_097_152, 1_000_000, 100_000)
+PF_STEPS = 400
+PF_BAND = (0.02, 0.40)
+PF_BAND_SHAPE = (100_000, 100)
+# Particle counts of the step-kernel parity phase: noise off and Philox at
+# the first, injected normals at the second.
+PF_STEP_CHECK = (1_000_000, 65_536)
+
+# The least time the card could take: bytes over the HBM rate against
+# float32 operations over the non-tensor-core float32 rate (NVIDIA H100
+# SXM data sheet).  Operations a rollout-step, particle or lane, counted
+# from the plain versions' float arithmetic (ekf_cuda.py,
+# pf_cuda.py::_predict_loglik, resample_cuda.py); exp, log, sqrt and a
+# divide count one each, and Philox's integer operations are left out
+# (the data sheet gives no integer rate to hold them to).  PF_STEP_OPS
+# includes the 5 operations of the reductions (exp, shift, square, sums).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+EKF_OPS_PER_STEP = 320
+PF_STEP_OPS = 240
+BOUNDARY_OPS = 6
 
 
 def _require(ok, message) -> None:
@@ -77,6 +106,413 @@ def _compare(kernel, plain, *, atol_state, rtol_cov, atol_cov):
         _require(bool((gap <= 1e-6 + 1e-4 * b.abs()).all()),
                  f"accumulator: kernel vs plain max {float(gap.max())}")
     return worst
+
+
+def _bound(n_bytes: float, n_ops: float):
+    """``(bound_ms, bound_by)``: the larger of the two least times."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = n_ops / F32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _device_ms(fn, reps: int) -> float:
+    """Device milliseconds a call of ``fn``, from CUDA events around
+    ``reps`` back-to-back calls.  A sleep kernel holds the card while
+    the calls are queued, so host launch overhead does not show."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _step_gap(kernel, plain):
+    """Largest |kernel - plain| of a PF step's poses (yaw modulo 2*pi)
+    and of its log weights; raises past atol 1e-4 on poses and
+    1e-4 + 1e-5 |lw| on log weights (FMA contraction against separate
+    roundings, over five landmark terms)."""
+    (kp, klw, _), (pp, plw, _) = kernel, plain
+    _require(kp.shape == pp.shape and bool(kp.isfinite().all()),
+             "pf_step rows: shape or finiteness")
+    pose = max(float((kp[:2] - pp[:2]).abs().max()),
+               float(_yaw_gap(kp[2], pp[2]).max()))
+    _require(pose <= 1e-4, f"pf_step poses: kernel vs plain {pose}")
+    d = (klw - plw).abs()
+    _require(bool((d <= 1e-4 + 1e-5 * plw.abs()).all()),
+             f"pf_step log weights: kernel vs plain max {float(d.max())}")
+    return pose, float(d.max())
+
+
+def _stats_agree(pf_cuda, kernel, plain) -> None:
+    """The combined reductions: lse and lse2 (rtol 1e-5), and the MAP
+    particle is the kernel's own highest-index maximum, whose plain log
+    weight is within 1e-4 + 1e-5 |lw| of the plain maximum."""
+    import torch
+
+    (kp, klw, kparts), (_, plw, pparts) = kernel, plain
+    ks, kbest = pf_cuda._combine_stats(kparts)
+    ps, _ = pf_cuda._combine_stats(pparts)
+    _require(torch.allclose(ks[:2], ps[:2], rtol=1e-5, atol=1e-4),
+             f"lse/lse2 kernel {ks[:2].tolist()} plain {ps[:2].tolist()}")
+    i = int(kbest)
+    _require(i == int(torch.nonzero(klw == klw.max()).max()),
+             "MAP is not the kernel's highest-index maximum")
+    _require(torch.equal(ks[2:5], kp[:, i]), "MAP coordinates")
+    top = plw.max()
+    _require(float(top - plw[i]) <= 1e-4 + 1e-5 * float(top.abs()),
+             "MAP log weight off the plain maximum")
+
+
+def _pf_cfg(n: int):
+    """The main path's PF configuration (``bench_pf_pallas``)."""
+    from tpuslam_torch.filters import PfConfig
+
+    return PfConfig(num_particles=n, weight_mode="log",
+                    resample_method="merge")
+
+
+def _gen(dev, seed: int):
+    import torch
+
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+def _truth_view(dev):
+    """x0 and the landmarks seen from it, float32 on ``dev``."""
+    import torch
+
+    from tpuslam_torch.core.se2 import world_to_robot
+    from tpuslam_torch.filters import PfConfig
+
+    x0 = torch.tensor(PfConfig().x0, dtype=torch.float32, device=dev)
+    lm = torch.tensor(PfConfig().landmarks, dtype=torch.float32, device=dev)
+    return x0, world_to_robot(x0, lm).contiguous()
+
+
+def _rmse(x_true, x_est) -> float:
+    import torch
+
+    return float(torch.sqrt(((x_est[:, :2] - x_true[:, :2]) ** 2)
+                            .sum(-1).mean()))
+
+
+def _pf_step_parity(dev) -> float:
+    """8. The step kernel against its plain version: noise off and Philox
+    at the first count of PF_STEP_CHECK, injected normals at the second;
+    K2b (with and without the reset flag) and K2a.  Returns the largest
+    difference."""
+    import torch
+
+    from tpuslam_torch.ops import pf_cuda
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    x0, z_true = _truth_view(dev)
+    spread = torch.tensor([0.5, 0.5, 0.2], **f32)[:, None]
+    err_pose = err_lw = 0.0
+    big, small = PF_STEP_CHECK
+    for n, noise_on, with_normals in ((big, False, False),
+                                      (big, True, False),
+                                      (small, True, True)):
+        g = _gen(dev, n)
+        p_rows = (x0[:, None] + torch.randn((3, n), generator=g, **f32)
+                  * spread).contiguous()
+        lw = torch.randn(n, generator=g, **f32) * 2.0
+        z = (z_true + 0.3 * torch.randn((5, 2), generator=g, **f32))
+        normals = (torch.randn((3, n), generator=g, **f32)
+                   if with_normals else None)
+        for flag, with_stats in ((0.0, True), (1.0, True), (0.0, False)):
+            args = (_pf_cfg(n), 12345, flag, p_rows, lw, z.contiguous(),
+                    noise_on, normals, with_stats)
+            kern = pf_cuda.pf_step_rows(*args)
+            plain = pf_cuda.pf_step_rows_plain(*args)
+            pose, lw_gap = _step_gap(kern, plain)
+            err_pose, err_lw = max(err_pose, pose), max(err_lw, lw_gap)
+            if with_stats:
+                _stats_agree(pf_cuda, kern, plain)
+    torch.cuda.synchronize()
+    print(f"pf_step parity (noise off and Philox at {big:,}, injected "
+          f"normals at {small:,}; stats, reset flag, no stats): "
+          f"max|kernel-plain| poses {err_pose:.3e} (atol 1e-4), log "
+          f"weights {err_lw:.3e} (1e-4 + 1e-5|lw|)", flush=True)
+    return max(err_pose, err_lw)
+
+
+def _resample_parity(dev) -> tuple[float, float]:
+    """9. The resample kernels bit-equal to their plain versions at the
+    flagship count on three weight profiles.  Returns the largest
+    |kernel - plain| seen on the boundaries and on the expanded rows
+    (with ``merge_resample_rows``) across the profiles."""
+    import torch
+
+    from tpuslam_torch.ops import resample_cuda as rs
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    n = PF_SIZES[0]
+    g = _gen(dev, 99)
+    p_rows = torch.randn((3, n), generator=g, **f32)
+    block = torch.zeros(n, **f32)
+    block[:400] = 1.0  # 400 survivors in block 0, 128 in each 2048 after
+    block.view(-1, 2048)[1:, :128] = 1.0
+    profiles = (
+        ("heavy-tail", torch.softmax(4.0 * torch.randn(n, generator=g,
+                                                       **f32), 0)),
+        ("near-uniform", torch.softmax(0.1 * torch.randn(n, generator=g,
+                                                         **f32), 0)),
+        ("400-in-one-block", block / block.sum()))
+    seen = []
+    err_t = err_rows = 0.0
+    for name, w in profiles:
+        offs = torch.rand(1, generator=g, **f32)
+        wq, base, q_tot = rs.quantize_weights(w)
+        inv = 1.0 / q_tot
+        t_k = rs.resample_boundary(wq, base, inv, offs, n)
+        t_p = rs.resample_boundary_plain(wq, inv, offs, n)
+        err_t = max(err_t, float((t_k - t_p).abs().max()))
+        _require(torch.equal(t_k, t_p), f"{name}: boundaries differ")
+        out_k = rs.resample_expand(p_rows, t_k, n)
+        out_p = rs.resample_expand_plain(p_rows, t_p, n)
+        merged = rs.merge_resample_rows(p_rows, w, n, offs, device=dev)
+        merged_p = rs.merge_resample_rows_plain(p_rows, w, n, offs,
+                                                device=dev)
+        err_rows = max(err_rows, float((out_k - out_p).abs().max()),
+                       float((merged - merged_p).abs().max()))
+        _require(torch.equal(out_k, out_p), f"{name}: expanded rows differ")
+        _require(torch.equal(merged, out_k) and torch.equal(merged, merged_p),
+                 f"{name}: merge_resample_rows differs")
+        t_lo = torch.cat([t_p.new_zeros(1), t_p[:-1]])
+        seen.append(f"{name} {int((t_p > t_lo).sum())} survivors")
+    torch.cuda.synchronize()
+    print(f"resample parity at {n:,}: boundaries, expanded rows and "
+          f"merge_resample_rows bit-equal to plain ({', '.join(seen)}); "
+          f"max|kernel-plain| boundaries {err_t}, rows {err_rows}",
+          flush=True)
+    return err_t, err_rows
+
+
+def _pf_bands(dev) -> None:
+    """10. The Philox noise band of the fused PF."""
+    from tpuslam_torch.ops import pf_fused_rollout
+
+    n, steps = PF_BAND_SHAPE
+    _, (x_true, x_est) = pf_fused_rollout(_pf_cfg(n), _gen(dev, 3), steps,
+                                          device=dev)
+    band = _rmse(x_true, x_est)
+    _require(PF_BAND[0] < band < PF_BAND[1], f"PF RMSE {band} off-band")
+    print(f"pf bands {n:,}x{steps}: rmse {band:.4f} in {PF_BAND}",
+          flush=True)
+
+
+def _pf_main_path(dev) -> dict:
+    """11. The main path as bench_pf_pallas runs it; only these launches
+    are counted.  Returns the launch counts by kernel name."""
+    import torch
+
+    from tpuslam_torch.ops import pf_cuda, pf_fused_rollout, resample_cuda
+
+    n = PF_SIZES[0]
+    pf_cuda.launch_count = pf_cuda.sync_count = 0
+    resample_cuda.boundary_launch_count = 0
+    resample_cuda.expand_launch_count = 0
+    t0 = time.perf_counter()
+    final, (x_true, x_est) = pf_fused_rollout(_pf_cfg(n), _gen(dev, 0),
+                                              PF_STEPS, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"pf_step": pf_cuda.launch_count,
+                "resample_boundary": resample_cuda.boundary_launch_count,
+                "resample_expand": resample_cuda.expand_launch_count}
+    syncs = pf_cuda.sync_count
+    _require(launches["pf_step"] == PF_STEPS, f"pf_step launches {launches}")
+    _require(launches["resample_boundary"] >= 1
+             and launches["resample_expand"]
+             == launches["resample_boundary"],
+             f"the resample kernels did not fire: {launches}")
+    _require(final.particles.shape == (n, 3)
+             and bool(final.particles.isfinite().all())
+             and bool(final.weights.isfinite().all()),
+             "PF final state: shape or finiteness")
+    rmse = _rmse(x_true, x_est)
+    _require(PF_BAND[0] < rmse < PF_BAND[1],
+             f"PF main-path RMSE {rmse} off-band")
+    print(f"pf_fused_rollout(device='cuda') {n:,}x{PF_STEPS}: rmse "
+          f"{rmse:.4f}, launches {launches}, host syncs {syncs}, first "
+          f"call {wall * 1e3:.1f} ms (truth table built)", flush=True)
+    return launches
+
+
+def _pf_timings(dev, smi):
+    """12. Rollouts at bench.py's sizes, kernel and plain: CUDA events,
+    median of 3 after one warm-up (plain: one call).  Each timed output's
+    RMSE is in band, then one Philox step from its final state runs the
+    kernels against plain at full width.  Returns the flagship's final
+    state and the largest step difference."""
+    import torch
+
+    from tpuslam_torch.ops import (pf_fused_init, pf_fused_rollout,
+                                   pf_fused_rollout_plain,
+                                   pf_fused_step_stats,
+                                   pf_fused_step_stats_plain)
+    from tpuslam_torch.utils import timed
+
+    err = 0.0
+    finals = {}
+    for n in PF_SIZES:
+        cfg = _pf_cfg(n)
+        out = {}
+
+        def call(cfg=cfg, out=out):
+            out["k"] = pf_fused_rollout(cfg, _gen(dev, 0), PF_STEPS,
+                                        device=dev)
+
+        seconds = timed(call, reps=3, warmup=1, device=dev)
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        host_step = (time.perf_counter() - t0) / PF_STEPS
+        plain_s = timed(lambda cfg=cfg: pf_fused_rollout_plain(
+            cfg, _gen(dev, 0), PF_STEPS, device=dev), reps=1, warmup=0,
+            device=dev)
+        final, (x_true, x_est) = out["k"]
+        finals[n] = final
+        rmse = _rmse(x_true, x_est)
+        _require(PF_BAND[0] < rmse < PF_BAND[1], f"timed {n} RMSE {rmse}")
+        fs = pf_fused_init(cfg, final, device=dev)
+        step = dict(offs=0.5, obs_noise=torch.zeros(5, 2, device=dev))
+        kern, ess = pf_fused_step_stats(cfg, fs, None, 4242, **step)
+        plain, _ = pf_fused_step_stats_plain(cfg, fs, None, 4242, **step)
+        gap = _step_gap((kern.particles, kern.log_w, None),
+                        (plain.particles, plain.log_w, None))
+        err = max(err, *gap)
+        print(f"timing pf {n:,}x{PF_STEPS}: "
+              f"{n * PF_STEPS / seconds:.4e} particle-steps/s "
+              f"({seconds * 1e3:.3f} ms, host clock {host_step * 1e6:.1f} "
+              f"us a step); plain {n * PF_STEPS / plain_s:.4e} "
+              f"({plain_s * 1e3:.3f} ms); rmse {rmse:.4f}; step from the "
+              f"final state (ESS {float(ess):.1f}) max|kernel-plain| poses "
+              f"{gap[0]:.3e}, log weights {gap[1]:.3e}; on {smi}",
+              flush=True)
+    return finals[PF_SIZES[0]], err
+
+
+def _pf_profile(dev) -> None:
+    """13. Where a flagship rollout's time goes (torch.profiler): device
+    busy time over host wall time, and the largest device-time entries."""
+    import torch
+
+    from tpuslam_torch.ops import pf_fused_rollout
+
+    n = PF_SIZES[0]
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        pf_fused_rollout(_pf_cfg(n), _gen(dev, 0), PF_STEPS, device=dev)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", 0.0)
+        if us > 0:
+            by_name[evt.key] = by_name.get(evt.key, 0.0) + us
+    busy_ms = sum(by_name.values()) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    print(f"profile pf {n:,}x{PF_STEPS}: wall {wall_ms:.3f} ms, device "
+          f"busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%); "
+          + "; ".join(f"{k[:40]} {v / 1e3:.3f} ms" for k, v in top),
+          flush=True)
+
+
+def _pf_kernel_times(dev, smi, final, launches: dict, err: float,
+                     err_resample: tuple[float, float]):
+    """14. Each kernel alone at the flagship's shapes, on the flagship
+    rollout's final state, beside its plain version, its bound and,
+    where one PyTorch call computes the same function, that call.
+    Returns the three kernels' entries of the ``kernels`` line."""
+    import torch
+
+    from tpuslam_torch.ops import pf_cuda, pf_fused_init
+    from tpuslam_torch.ops import resample_cuda as rs
+
+    n = PF_SIZES[0]
+    cfg = _pf_cfg(n)
+    fs = pf_fused_init(cfg, final, device=dev)
+    p_rows, lw = fs.particles, fs.log_w
+    offs = torch.full((1,), 0.5, dtype=torch.float32, device=dev)
+    wq, base, q_tot = rs.quantize_weights(torch.exp(lw - fs.lse))
+    inv = 1.0 / q_tot
+    t_hi = rs.resample_boundary(wq, base, inv, offs, n)
+    counts = torch.diff(t_hi, prepend=t_hi.new_zeros(1)).to(torch.int64)
+    step_args = (cfg, 1, 0.0, p_rows, lw, _truth_view(dev)[1])
+    partial_bytes = 32 * -(-n // pf_cuda._BLOCK)
+    kernels = [
+        ("pf_step", "tpuslam_torch/csrc/pf_step.cu",
+         "tpuslam/ops/pf_pallas.py:144",
+         lambda: pf_cuda.pf_step_rows(*step_args),
+         lambda: pf_cuda.pf_step_rows_plain(*step_args), None,
+         _bound(32 * n + partial_bytes + 40, PF_STEP_OPS * n), err),
+        ("resample_boundary", "tpuslam_torch/csrc/resample.cu",
+         "tpuslam/ops/resample_pallas.py:883",
+         lambda: rs.resample_boundary(wq, base, inv, offs, n),
+         lambda: rs.resample_boundary_plain(wq, inv, offs, n), None,
+         _bound(8 * n + 4 * -(-n // rs.BLOCK) + 8, BOUNDARY_OPS * n),
+         err_resample[0]),
+        ("resample_expand", "tpuslam_torch/csrc/resample.cu",
+         "tpuslam/ops/resample_pallas.py:235",
+         lambda: rs.resample_expand(p_rows, t_hi, n),
+         lambda: rs.resample_expand_plain(p_rows, t_hi, n),
+         lambda: torch.repeat_interleave(p_rows, counts, dim=1,
+                                         output_size=n),
+         _bound(28 * n, 0), err_resample[1]),
+    ]
+    entries = []
+    for name, src, replaces, fn, plain_fn, lib_fn, bound, max_err in kernels:
+        ms = _device_ms(fn, 50)
+        plain_ms = _device_ms(plain_fn, 5)
+        library_ms = None if lib_fn is None else _device_ms(lib_fn, 20)
+        entries.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": library_ms})
+        print(f"kernel {name} at {n:,}: {ms:.4f} ms a launch, plain "
+              f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})"
+              + ("" if library_ms is None
+                 else f", torch.repeat_interleave {library_ms:.4f} ms")
+              + f"; {launches[name]} launches in the main path; on {smi}",
+              flush=True)
+    # The same kernel without the reductions (K2a), which the convenience
+    # call pf_fused_predict_weight launches; the main path does not.
+    ms = _device_ms(lambda: pf_cuda.pf_step_rows(*step_args,
+                                                 with_stats=False), 50)
+    plain_ms = _device_ms(lambda: pf_cuda.pf_step_rows_plain(
+        *step_args, with_stats=False), 5)
+    bound = _bound(32 * n + 40, (PF_STEP_OPS - 5) * n)
+    print(f"kernel pf_step without stats at {n:,}: {ms:.4f} ms a launch, "
+          f"plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}); "
+          f"on {smi}", flush=True)
+    return entries
+
+
+def _pf_phases(dev, smi):
+    """The PF path's phases, in order; returns its kernels' entries."""
+    err_step = _pf_step_parity(dev)
+    err_resample = _resample_parity(dev)
+    _pf_bands(dev)
+    launches = _pf_main_path(dev)
+    final, err_timed = _pf_timings(dev, smi)
+    _pf_profile(dev)
+    return _pf_kernel_times(dev, smi, final, launches,
+                            max(err_step, err_timed), err_resample)
 
 
 def main() -> int:
@@ -235,6 +671,10 @@ def main() -> int:
         err_timed.items()) + " (atol 1e-3 poses, rtol 1e-4 cov)",
         flush=True)
 
+    pf_entries = _pf_phases(dev, smi)
+
+    b, n = FLAGSHIP
+    bound_ms, bound_by = _bound(80 * b + 20 * n, EKF_OPS_PER_STEP * b * n)
     print(json.dumps({"kernels": [{
         "name": "ekf_rollout",
         "route": "cuda",
@@ -245,7 +685,10 @@ def main() -> int:
                            *err_timed.values()),
         "ms": ms["flagship"],
         "plain_ms": plain_ms,
-    }]}))
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }, *pf_entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -90,7 +90,7 @@ def test_trajectory_matches_oracle(rng, dtype):
     r = np.diag(np.asarray(CFG.r_std)) ** 2
     obs = rng.normal(size=(n, 2))
     dr = rng.normal(size=(n, 3)) * np.asarray(CFG.q_act_std)
-    state = tf.ekf_init(CFG, dtype=dtype)
+    state = tf.ekf_init(CFG, dtype=dtype, device="cpu")
     xt = np.asarray(CFG.x0)
     xdr, xhat = xt.copy(), xt.copy()
     p = np.diag(np.asarray(CFG.p0_std)) ** 2
@@ -138,7 +138,7 @@ def test_noise_bands():
 def test_state_round_trip_through_numpy(rng):
     x_true, x_dr, x_hat, cov = _random_state(rng, 4)
     jstate = jf.EkfState(*map(jnp.asarray, (x_true, x_dr, x_hat, cov)))
-    tstate = ekf_state_from_numpy(jstate)
+    tstate = ekf_state_from_numpy(jstate, device="cpu")
     assert tstate.cov.shape == (4, 3, 3)
     assert tstate.cov.dtype == torch.float32
     back = ekf_state_to_numpy(tstate)
@@ -151,3 +151,11 @@ def test_state_round_trip_through_numpy(rng):
                                      torch.zeros(4, 3))
     np.testing.assert_allclose(tnxt.x_hat.numpy(), np.asarray(nxt.x_hat),
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("fn,args", [(tf.ekf_init, (CFG,)),
+                                     (ekf_state_from_numpy, (None,))])
+def test_device_is_required(fn, args):
+    """No default device: leaving it out is an error, not the CPU path."""
+    with pytest.raises(TypeError, match="device"):
+        fn(*args)

@@ -38,6 +38,7 @@ def test_import_keeps_jax_out():
         "import sys\n"
         "import tpuslam_torch, tpuslam_torch.entry, tpuslam_torch.convert\n"
         "import tpuslam_torch.utils, tpuslam_torch.ops.ekf_cuda\n"
+        "import tpuslam_torch.ops.pf_cuda, tpuslam_torch.ops.resample_cuda\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'tpuslam')]\n"
         "assert not bad, bad\n")
@@ -68,7 +69,7 @@ def test_slice_metrics_match_jax(rng):
     obs = (rng.normal(size=(n, b, 2)) * cfg.r_act_std).astype(np.float32)
     dr = (rng.normal(size=(n, b, 3)) * cfg.q_act_std).astype(np.float32)
 
-    state = tf.ekf_init(cfg, (b,))
+    state = tf.ekf_init(cfg, (b,), device="cpu")
     outs = []
     for i in range(n):
         state, out = tf.ekf_step_with_noise(

@@ -1,4 +1,5 @@
-"""tpu-slam-sim's batched EKF-SLAM path in PyTorch, with CUDA kernels.
+"""tpu-slam-sim's batched EKF and single-filter particle filter in PyTorch,
+with CUDA kernels.
 
 A port of the JAX package ``tpuslam`` that mirrors its layout and public
 names; it imports neither JAX nor ``tpuslam``.
@@ -6,9 +7,10 @@ names; it imports neither JAX nor ``tpuslam``.
 Layer map:
     core/      angle wrap, SE(2) transforms, matmul precision
     models/    circular process model, observations
-    filters/   the EKF as plain functions on tensors
+    filters/   the EKF and the particle filter as plain functions on tensors
     metrics/   RMSE / NEES / divergence masks
-    ops/       CUDA kernels (csrc/) beside their plain torch versions
+    ops/       CUDA kernels (csrc/) beside their plain torch versions: the
+               EKF rollout, the PF step, the merge resample
     utils/     timing on the card
     convert    configs and state across from the JAX package
     entry      the single-call entry point

@@ -83,7 +83,7 @@ def _diag_sq(std: tuple, like: torch.Tensor) -> torch.Tensor:
 
 def ekf_init(cfg: EkfConfig, batch_shape: tuple = (), *,
              dtype: torch.dtype = torch.float32,
-             device: torch.device | str = "cpu") -> EkfState:
+             device: torch.device | str) -> EkfState:
     """Initial state (extended_kalman_filter.py:74-84), broadcast to
     ``batch_shape``."""
     x0 = torch.tensor(cfg.x0, dtype=dtype, device=device)

@@ -1,7 +1,9 @@
-"""Build the package's CUDA sources into one shared library at first use.
+"""Build the package's CUDA sources into one shared library at first use,
+and the checks every kernel wrapper makes before a launch.
 
-``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface, which is loaded with ``ctypes``.  The
+``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a``, one process per
+source, all at once, and linked into one shared library with a plain C
+interface, which is loaded with ``ctypes``.  The
 library goes into ``build/`` at the repository root, named by a hash of
 the sources, the headers and the flags, so an edit rebuilds it and an
 unchanged tree reuses it.  Nothing here runs when the package is
@@ -24,6 +26,8 @@ import subprocess
 import tempfile
 import time
 
+import torch
+
 _PKG_DIR = pathlib.Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build"
@@ -31,7 +35,8 @@ BUILD_DIR = _PKG_DIR.parent / "build"
 # No --use_fast_math: it would turn sinf/cosf into __sinf/__cosf and break
 # the noise-free parity with the plain path.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+NVCC_LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _lib: ctypes.CDLL | None = None
 #: Seconds the last build took (0.0 when the library was already built)
@@ -55,7 +60,7 @@ def _nvcc() -> str:
 
 def _sources() -> tuple[list[pathlib.Path], str]:
     sources = sorted(CSRC_DIR.glob("*.cu"))
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + NVCC_LINK_FLAGS).encode())
     for path in sources + sorted(CSRC_DIR.glob("*.cuh")):
         digest.update(path.name.encode())
         digest.update(path.read_bytes())
@@ -63,10 +68,20 @@ def _sources() -> tuple[list[pathlib.Path], str]:
 
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
-    ptr = ctypes.c_void_p
-    lib.tpuslam_ekf_rollout.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,
-                                        ctypes.c_int, ctypes.c_int, ptr]
-    lib.tpuslam_ekf_rollout.restype = ctypes.c_int
+    ptr, c_int = ctypes.c_void_p, ctypes.c_int
+    signatures = {
+        "tpuslam_ekf_rollout": [ptr, ptr, ptr, ptr, ptr, ptr, c_int, c_int,
+                                ptr],
+        "tpuslam_pf_step": [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, c_int,
+                            c_int, ptr],
+        "tpuslam_resample_boundary": [ptr, ptr, ptr, ptr, ptr, c_int, c_int,
+                                      ptr],
+        "tpuslam_resample_expand": [ptr, ptr, ptr, c_int, c_int, ptr],
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = c_int
     return lib
 
 
@@ -78,8 +93,57 @@ def _check_checkout() -> None:
             "and need one")
 
 
+def resolve_device(device: torch.device | str) -> torch.device:
+    """``device`` with the current CUDA index filled in where it has none."""
+    device = torch.device(device)
+    if (device.type == "cuda" and device.index is None
+            and torch.cuda.is_available()):
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def check_tensor(name: str, t: torch.Tensor, shape: tuple,
+                 dtype: torch.dtype, device: torch.device) -> None:
+    """Raise unless ``t`` is exactly what a kernel reads through a raw
+    pointer: this shape and dtype, on ``device``, contiguous."""
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} shape {tuple(t.shape)} != {tuple(shape)}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} dtype {t.dtype} != {dtype}")
+    if t.device != device:
+        raise ValueError(f"{name} on {t.device}, kernel on {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def cuda_library(device: torch.device) -> ctypes.CDLL:
+    """The kernel library for a launch on ``device``; raises where CUDA is
+    not available (a CUDA request never falls back to the plain path)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"kernel launch on {device} requested but CUDA "
+                           "is not available")
+    return load_library()
+
+
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands at once; raise if any fails; return their output."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    logs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, log in zip(cmds, procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{log}")
+    return "".join(logs)
+
+
 def load_library() -> ctypes.CDLL:
-    """Return the loaded kernel library, building it first if needed."""
+    """Return the loaded kernel library, building it first if needed.
+
+    Each source is compiled by its own ``nvcc``, all started together;
+    one more ``nvcc`` links the objects into the shared library.
+    """
     global _lib, build_seconds, build_log
     if _lib is not None:
         return _lib
@@ -88,22 +152,16 @@ def load_library() -> ctypes.CDLL:
     target = BUILD_DIR / f"tpuslam_torch_kernels-{digest}.so"
     if not target.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        try:
-            proc = subprocess.run(cmd, capture_output=True, text=True,
-                                  check=False)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                    f"{proc.stdout}{proc.stderr}")
-            os.replace(tmp, target)
-        finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            objs = [os.path.join(tmp, src.stem + ".o") for src in sources]
+            log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                            for src, obj in zip(sources, objs)])
+            lib_tmp = os.path.join(tmp, target.name)
+            log += _run_all([[nvcc, *NVCC_LINK_FLAGS, "-o", lib_tmp, *objs]])
+            os.replace(lib_tmp, target)
         build_seconds = time.perf_counter() - t0
-        build_log = proc.stdout + proc.stderr
+        build_log = log
     _lib = _declare(ctypes.CDLL(str(target)))
     return _lib

@@ -86,7 +86,7 @@ def truth_table(cfg: EkfConfig, n_steps: int,
     configuration on the device, by the plain torch ops of
     ``models/process.py``'s circular step, and kept.
     """
-    device = _resolve(device)
+    device = _build.resolve_device(device)
     key = (cfg, n_steps, device)
     tbl = _TABLES.get(key)
     if tbl is None:
@@ -102,15 +102,6 @@ def truth_table(cfg: EkfConfig, n_steps: int,
                                      torch.sin(t2)]))
         tbl = _TABLES[key] = torch.stack(rows).contiguous()
     return tbl
-
-
-def _resolve(device: torch.device | str) -> torch.device:
-    """``device`` with the current CUDA index filled in where it has none."""
-    device = torch.device(device)
-    if (device.type == "cuda" and device.index is None
-            and torch.cuda.is_available()):
-        device = torch.device("cuda", torch.cuda.current_device())
-    return device
 
 
 def _mode(noise_on: bool, normals: torch.Tensor | None) -> int:
@@ -162,7 +153,7 @@ def ekf_fused_rollout_plain(cfg: EkfConfig, seed: int, batch: int,
 
     Same arguments and returns as :func:`ekf_fused_rollout`.
     """
-    device = _resolve(device)
+    device = _build.resolve_device(device)
     _check(batch, n_steps, normals, device)
     mode = _mode(noise_on, normals)
     tbl = truth_table(cfg, n_steps, device)
@@ -283,10 +274,7 @@ def _launch(cfg: EkfConfig, seed: int, batch: int, n_steps: int, mode: int,
             with_nees: bool, normals: torch.Tensor | None,
             device: torch.device):
     global launch_count
-    if not torch.cuda.is_available():
-        raise RuntimeError(f"rollout on {device} requested but CUDA is not "
-                           "available")
-    lib = _build.load_library()
+    lib = _build.cuda_library(device)
     with torch.cuda.device(device):
         tbl = truth_table(cfg, n_steps, device)
         f32 = dict(dtype=torch.float32, device=device)
@@ -335,7 +323,7 @@ def ekf_fused_rollout(cfg: EkfConfig, seed: int, batch: int, n_steps: int,
         for the per-rollout RMSE).  With ``with_nees=True``,
         ``(EkfState, sum_sq_err, sum_nees)``.
     """
-    device = _resolve(device)
+    device = _build.resolve_device(device)
     seed = int(seed)
     if device.type == "cpu":
         return ekf_fused_rollout_plain(cfg, seed, batch, n_steps, noise_on,

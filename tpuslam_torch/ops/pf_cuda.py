@@ -1,0 +1,623 @@
+"""The fused particle-filter step: K2 as a CUDA kernel and its plain twin,
+and the fused PF path built on it.
+
+Port of ``tpuslam/ops/pf_pallas.py``.  One launch of ``csrc/pf_step.cu``
+(see that file for the design) moves every particle one step, adds the
+landmark log-likelihood to its log weight and, on the stats path,
+reduces the step's logsumexp, the logsumexp of twice the log weights and
+the MAP particle in the same pass.  The plain twins compute the same in
+plain torch, with the kernel's arithmetic (the polynomial sincos with
+noise on, builtin trig with noise off, the same wrap and operation
+order) and, with Philox noise, the kernel's random bits; the two differ
+only by rounding (the kernel's compiler contracts ``a*b + c`` into FMAs)
+and the order of the sums.
+
+State: the carried particles are plain ``(3, N)`` float32 rows and the
+log weights ``(N,)``; the TPU package's sublane packing and padding are
+not ported.  The step functions allocate fresh outputs, so no caller's
+tensor is updated in place.
+
+Dispatch is by device: a CPU tensor runs the plain versions; a CUDA
+tensor launches the kernels or raises.  The ``*_plain`` functions run
+the plain versions on any device (the card's reference).
+
+Noise: with ``noise_on`` and no ``normals``, each particle draws three
+normals by Box-Muller from Philox4x32-10 keyed by the step's seed with
+the counter ``(particle index, 0, 0, 0)``.  ``normals`` of shape
+``(3, N)`` (x, y, yaw rows; unscaled standard normals) replaces that
+stream.  The observation noise and the comb offsets come from a
+``torch.Generator`` or are supplied by the caller.
+
+ESS gate: deciding whether a step resamples reads one device scalar on
+the host, one synchronisation a step (counted in :data:`sync_count`).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+import typing
+
+import torch
+
+from tpuslam_torch.core.angles import wrap_angle
+from tpuslam_torch.core.se2 import world_to_robot
+from tpuslam_torch.filters.pf import (PfConfig, PfState, pf_init,
+                                      resample_indices_from_offs,
+                                      weights_from_log)
+from tpuslam_torch.models.process import circular_step
+from tpuslam_torch.ops import _build, resample_cuda
+from tpuslam_torch.ops.fastmath import (normals_from_bits, philox4x32,
+                                        sincos_rad)
+
+#: Launches of the CUDA kernel since this count was last set to 0.
+launch_count = 0
+#: Host synchronisations of the ESS gate since this count was last set
+#: to 0 (one a step of the fused path).
+sync_count = 0
+
+#: The per-step kernel seed of :func:`pf_fused_rollout`: the JAX
+#: package's start value and advance.
+SEED0 = 1
+SEED_STEP = 7919
+
+_MODE_OFF, _MODE_PHILOX, _MODE_NORMALS = 0, 1, 2
+_MASK32 = 0xFFFFFFFF
+_BLOCK = 256  # the kernel's kBlock: particles per partial row
+_MAX_LANDMARKS = 8
+_MAX_N = 1 << 24  # partial-row indices exact in float32
+_NEG_INF = float("-inf")
+
+# Truth and noise-free observation tables from cfg.x0 by (cfg, n_steps,
+# device): built once per configuration on the device and kept.
+_TRUTH: dict = {}
+
+
+class _PfParams(ctypes.Structure):
+    """Mirror of ``PfParams`` in ``csrc/pf_step.cu``."""
+
+    _fields_ = [("n", ctypes.c_longlong), ("key0", ctypes.c_uint32),
+                ("key1", ctypes.c_uint32), ("n_lm", ctypes.c_int)] + [
+        (name, ctypes.c_float) for name in (
+            "flag", "vdt", "wdt", "q0", "q1", "q2", "sx", "sy",
+            "log_norm")] + [("lm", ctypes.c_float * (2 * _MAX_LANDMARKS))]
+
+
+class PfFusedState(typing.NamedTuple):
+    """Carried state of the fused PF path.
+
+    Weights live as unnormalized log weights plus their normalizers
+    (``lse = logsumexp(log_w)``, ``lse2 = logsumexp(2 log_w)``), so no
+    step materializes normalized weights unless it resamples.
+    """
+
+    x_true: torch.Tensor  # (3,)
+    particles: torch.Tensor  # (3, N) rows x, y, yaw
+    log_w: torch.Tensor  # (N,) unnormalized
+    lse: torch.Tensor  # scalar
+    lse2: torch.Tensor  # scalar
+    x_est: torch.Tensor  # (3,) the step's point estimate
+
+
+def _mode(noise_on: bool, normals: torch.Tensor | None) -> int:
+    if normals is not None:
+        if not noise_on:
+            raise ValueError("normals given with noise_on=False")
+        return _MODE_NORMALS
+    return _MODE_PHILOX if noise_on else _MODE_OFF
+
+
+def _check(cfg: PfConfig, p_rows: torch.Tensor, lw: torch.Tensor,
+           z: torch.Tensor, normals: torch.Tensor | None) -> None:
+    n = cfg.num_particles
+    if not 1 <= n < _MAX_N:
+        raise ValueError(f"num_particles {n} must be in [1, 2**24)")
+    if not 0 <= len(cfg.landmarks) <= _MAX_LANDMARKS:
+        raise ValueError(f"at most {_MAX_LANDMARKS} landmarks")
+    want = {"particles": (p_rows, (3, n)), "log_w": (lw, (n,)),
+            "z": (z, (len(cfg.landmarks), 2))}
+    if normals is not None:
+        want["normals"] = (normals, (3, n))
+    for name, (t, shape) in want.items():
+        _build.check_tensor(name, t, shape, torch.float32, lw.device)
+
+
+def _predict_loglik(cfg: PfConfig, z: torch.Tensor, x, y, yaw, mode: int,
+                    normals: torch.Tensor | None = None, seed: int = 0):
+    """The kernel's per-particle math in plain torch: circular predict
+    with Q noise, then the landmark log-likelihood.
+
+    Returns the ``(N,)`` rows ``(x', y', yaw', loglik)``.
+    """
+    if mode == _MODE_PHILOX:
+        idx = torch.arange(x.shape[0], dtype=torch.int64, device=x.device)
+        a0, a1, a2, a3 = philox4x32(idx, 0, 0, 0, seed & _MASK32,
+                                    (seed >> 32) & _MASK32)
+        n0, n1 = normals_from_bits(a0, a1)
+        n2, _ = normals_from_bits(a2, a3)
+    elif mode == _MODE_NORMALS:
+        n0, n1, n2 = normals.unbind()
+
+    vdt, wdt = cfg.vel * cfg.dt, cfg.yaw_rate * cfg.dt
+    q0, q1, q2 = cfg.q_std
+    if mode == _MODE_OFF:
+        x = x + vdt * torch.cos(yaw)
+        y = y + vdt * torch.sin(yaw)
+        yaw = wrap_angle(yaw + wdt)
+        ang = math.pi / 2.0 - yaw
+        c, s = torch.cos(ang), torch.sin(ang)
+    else:
+        c_o, s_o = sincos_rad(yaw)
+        x = x + vdt * c_o + n0 * q0
+        y = y + vdt * s_o + n1 * q1
+        yaw = wrap_angle(yaw + wdt) + n2 * q2
+        s, c = sincos_rad(yaw)  # (cos, sin) of pi/2 - yaw = (sin, cos) yaw
+
+    sx, sy = cfg.r_std
+    log_norm = math.log(2.0 * math.pi * sx * sy)
+    acc = torch.zeros_like(x)
+    for li, (lm_x, lm_y) in enumerate(cfg.landmarks):
+        dx = lm_x - x
+        dy = lm_y - y
+        ddx = (c * dx - s * dy - z[li, 0]) / sx
+        ddy = (s * dx + c * dy - z[li, 1]) / sy
+        acc = acc - 0.5 * (ddx * ddx + ddy * ddy) - log_norm
+    return x, y, yaw, acc
+
+
+def _partial_plain(p_rows: torch.Tensor, lw: torch.Tensor) -> torch.Tensor:
+    """The kernel's partial row over all particles at once: ``(1, 8)``."""
+    key = torch.where(torch.isnan(lw), _NEG_INF, lw)
+    m = key.max()
+    e = torch.exp(lw - torch.clamp(m, min=-1e30))
+    idx = torch.arange(lw.shape[0], device=lw.device)
+    best = torch.where(key == m, idx, -1).max()
+    return torch.cat([torch.stack([m, e.sum(), (e * e).sum()]),
+                      p_rows[:, best], best.to(lw.dtype)[None],
+                      lw.new_zeros(1)])[None]
+
+
+def _combine_stats(parts: torch.Tensor):
+    """Reduce the ``(G, 8)`` partial rows.
+
+    Returns ``(stats, best)``: ``stats`` is ``(6,)``
+    ``[lse, lse2, x_map, y_map, yaw_map, best_lw]`` (the JAX package's
+    contract) and ``best`` the MAP particle's flat index (float32): the
+    highest index among the maxima.
+    """
+    m_g, s_g, s2_g = parts[:, 0], parts[:, 1], parts[:, 2]
+    m = m_g.max()
+    e = torch.exp(m_g - torch.clamp(m, min=-1e30))
+    lse = m + torch.log(torch.sum(e * s_g))
+    lse2 = 2.0 * m + torch.log(torch.sum(e * e * s2_g))
+    row = parts[torch.argmax(torch.where(m_g == m, parts[:, 6], -1.0))]
+    return torch.cat([torch.stack([lse, lse2]), row[3:6], m[None]]), row[6]
+
+
+def _constants(cfg: PfConfig) -> dict:
+    """The kernel's scalar constants as Python floats, folded in double
+    as the JAX kernel's weakly typed scalars are."""
+    q0, q1, q2 = cfg.q_std
+    sx, sy = cfg.r_std
+    lm = [v for xy in cfg.landmarks for v in xy]
+    lm += [0.0] * (2 * _MAX_LANDMARKS - len(lm))
+    return dict(vdt=cfg.vel * cfg.dt, wdt=cfg.yaw_rate * cfg.dt, q0=q0,
+                q1=q1, q2=q2, sx=sx, sy=sy,
+                log_norm=math.log(2.0 * math.pi * sx * sy),
+                lm=(ctypes.c_float * (2 * _MAX_LANDMARKS))(*lm))
+
+
+def pf_step_rows_plain(cfg: PfConfig, seed: int, flag: float,
+                       p_rows: torch.Tensor, lw: torch.Tensor,
+                       z: torch.Tensor, noise_on: bool = True,
+                       normals: torch.Tensor | None = None,
+                       with_stats: bool = True):
+    """Plain twin of :func:`pf_step_rows`, on any device; its partial
+    rows are one row over all particles."""
+    mode = _mode(noise_on, normals)
+    _check(cfg, p_rows, lw, z, normals)
+    x, y, yaw, acc = _predict_loglik(cfg, z, p_rows[0], p_rows[1], p_rows[2],
+                                     mode, normals, int(seed))
+    if with_stats and flag > 0:
+        lw = torch.zeros_like(lw)
+    p_rows, lw = torch.stack([x, y, yaw]), lw + acc
+    return p_rows, lw, _partial_plain(p_rows, lw) if with_stats else None
+
+
+def pf_step_rows(cfg: PfConfig, seed: int, flag: float,
+                 p_rows: torch.Tensor, lw: torch.Tensor, z: torch.Tensor,
+                 noise_on: bool = True, normals: torch.Tensor | None = None,
+                 with_stats: bool = True):
+    """K2: one launch of the step kernel over ``(3, N)`` rows.
+
+    ``with_stats`` is K2b (the reset ``flag`` and the partial rows), else
+    K2a.  A CPU tensor runs :func:`pf_step_rows_plain`.
+
+    Returns:
+        ``(p_rows', lw', parts)``: fresh ``(3, N)`` and ``(N,)`` tensors
+        and the ``(ceil(N / 256), 8)`` partial rows for
+        :func:`_combine_stats` (``None`` without stats).
+    """
+    global launch_count
+    device = lw.device
+    if device.type == "cpu":
+        return pf_step_rows_plain(cfg, seed, flag, p_rows, lw, z, noise_on,
+                                  normals, with_stats)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    mode = _mode(noise_on, normals)
+    _check(cfg, p_rows, lw, z, normals)
+    lib = _build.cuda_library(device)
+    seed, n = int(seed), cfg.num_particles
+    with torch.cuda.device(device):
+        p_out = torch.empty_like(p_rows)
+        lw_out = torch.empty_like(lw)
+        parts = (torch.empty((-(-n // _BLOCK), 8), dtype=torch.float32,
+                             device=device) if with_stats else None)
+        params = _PfParams(n=n, key0=seed & _MASK32,
+                           key1=(seed >> 32) & _MASK32,
+                           n_lm=len(cfg.landmarks), flag=float(flag),
+                           **_constants(cfg))
+        rc = lib.tpuslam_pf_step(
+            p_rows.data_ptr(), lw.data_ptr(), z.data_ptr(),
+            None if normals is None else normals.data_ptr(),
+            p_out.data_ptr(), lw_out.data_ptr(),
+            None if parts is None else parts.data_ptr(),
+            ctypes.addressof(params), mode, int(with_stats),
+            torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"pf_step kernel launch failed: CUDA error {rc}")
+    launch_count += 1
+    return p_out, lw_out, parts
+
+
+def _step_rows(cfg: PfConfig, seed: int, flag: float, p_rows: torch.Tensor,
+               lw: torch.Tensor, z: torch.Tensor, noise_on: bool,
+               normals: torch.Tensor | None, with_stats: bool, plain: bool):
+    """:func:`pf_step_rows` (or its plain twin) with the partial rows
+    combined: returns ``(p_rows', lw')`` and, ``with_stats``, also
+    ``(stats, best)`` from :func:`_combine_stats`."""
+    step = pf_step_rows_plain if plain else pf_step_rows
+    p_rows, lw, parts = step(cfg, seed, flag, p_rows, lw, z, noise_on,
+                             normals, with_stats)
+    if with_stats:
+        return (p_rows, lw) + _combine_stats(parts)
+    return p_rows, lw
+
+
+def _as_rows(particles: torch.Tensor) -> torch.Tensor:
+    return particles.to(torch.float32).T.contiguous()
+
+
+def _predict_weight(cfg, seed, particles, log_w, z, noise_on, normals,
+                    plain):
+    p_rows, lw = _step_rows(cfg, seed, 0.0, _as_rows(particles),
+                            log_w.to(torch.float32), z, noise_on, normals,
+                            False, plain)
+    return p_rows.T, lw
+
+
+def pf_fused_predict_weight(cfg: PfConfig, seed: int,
+                            particles: torch.Tensor, log_w: torch.Tensor,
+                            z: torch.Tensor, noise_on: bool = True,
+                            normals: torch.Tensor | None = None):
+    """K2a: fused predict + log-likelihood weight update.
+
+    Args:
+        seed: key of the kernel's Philox stream.
+        particles: ``(NP, 3)``; log_w: ``(NP,)`` unnormalized log weights.
+        z: ``(L, 2)`` robot-frame landmark observation.
+        normals: optional ``(3, NP)`` standard normals in place of the
+            Philox stream (noise on only).
+
+    Returns:
+        ``(particles', log_w')`` with the same shapes (``log_w'``
+        unnormalized).
+    """
+    return _predict_weight(cfg, seed, particles, log_w, z, noise_on,
+                           normals, plain=False)
+
+
+def pf_fused_predict_weight_plain(cfg: PfConfig, seed: int,
+                                  particles: torch.Tensor,
+                                  log_w: torch.Tensor, z: torch.Tensor,
+                                  noise_on: bool = True,
+                                  normals: torch.Tensor | None = None):
+    """Plain twin of :func:`pf_fused_predict_weight`, on any device."""
+    return _predict_weight(cfg, seed, particles, log_w, z, noise_on,
+                           normals, plain=True)
+
+
+def _predict_weight_stats(cfg, seed, uniform_flag, particles, log_w, z,
+                          noise_on, normals, plain):
+    p_rows, lw, stats, _ = _step_rows(
+        cfg, seed, float(uniform_flag), _as_rows(particles),
+        log_w.to(torch.float32), z, noise_on, normals, True, plain)
+    return p_rows.T, lw, stats
+
+
+def pf_fused_predict_weight_stats(cfg: PfConfig, seed: int, uniform_flag,
+                                  particles: torch.Tensor,
+                                  log_w: torch.Tensor, z: torch.Tensor,
+                                  noise_on: bool = True,
+                                  normals: torch.Tensor | None = None):
+    """K2b: :func:`pf_fused_predict_weight` plus the step's reductions
+    in the same pass.
+
+    Args:
+        uniform_flag: > 0 treats the incoming ``log_w`` as uniform zeros
+            (the lazy NaN->uniform reset).
+
+    Returns:
+        ``(particles', log_w', stats)`` where ``stats`` is ``(6,)``
+        ``[lse, lse2, x_map, y_map, yaw_map, best_lw]``: the logsumexp of
+        ``log_w'`` and of ``2 log_w'``, and the max-weight particle (the
+        highest index among equal maxima).
+    """
+    return _predict_weight_stats(cfg, seed, uniform_flag, particles, log_w,
+                                 z, noise_on, normals, plain=False)
+
+
+def pf_fused_predict_weight_stats_plain(cfg: PfConfig, seed: int,
+                                        uniform_flag,
+                                        particles: torch.Tensor,
+                                        log_w: torch.Tensor,
+                                        z: torch.Tensor,
+                                        noise_on: bool = True,
+                                        normals: torch.Tensor | None = None):
+    """Plain twin of :func:`pf_fused_predict_weight_stats`, on any
+    device."""
+    return _predict_weight_stats(cfg, seed, uniform_flag, particles, log_w,
+                                 z, noise_on, normals, plain=True)
+
+
+def pf_fused_init(cfg: PfConfig, state0: PfState | None = None, *,
+                  device: torch.device | str) -> PfFusedState:
+    """Lift a :class:`PfState` (default :func:`pf_init`) into the fused
+    representation on ``device``."""
+    device = _build.resolve_device(device)
+    if state0 is None:
+        state0 = pf_init(cfg, device=device)
+    f32 = dict(dtype=torch.float32, device=device)
+    weights = state0.weights.to(**f32)
+    lw = torch.log(torch.clamp(weights, min=1e-38))
+    particles = state0.particles.to(**f32)
+    return PfFusedState(
+        x_true=state0.x_true.to(**f32), particles=particles.T.contiguous(),
+        log_w=lw, lse=torch.logsumexp(lw, dim=0),
+        lse2=torch.logsumexp(2.0 * lw, dim=0),
+        x_est=particles[torch.argmax(weights)])
+
+
+def pf_fused_to_state(cfg: PfConfig, fs: PfFusedState) -> PfState:
+    """Normalized weights (NaN->uniform, particle_filter.py:226-237) back
+    in a :class:`PfState`."""
+    return PfState(x_true=fs.x_true, particles=fs.particles.T,
+                   weights=weights_from_log(cfg, fs.log_w, fs.lse))
+
+
+def _step(cfg: PfConfig, fs: PfFusedState, x_true: torch.Tensor,
+          z: torch.Tensor, seed: int, offs: torch.Tensor, noise_on: bool,
+          normals: torch.Tensor | None, plain: bool):
+    """One step from the step's truth and observation: ESS gate,
+    resample where it fires, then the stats pass and the estimate."""
+    global sync_count
+    n = cfg.num_particles
+    bad = ~(torch.isfinite(fs.lse) & torch.isfinite(fs.lse2))
+    ess = torch.where(bad, float(n), torch.exp(2.0 * fs.lse - fs.lse2))
+    fire = ess < n * cfg.ess_threshold_frac
+    do_rs, is_bad = torch.stack([fire, bad]).tolist()
+    sync_count += 1
+
+    particles, log_w = fs.particles, fs.log_w
+    if do_rs:
+        w = torch.exp(log_w - fs.lse)
+        if cfg.resample_method == "merge":
+            resample = (resample_cuda.merge_resample_rows_plain if plain
+                        else resample_cuda.merge_resample_rows)
+            particles = resample(particles, w, n, offs,
+                                 device=particles.device)
+        else:
+            idx = resample_indices_from_offs(offs, w, cfg.resample_method)
+            particles = particles[:, idx]
+        log_w = torch.zeros_like(log_w)
+    # The lazy NaN->uniform reset rides the kernel's read of log_w.
+    flag = 1.0 if is_bad and not do_rs else 0.0
+    particles, log_w, stats, _ = _step_rows(
+        cfg, seed, flag, particles, log_w, z, noise_on, normals, True, plain)
+    lse = stats[0]
+
+    if cfg.estimate == "mean":
+        weights = weights_from_log(cfg, log_w, lse)
+        x, y, yaw = particles
+        x_est = torch.stack([
+            torch.sum(weights * x), torch.sum(weights * y),
+            torch.atan2(torch.sum(weights * torch.sin(yaw)),
+                        torch.sum(weights * torch.cos(yaw)))])
+    else:
+        # All-NaN weights reset to uniform, whose argmax is particle 0.
+        x_est = torch.where(torch.isfinite(lse), stats[2:5],
+                            particles[:, 0])
+    return PfFusedState(x_true=x_true, particles=particles, log_w=log_w,
+                        lse=lse, lse2=stats[1], x_est=x_est), ess
+
+
+def _draws(cfg: PfConfig, generator: torch.Generator | None, n_steps: int,
+           offs, obs_noise, device: torch.device):
+    """The comb offsets ``(n_steps,)`` and scaled observation noise
+    ``(n_steps, L, 2)``: the caller's, or drawn from ``generator``."""
+    f32 = dict(dtype=torch.float32, device=device)
+    n_lm = len(cfg.landmarks)
+    if offs is None:
+        offs = torch.rand((n_steps,), generator=generator, **f32)
+    else:
+        offs = torch.as_tensor(offs, **f32).reshape(n_steps)
+    if obs_noise is None:
+        obs_noise = torch.randn((n_steps, n_lm, 2), generator=generator,
+                                **f32) * torch.tensor(cfg.r_std, **f32)
+    else:
+        obs_noise = torch.as_tensor(obs_noise, **f32).reshape(n_steps, n_lm,
+                                                              2)
+    return offs, obs_noise
+
+
+def _observe(cfg: PfConfig, x_true: torch.Tensor) -> torch.Tensor:
+    lm = torch.tensor(cfg.landmarks, dtype=x_true.dtype,
+                      device=x_true.device)
+    return world_to_robot(x_true, lm)
+
+
+def _step_stats(cfg, fs, generator, seed, noise_on, offs, obs_noise,
+                normals, plain):
+    offs, obs_noise = _draws(cfg, generator, 1, offs, obs_noise,
+                             fs.particles.device)
+    x_true = circular_step(fs.x_true, cfg.vel, cfg.yaw_rate, cfg.dt)
+    z = (_observe(cfg, x_true) + obs_noise[0]).contiguous()
+    return _step(cfg, fs, x_true, z, seed, offs[0], noise_on, normals,
+                 plain)
+
+
+def pf_fused_step_stats(cfg: PfConfig, fs: PfFusedState,
+                        generator: torch.Generator | None, seed: int,
+                        noise_on: bool = True, *, offs=None, obs_noise=None,
+                        normals: torch.Tensor | None = None):
+    """One PF step on the fused state, one pass over particle memory
+    unless the ESS gate fires.
+
+    Semantics of ``pf_step`` in log-weight mode (resample -> predict ->
+    observe -> weight -> normalize -> estimate), with the normalization,
+    the ESS and the MAP estimate from the kernel's reductions.  With
+    ``resample_method="merge"`` the resample runs
+    :func:`~tpuslam_torch.ops.resample_cuda.merge_resample_rows`.
+
+    Args:
+        generator: draws the comb offset and the observation noise (on
+            the state's device) where ``offs`` / ``obs_noise`` are not
+            given.
+        seed: key of the kernel's Philox particle-noise stream.
+        offs: optional comb offset in [0, 1).
+        obs_noise: optional ``(L, 2)`` scaled observation noise.
+        normals: optional ``(3, N)`` standard normals for the particle
+            noise (noise on only).
+
+    Returns:
+        ``(next_fs, ess)`` with the ESS before resampling.
+    """
+    return _step_stats(cfg, fs, generator, seed, noise_on, offs, obs_noise,
+                       normals, plain=False)
+
+
+def pf_fused_step_stats_plain(cfg: PfConfig, fs: PfFusedState,
+                              generator: torch.Generator | None, seed: int,
+                              noise_on: bool = True, *, offs=None,
+                              obs_noise=None,
+                              normals: torch.Tensor | None = None):
+    """:func:`pf_fused_step_stats` through the plain twins only, on any
+    device."""
+    return _step_stats(cfg, fs, generator, seed, noise_on, offs, obs_noise,
+                       normals, plain=True)
+
+
+def pf_fused_step(cfg: PfConfig, state: PfState,
+                  generator: torch.Generator | None, seed: int,
+                  noise_on: bool = True, *, offs=None, obs_noise=None):
+    """One fused PF step with a :class:`PfState` in and out, on the
+    state's device (see :func:`pf_fused_step_stats`).
+
+    Returns ``(next_state, ess)``.
+    """
+    fs = pf_fused_init(cfg, state, device=state.particles.device)
+    fs, ess = pf_fused_step_stats(cfg, fs, generator, seed, noise_on,
+                                  offs=offs, obs_noise=obs_noise)
+    return pf_fused_to_state(cfg, fs), ess
+
+
+def truth_table(cfg: PfConfig, x_true0: torch.Tensor, n_steps: int):
+    """``(x_true, z_clean)``: the ``(n_steps, 3)`` ground truth after each
+    step from ``x_true0`` and the ``(n_steps, L, 2)`` noise-free
+    observation of the landmarks from it, by the plain torch ops of the
+    circular step on ``x_true0``'s device.
+    """
+    rows, x = [], x_true0
+    for _ in range(n_steps):
+        x = circular_step(x, cfg.vel, cfg.yaw_rate, cfg.dt)
+        rows.append(x)
+    x_tbl = torch.stack(rows)
+    return x_tbl, _observe(cfg, x_tbl)
+
+
+def _truth_tables(cfg: PfConfig, fs: PfFusedState, n_steps: int,
+                  from_x0: bool):
+    """:func:`truth_table` from the state's truth.  From ``cfg.x0`` the
+    tables are the same for every rollout, so they are kept by
+    ``(cfg, n_steps, device)``, as the EKF's are; a caller's own start
+    state gets fresh tables."""
+    if not from_x0:
+        return truth_table(cfg, fs.x_true, n_steps)
+    key = (cfg, n_steps, fs.x_true.device)
+    tables = _TRUTH.get(key)
+    if tables is None:
+        tables = _TRUTH[key] = truth_table(cfg, fs.x_true, n_steps)
+    return tables
+
+
+def _rollout(cfg, generator, n_steps, state0, noise_on, device, offs,
+             obs_noise, plain):
+    device = _build.resolve_device(device)
+    if n_steps < 1:
+        raise ValueError(f"n_steps {n_steps} must be positive")
+    if device.type == "cuda" and not plain:
+        _build.cuda_library(device)
+    fs = pf_fused_init(cfg, state0, device=device)
+    x_tbl, z_clean = _truth_tables(cfg, fs, n_steps, state0 is None)
+    offs, obs_noise = _draws(cfg, generator, n_steps, offs, obs_noise,
+                             device)
+    z_all = (z_clean + obs_noise).contiguous()
+    seed = SEED0
+    x_est = []
+    for k in range(n_steps):
+        fs, _ = _step(cfg, fs, x_tbl[k], z_all[k], seed, offs[k], noise_on,
+                      None, plain)
+        x_est.append(fs.x_est)
+        seed += SEED_STEP
+    return pf_fused_to_state(cfg, fs), (x_tbl, torch.stack(x_est))
+
+
+def pf_fused_rollout(cfg: PfConfig, generator: torch.Generator | None,
+                     n_steps: int, state0: PfState | None = None,
+                     noise_on: bool = True, *, device: torch.device | str,
+                     offs=None, obs_noise=None):
+    """``n_steps`` fused PF steps (the path of ``bench.py``'s
+    ``bench_pf_pallas``).
+
+    The kernel's seed starts at :data:`SEED0` and advances by
+    :data:`SEED_STEP` a step, as in the JAX package.
+
+    Args:
+        generator: draws the comb offsets and observation noise where
+            ``offs`` / ``obs_noise`` are not given; on ``device``.
+        state0: initial state (default :func:`pf_init`).
+        device: required; a CUDA device launches the kernels, the CPU
+            runs the plain twins.  There is no default, so no caller
+            lands on the plain path by leaving it out.
+        offs: optional ``(n_steps,)`` comb offsets.
+        obs_noise: optional ``(n_steps, L, 2)`` scaled observation noise.
+
+    Returns:
+        ``(final_state, (x_true, x_est))`` with ``(n_steps, 3)``
+        trajectories.
+    """
+    return _rollout(cfg, generator, n_steps, state0, noise_on, device, offs,
+                    obs_noise, plain=False)
+
+
+def pf_fused_rollout_plain(cfg: PfConfig,
+                           generator: torch.Generator | None, n_steps: int,
+                           state0: PfState | None = None,
+                           noise_on: bool = True, *,
+                           device: torch.device | str, offs=None,
+                           obs_noise=None):
+    """:func:`pf_fused_rollout` through the plain twins only, on any
+    device."""
+    return _rollout(cfg, generator, n_steps, state0, noise_on, device, offs,
+                    obs_noise, plain=True)
