@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths once on one CUDA card: the batched
-EKF and the single-filter particle filter.
+EKF and the single-filter, batched and wide particle filters.
 
 Run from the repository root with no arguments::
 
@@ -10,10 +10,12 @@ It builds the CUDA kernels from ``tpuslam_torch/csrc``, holds each kernel
 against its plain torch version on the card, checks the noisy filters
 against their statistical bands, drives each path through the calls a
 user makes (the EKF entry point; the fused PF rollout at 2,097,152
-particles x 400 steps) with the kernels' launch counts set to 0 just
-before and read just after, and times the kernels and the plain versions
-at the main paths' shapes, holding the timed outputs to the plain
-versions' too.  Each phase prints one line; a failing phase raises, so
+particles x 400 steps; the batched PF at 8192 filters x 1000 particles
+and the wide PF at 1024 x 10,000, 400 steps each) with the kernels'
+launch counts set to 0 just before and read just after (and, on the
+batched paths, the host synchronisations counted, which must be 0), and
+times the kernels and the plain versions at the main paths' shapes,
+holding the timed outputs to the plain versions' or to their bands.  Each phase prints one line; a failing phase raises, so
 the script exits non-zero and prints no result.  The second-to-last
 line is a JSON object describing each kernel; the last line is
 ``{"ok": true, "device": {...}}``.  It needs a CUDA device and imports no
@@ -49,6 +51,18 @@ PF_BAND_SHAPE = (100_000, 100)
 # Particle counts of the step-kernel parity phase: noise off and Philox at
 # the first, injected normals at the second.
 PF_STEP_CHECK = (1_000_000, 65_536)
+
+# The batched and wide paths at bench.py's sizes (filters x particles, 400
+# steps: bench_pf_batch, bench.py:128-144, :576-587; bench_pf_batch_wide,
+# :147-164, :594-608).  The first of each is the main path, the JAX
+# package's full width.  Their bands: position RMSE over every filter and
+# step at 256 x 1000 x 100 and 32 x 10,000 x 100 (bench.py:476-488).
+BATCH_SIZES = ((8192, 1000), (1024, 1000))
+WIDE_SIZES = ((1024, 10_000), (128, 10_000))
+BATCH_MAIN, WIDE_MAIN = BATCH_SIZES[0], WIDE_SIZES[0]
+BATCH_BAND = (0.02, 0.50)
+BATCH_BAND_SHAPE = (256, 1000, 100)
+WIDE_BAND_SHAPE = (32, 10_000, 100)
 
 # The least time the card could take: bytes over the HBM rate against
 # float32 operations over the non-tensor-core float32 rate (NVIDIA H100
@@ -135,20 +149,20 @@ def _device_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _step_gap(kernel, plain):
+def _step_gap(kernel, plain, what: str = "pf_step"):
     """Largest |kernel - plain| of a PF step's poses (yaw modulo 2*pi)
-    and of its log weights; raises past atol 1e-4 on poses and
-    1e-4 + 1e-5 |lw| on log weights (FMA contraction against separate
-    roundings, over five landmark terms)."""
+    and of its log weights, rows ``(3, ...)`` and ``(...)``; raises past
+    atol 1e-4 on poses and 1e-4 + 1e-5 |lw| on log weights (FMA
+    contraction against separate roundings, over five landmark terms)."""
     (kp, klw, _), (pp, plw, _) = kernel, plain
     _require(kp.shape == pp.shape and bool(kp.isfinite().all()),
-             "pf_step rows: shape or finiteness")
+             f"{what} rows: shape or finiteness")
     pose = max(float((kp[:2] - pp[:2]).abs().max()),
                float(_yaw_gap(kp[2], pp[2]).max()))
-    _require(pose <= 1e-4, f"pf_step poses: kernel vs plain {pose}")
+    _require(pose <= 1e-4, f"{what} poses: kernel vs plain {pose}")
     d = (klw - plw).abs()
     _require(bool((d <= 1e-4 + 1e-5 * plw.abs()).all()),
-             f"pf_step log weights: kernel vs plain max {float(d.max())}")
+             f"{what} log weights: kernel vs plain max {float(d.max())}")
     return pose, float(d.max())
 
 
@@ -403,19 +417,16 @@ def _pf_timings(dev, smi):
     return finals[PF_SIZES[0]], err
 
 
-def _pf_profile(dev) -> None:
-    """13. Where a flagship rollout's time goes (torch.profiler): device
-    busy time over host wall time, and the largest device-time entries."""
+def _profile(label: str, call, top_n: int = 4) -> None:
+    """Where one call's time goes (torch.profiler): device busy time over
+    host wall time, and the largest device-time entries."""
     import torch
 
-    from tpuslam_torch.ops import pf_fused_rollout
-
-    n = PF_SIZES[0]
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
-        pf_fused_rollout(_pf_cfg(n), _gen(dev, 0), PF_STEPS, device=dev)
+        call()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
@@ -424,11 +435,20 @@ def _pf_profile(dev) -> None:
         if us > 0:
             by_name[evt.key] = by_name.get(evt.key, 0.0) + us
     busy_ms = sum(by_name.values()) / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
-    print(f"profile pf {n:,}x{PF_STEPS}: wall {wall_ms:.3f} ms, device "
-          f"busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%); "
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:top_n]
+    print(f"profile {label}: wall {wall_ms:.3f} ms, device busy "
+          f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%); "
           + "; ".join(f"{k[:40]} {v / 1e3:.3f} ms" for k, v in top),
           flush=True)
+
+
+def _pf_profile(dev) -> None:
+    """13. Where a flagship rollout's time goes."""
+    from tpuslam_torch.ops import pf_fused_rollout
+
+    n = PF_SIZES[0]
+    _profile(f"pf {n:,}x{PF_STEPS}", lambda: pf_fused_rollout(
+        _pf_cfg(n), _gen(dev, 0), PF_STEPS, device=dev))
 
 
 def _pf_kernel_times(dev, smi, final, launches: dict, err: float,
@@ -513,6 +533,459 @@ def _pf_phases(dev, smi):
     _pf_profile(dev)
     return _pf_kernel_times(dev, smi, final, launches,
                             max(err_step, err_timed), err_resample)
+
+
+# ---------------------------------------------------------------------------
+# The batched and the wide particle filters (K4, K5a, the segmented K3b,
+# K5b).
+# ---------------------------------------------------------------------------
+
+def _batch_cfg(n: int, frac: float = 0.01):
+    """The batched paths' configuration (``bench_pf_batch`` and
+    ``bench_pf_batch_wide``: log weights, the default gate)."""
+    from tpuslam_torch.filters import PfConfig
+
+    return PfConfig(num_particles=n, weight_mode="log",
+                    ess_threshold_frac=frac)
+
+
+def _batch_inputs(dev, b: int, n: int, seed: int):
+    """A spread cloud around x0 for every filter, log weights whose spread
+    grows with the filter index (ESS from about 0.9 n down to about
+    0.02 n), their normalizers and one noisy observation a filter."""
+    import torch
+
+    from tpuslam_torch.ops import pf_batch_cuda as pb
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    g = _gen(dev, seed)
+    x0, z_true = _truth_view(dev)
+    spread = torch.tensor([0.5, 0.5, 0.2], **f32)[:, None, None]
+    particles = (x0[:, None, None] + spread
+                 * torch.randn((3, b, n), generator=g, **f32)).contiguous()
+    sigma = torch.linspace(0.3, 2.0, b, **f32)[:, None]
+    log_w = (sigma * torch.randn((b, n), generator=g, **f32)).contiguous()
+    z = (z_true + 0.3 * torch.randn((b, 5, 2), generator=g, **f32))
+    st = pb.pf_batch_refresh_stats(_batch_cfg(n), pb.PfBatchState(
+        x0, particles, log_w, None, None))
+    return particles, log_w, st.lse, st.lse2, z.contiguous(), g
+
+
+def _map_agrees(kp, klw, k_est, plw, what: str) -> None:
+    """Each filter's MAP is the kernel's own highest-index maximum, and
+    the plain log weight there is within 1e-4 + 1e-5 |lw| of the plain
+    maximum (rounding may reorder near-ties between the two)."""
+    import torch
+
+    n = klw.shape[-1]
+    idx = torch.arange(n, device=klw.device)
+    best = torch.where(klw == klw.max(dim=-1, keepdim=True).values, idx,
+                       -1).max(dim=-1).values
+    pick = torch.take_along_dim(kp, best[None, :, None], dim=2)[..., 0].T
+    _require(torch.equal(pick, k_est), f"{what}: MAP coordinates")
+    top = plw.max(dim=-1).values
+    at = torch.take_along_dim(plw, best[:, None], dim=1)[:, 0]
+    _require(bool((top - at <= 1e-4 + 1e-5 * top.abs()).all()),
+             f"{what}: MAP log weight off the plain maximum")
+
+
+def _batch_parity(dev):
+    """15. K4 against its twin, one step at 8192 x 1000: noise off with the
+    gate closed and forced (ess_threshold_frac 2.0), injected normals and
+    comb offsets with a mixed gate (selection bit-equal), and Philox with
+    a mixed gate.  Returns the largest difference."""
+    import torch
+
+    from tpuslam_torch.ops import pf_batch_cuda as pb
+
+    b, n = BATCH_MAIN
+    particles, log_w, lse, lse2, z, g = _batch_inputs(dev, b, n, 15)
+    f32 = dict(dtype=torch.float32, device=dev)
+    normals = torch.randn((3, b, n), generator=g, **f32)
+    offs = torch.rand(b, generator=g, **f32)
+    worst, lines = 0.0, []
+    closed, forced, mixed = (0, 0), (b, b), (1, b - 1)  # filters firing
+    for label, frac, fired_range, noise_on, nrm, off in (
+            ("noise off, gate closed", 1e-3, closed, False, None, None),
+            ("noise off, gate forced", 2.0, forced, False, None, None),
+            ("injected normals and offsets", 0.3, mixed, True, normals,
+             offs),
+            ("Philox", 0.3, mixed, True, None, None)):
+        args = (_batch_cfg(n, frac), 777, particles, log_w, lse, lse2, z,
+                noise_on, nrm, off)
+        kern = pb.pf_batch_step_rows(*args, with_sel=True)
+        plain = pb.pf_batch_step_rows_plain(*args, with_sel=True)
+        _require(torch.equal(kern.resampled, plain.resampled)
+                 and torch.equal(kern.bad, plain.bad),
+                 f"K4 {label}: gate flags differ")
+        _require(torch.equal(kern.ess, plain.ess), f"K4 {label}: ESS")
+        fired = int(kern.resampled.sum())
+        _require(fired_range[0] <= fired <= fired_range[1],
+                 f"K4 {label}: {fired} of {b} fired")
+        _require(torch.equal(kern.sel, plain.sel),
+                 f"K4 {label}: selection differs")
+        pose, lw_gap = _step_gap((kern.particles, kern.log_w, None),
+                                 (plain.particles, plain.log_w, None),
+                                 f"K4 {label}")
+        _require(torch.allclose(kern.lse, plain.lse, rtol=1e-5, atol=1e-4)
+                 and torch.allclose(kern.lse2, plain.lse2, rtol=1e-5,
+                                    atol=1e-4), f"K4 {label}: lse/lse2")
+        _map_agrees(kern.particles, kern.log_w, kern.x_est, plain.log_w,
+                    f"K4 {label}")
+        worst = max(worst, pose, lw_gap)
+        lines.append(f"{label}: {fired} fired, poses {pose:.3e}, log "
+                     f"weights {lw_gap:.3e}")
+    torch.cuda.synchronize()
+    print(f"pf_batch (K4) parity at {b:,}x{n:,}, selection bit-equal: "
+          + "; ".join(lines) + " (atol 1e-4 poses, 1e-4 + 1e-5|lw|)",
+          flush=True)
+    return worst
+
+
+def _wide_inputs(dev, b: int, n: int, seed: int):
+    """Wide inputs: a spread cloud, skewed log weights and their
+    normalizers, an observation a filter, a fifth of the filters firing
+    (every fifth) and a twentieth bad (NaN normalizers, none firing)."""
+    import torch
+
+    particles, log_w, lse, lse2, z, g = _batch_inputs(dev, b, n, seed)
+    f32 = dict(dtype=torch.float32, device=dev)
+    ids = torch.arange(b, device=dev)
+    fire = ids % 5 == 0
+    bad = ids % 20 == 3
+    offs = torch.rand(b, generator=g, **f32)
+    return particles, log_w, lse, lse2, z, fire, bad, offs
+
+
+def _wide_resample_parity(dev):
+    """16. K5a and the segmented K3b bit-equal to their twins at
+    1024 x 10,000 with a fifth of the filters firing.  Returns the slot
+    prerequisites, the expanded rows and the largest differences."""
+    import torch
+
+    from tpuslam_torch.ops import pf_batch_cuda as pb
+    from tpuslam_torch.ops import resample_cuda as rs
+
+    b, n = WIDE_MAIN
+    particles, log_w, lse, _, _, fire, _, offs = _wide_inputs(dev, b, n, 16)
+    slots = pb.wide_slots(log_w, lse, fire, offs)
+    sl = (slots.cum, slots.fids, slots.valid, slots.inv_tot, slots.offs)
+    t_k = pb.wide_boundary(*sl)
+    t_p = pb.wide_boundary_plain(*sl)
+    v = slots.valid
+    err_t = float((t_k[v] - t_p[v]).abs().max())
+    _require(torch.equal(t_k[v], t_p[v]), "K5a boundaries differ")
+    ex_k = rs.resample_expand_seg(particles, t_k, slots.fids, v)
+    ex_p = rs.resample_expand_seg_plain(particles, t_p, slots.fids, v)
+    err_rows = float((ex_k[:, v] - ex_p[:, v]).abs().max())
+    _require(torch.equal(ex_k[:, v], ex_p[:, v]), "expanded rows differ")
+    n_fire = int(v.sum())
+    t_lo = torch.cat([t_p[v][:, :1] * 0, t_p[v][:, :-1]], dim=1)
+    srv = int((t_p[v] > t_lo).sum())
+    torch.cuda.synchronize()
+    print(f"wide resample (K5a + segmented K3b) parity at {b:,}x{n:,}: "
+          f"{n_fire} of {b} filters firing, {srv:,} survivors; boundaries "
+          f"and expanded rows bit-equal to plain (max|kernel-plain| "
+          f"{err_t}, {err_rows})", flush=True)
+    return slots, ex_k, err_t, err_rows
+
+
+def _wide_stats_parity(dev, slots, expanded):
+    """17. K5b against its twin at 1024 x 10,000: fused (the main path's
+    form) and unfused, noise off and Philox, with firing and bad filters
+    mixed.  Returns the largest difference."""
+    import torch
+
+    from tpuslam_torch.ops import pf_batch_cuda as pb
+
+    b, n = WIDE_MAIN
+    particles, log_w, _, _, z, fire, bad, _ = _wide_inputs(dev, b, n, 16)
+    cfg = _batch_cfg(n)
+    worst, lines = 0.0, []
+    for fused in (True, False):
+        for noise_on in (False, True):
+            extra = (slots.src, expanded) if fused else (None, None)
+            args = (cfg, 4242, particles, log_w, z, bad, fire, *extra,
+                    noise_on)
+            kern = pb.wide_stats_rows(*args)
+            plain = pb.wide_stats_rows_plain(*args)
+            label = (f"{'fused' if fused else 'unfused'} "
+                     f"{'Philox' if noise_on else 'noise off'}")
+            pose, lw_gap = _step_gap(kern, plain, f"K5b {label}")
+            (kp, klw, kparts), (_, plw, pparts) = kern, plain
+            k_lse, k_lse2, k_est = pb._combine_wide_stats(kparts)
+            p_lse, p_lse2, _ = pb._combine_wide_stats(pparts)
+            _require(torch.allclose(k_lse, p_lse, rtol=1e-5, atol=1e-4)
+                     and torch.allclose(k_lse2, p_lse2, rtol=1e-5,
+                                        atol=1e-4), f"K5b {label}: lse")
+            _map_agrees(kp, klw, k_est, plw, f"K5b {label}")
+            worst = max(worst, pose, lw_gap)
+            lines.append(f"{label} poses {pose:.3e}, log weights "
+                         f"{lw_gap:.3e}")
+    torch.cuda.synchronize()
+    print(f"wide stats (K5b) parity at {b:,}x{n:,}: " + "; ".join(lines)
+          + " (atol 1e-4 poses, 1e-4 + 1e-5|lw|)", flush=True)
+    return worst
+
+
+def _batch_rmse(outs) -> float:
+    import torch
+
+    e = outs.x_est[..., :2] - outs.x_true[:, None, :2]
+    return float(torch.sqrt((e ** 2).sum(-1).mean()))
+
+
+def _batch_bands(dev) -> None:
+    """18. The Philox bands of the batched and wide paths (bench.py:476-488:
+    256 x 1000 x 100 and 32 x 10,000 x 100)."""
+    from tpuslam_torch.ops import pf_batch_rollout, pf_batch_wide_rollout
+
+    got = []
+    for label, fn, (b, n, steps), seed in (
+            ("batched", pf_batch_rollout, BATCH_BAND_SHAPE, 4),
+            ("wide", pf_batch_wide_rollout, WIDE_BAND_SHAPE, 5)):
+        _, outs = fn(_batch_cfg(n), _gen(dev, seed), b, steps, device=dev)
+        rmse = _batch_rmse(outs)
+        _require(BATCH_BAND[0] < rmse < BATCH_BAND[1],
+                 f"{label} RMSE {rmse} off-band")
+        got.append(f"{label} {b}x{n:,}x{steps} rmse {rmse:.4f}")
+    print("pf batch bands: " + ", ".join(got) + f" in {BATCH_BAND}",
+          flush=True)
+
+
+def _batch_main_paths(dev) -> dict:
+    """19. The two main paths through the user's calls at the JAX
+    package's full widths, with the launch counts set to 0 just before
+    each and read just after, and the host synchronisations counted by
+    torch's sync debug mode.  Returns the launch counts by kernel."""
+    import torch
+
+    from tpuslam_torch.ops import pf_batch_cuda as pb
+    from tpuslam_torch.ops import (pf_batch_rollout, pf_batch_wide_rollout,
+                                   resample_cuda)
+    from tpuslam_torch.utils import count_host_syncs
+
+    with count_host_syncs() as control:
+        torch.ones(1, device=dev).item()
+    _require(control.count >= 1, "the host-sync counter saw no .item()")
+
+    launches = {}
+    pb.launch_count = 0
+    t0 = time.perf_counter()
+    b, n = BATCH_MAIN
+    with count_host_syncs() as syncs:
+        final, outs = pf_batch_rollout(_batch_cfg(n), _gen(dev, 0), b,
+                                       PF_STEPS, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["pf_batch_step"] = pb.launch_count
+    _require(pb.launch_count == PF_STEPS, f"K4 launches {pb.launch_count}")
+    _require(syncs.count == 0, f"batched path: {syncs.count} host syncs")
+    _require(final.particles.shape == (3, b, n)
+             and bool(final.particles.isfinite().all())
+             and bool(final.lse.isfinite().all()),
+             "batched final state: shape or finiteness")
+    rmse = _batch_rmse(outs)
+    _require(BATCH_BAND[0] < rmse < BATCH_BAND[1],
+             f"batched main-path RMSE {rmse} off-band")
+    fired = float(outs.resampled.float().mean())
+    print(f"pf_batch_rollout(device='cuda') {b:,}x{n:,}x{PF_STEPS}: rmse "
+          f"{rmse:.4f}, K4 launches {pb.launch_count}, host syncs "
+          f"{syncs.count} (control .item(): {control.count}), filters "
+          f"firing a step {100 * fired:.1f}%, first call "
+          f"{wall * 1e3:.1f} ms", flush=True)
+
+    pb.wide_boundary_launch_count = pb.wide_stats_launch_count = 0
+    resample_cuda.expand_seg_launch_count = 0
+    t0 = time.perf_counter()
+    b, n = WIDE_MAIN
+    with count_host_syncs() as syncs:
+        final, outs = pf_batch_wide_rollout(_batch_cfg(n), _gen(dev, 0), b,
+                                            PF_STEPS, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    wide = {"wide_boundary": pb.wide_boundary_launch_count,
+            "resample_expand_seg": resample_cuda.expand_seg_launch_count,
+            "wide_stats": pb.wide_stats_launch_count}
+    launches.update(wide)
+    _require(wide["wide_stats"] == PF_STEPS, f"K5b launches {wide}")
+    _require(wide["wide_boundary"] > 0 and wide["resample_expand_seg"] > 0,
+             f"the wide resample kernels did not run: {wide}")
+    _require(syncs.count == 0, f"wide path: {syncs.count} host syncs")
+    _require(final.particles.shape == (3, b, n)
+             and bool(final.particles.isfinite().all())
+             and bool(final.lse.isfinite().all()),
+             "wide final state: shape or finiteness")
+    rmse = _batch_rmse(outs)
+    _require(BATCH_BAND[0] < rmse < BATCH_BAND[1],
+             f"wide main-path RMSE {rmse} off-band")
+    fired = float(outs.resampled.float().mean())
+    print(f"pf_batch_wide_rollout(device='cuda') {b:,}x{n:,}x{PF_STEPS}: "
+          f"rmse {rmse:.4f}, launches {wide}, host syncs {syncs.count}, "
+          f"filters firing a step {100 * fired:.1f}%, first call "
+          f"{wall * 1e3:.1f} ms", flush=True)
+    return launches
+
+
+def _batch_timings(dev, smi) -> dict:
+    """20. Both rollouts at bench.py's sizes: CUDA events, median of 3
+    after one warm-up, each timed output's RMSE in band.  Returns the
+    final states at the main paths' shapes."""
+    import torch
+
+    from tpuslam_torch.ops import pf_batch_rollout, pf_batch_wide_rollout
+    from tpuslam_torch.utils import timed
+
+    finals = {}
+    for label, fn, sizes in (("batched", pf_batch_rollout, BATCH_SIZES),
+                             ("wide", pf_batch_wide_rollout, WIDE_SIZES)):
+        for b, n in sizes:
+            out = {}
+
+            def call(fn=fn, b=b, n=n, out=out):
+                out["k"] = fn(_batch_cfg(n), _gen(dev, 0), b, PF_STEPS,
+                              device=dev)
+
+            seconds = timed(call, reps=3, warmup=1, device=dev)
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            host_step = (time.perf_counter() - t0) / PF_STEPS
+            final, outs = out["k"]
+            finals[(label, b, n)] = final
+            rmse = _batch_rmse(outs)
+            _require(BATCH_BAND[0] < rmse < BATCH_BAND[1],
+                     f"timed {label} {b}x{n} RMSE {rmse}")
+            print(f"timing pf {label} {b:,}x{n:,}x{PF_STEPS}: "
+                  f"{b * n * PF_STEPS / seconds:.4e} particle-steps/s "
+                  f"({seconds * 1e3:.3f} ms, host clock "
+                  f"{host_step * 1e6:.1f} us a step); rmse {rmse:.4f}; "
+                  f"firing {100 * float(outs.resampled.float().mean()):.1f}%"
+                  f"; on {smi}", flush=True)
+    return finals
+
+
+def _batch_profiles(dev) -> None:
+    """21. Where a main-path rollout's time goes, each path."""
+    from tpuslam_torch.ops import pf_batch_rollout, pf_batch_wide_rollout
+
+    for label, fn, (b, n) in (("batched", pf_batch_rollout, BATCH_MAIN),
+                              ("wide", pf_batch_wide_rollout, WIDE_MAIN)):
+        _profile(f"pf {label} {b:,}x{n:,}x{PF_STEPS}",
+                 lambda fn=fn, b=b, n=n: fn(_batch_cfg(n), _gen(dev, 0), b,
+                                            PF_STEPS, device=dev), top_n=6)
+
+
+def _batch_kernel_times(dev, smi, finals, launches, errs) -> list:
+    """22. K4, K5a, the segmented K3b and K5b alone at the main paths'
+    shapes, on the states those rollouts reached, beside their twins,
+    their bounds and, for the expand, ``torch.repeat_interleave``.
+    Returns their entries of the ``kernels`` line."""
+    import torch
+
+    from tpuslam_torch.ops import pf_batch_cuda as pb
+    from tpuslam_torch.ops import resample_cuda as rs
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    g = _gen(dev, 21)
+    _, z_true = _truth_view(dev)
+
+    b, n = BATCH_MAIN
+    st = finals[("batched", b, n)]
+    cfg = _batch_cfg(n)
+    z = (z_true + 0.3 * torch.randn((b, 5, 2), generator=g, **f32))
+    k4_args = (cfg, 1, st.particles, st.log_w, st.lse, st.lse2,
+               z.contiguous())
+    k4_fire = int(pb._gate(cfg, st.lse, st.lse2)[2].sum())
+
+    b_w, n_w = WIDE_MAIN
+    sw = finals[("wide", b_w, n_w)]
+    cfg_w = _batch_cfg(n_w)
+    bad, _, fire = pb._gate(cfg_w, sw.lse, sw.lse2)
+    offs = torch.rand(b_w, generator=g, **f32)
+    slots = pb.wide_slots(sw.log_w, sw.lse, fire, offs)
+    sl = (slots.cum, slots.fids, slots.valid, slots.inv_tot, slots.offs)
+    t_hi = pb.wide_boundary(*sl)
+    expanded = rs.resample_expand_seg(sw.particles, t_hi, slots.fids,
+                                      slots.valid)
+    zw = (z_true + 0.3 * torch.randn((b_w, 5, 2), generator=g, **f32))
+    k5b_args = (cfg_w, 1, sw.particles, sw.log_w, zw.contiguous(), bad,
+                fire, slots.src, expanded)
+    n_fire = int(fire.sum())
+    v = slots.valid
+    rows = sw.particles[:, slots.fids[v].long()].reshape(3, -1).contiguous()
+    counts = torch.diff(t_hi[v], dim=1,
+                        prepend=t_hi.new_zeros((n_fire, 1))).reshape(-1)
+    counts = counts.to(torch.int64)
+    lanes_fire = n_fire * n_w
+    # A firing filter's float work a particle: exp, shift, scale, round,
+    # the boundary law's two multiplies, subtract, ceil and clip.
+    ops_fire = 10
+
+    kernels = [
+        ("pf_batch_step", "tpuslam_torch/csrc/pf_batch.cu",
+         "tpuslam/ops/pf_batch_pallas.py:190",
+         lambda: pb.pf_batch_step_rows(*k4_args),
+         lambda: pb.pf_batch_step_rows_plain(*k4_args), None,
+         _bound(32 * b * n + 80 * b,
+                PF_STEP_OPS * b * n + ops_fire * k4_fire * n),
+         errs["pf_batch_step"], f"{b:,}x{n:,}, {k4_fire} firing"),
+        ("wide_boundary", "tpuslam_torch/csrc/pf_wide.cu",
+         "tpuslam/ops/pf_batch_pallas.py:762",
+         lambda: pb.wide_boundary(*sl), lambda: pb.wide_boundary_plain(*sl),
+         None, _bound(8 * lanes_fire + 13 * b_w, BOUNDARY_OPS * lanes_fire),
+         errs["wide_boundary"], f"{b_w:,}x{n_w:,}, {n_fire} firing"),
+        ("resample_expand_seg", "tpuslam_torch/csrc/resample.cu",
+         "tpuslam/ops/resample_pallas.py:235",
+         lambda: rs.resample_expand_seg(sw.particles, t_hi, slots.fids, v),
+         lambda: rs.resample_expand_seg_plain(sw.particles, t_hi,
+                                              slots.fids, v),
+         lambda: torch.repeat_interleave(rows, counts, dim=1,
+                                         output_size=lanes_fire),
+         _bound(28 * lanes_fire + 5 * b_w, 0), errs["resample_expand_seg"],
+         f"{b_w:,}x{n_w:,}, {n_fire} firing"),
+        ("wide_stats", "tpuslam_torch/csrc/pf_wide.cu",
+         "tpuslam/ops/pf_batch_pallas.py:876",
+         lambda: pb.wide_stats_rows(*k5b_args),
+         lambda: pb.wide_stats_rows_plain(*k5b_args), None,
+         _bound(28 * b_w * n_w + 4 * (b_w - n_fire) * n_w
+                + 32 * b_w * -(-n_w // pb._BLOCK) + 50 * b_w,
+                PF_STEP_OPS * b_w * n_w),
+         errs["wide_stats"], f"{b_w:,}x{n_w:,}, {n_fire} firing"),
+    ]
+    entries = []
+    for name, src, replaces, fn, plain_fn, lib_fn, bound, max_err, shape \
+            in kernels:
+        ms = _device_ms(fn, 20)
+        plain_ms = _device_ms(plain_fn, 3)
+        library_ms = None if lib_fn is None else _device_ms(lib_fn, 20)
+        entries.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": library_ms})
+        print(f"kernel {name} at {shape}: {ms:.4f} ms a launch, plain "
+              f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})"
+              + ("" if library_ms is None
+                 else f", torch.repeat_interleave {library_ms:.4f} ms")
+              + f"; {launches[name]} launches in the main path; on {smi}",
+              flush=True)
+    return entries
+
+
+def _batch_phases(dev, smi):
+    """The batched and wide paths' phases, in order; returns their
+    kernels' entries."""
+    errs = {"pf_batch_step": _batch_parity(dev)}
+    slots, expanded, errs["wide_boundary"], errs["resample_expand_seg"] = \
+        _wide_resample_parity(dev)
+    errs["wide_stats"] = _wide_stats_parity(dev, slots, expanded)
+    _batch_bands(dev)
+    launches = _batch_main_paths(dev)
+    finals = _batch_timings(dev, smi)
+    _batch_profiles(dev)
+    return _batch_kernel_times(dev, smi, finals, launches, errs)
 
 
 def main() -> int:
@@ -672,6 +1145,7 @@ def main() -> int:
         flush=True)
 
     pf_entries = _pf_phases(dev, smi)
+    pf_entries += _batch_phases(dev, smi)
 
     b, n = FLAGSHIP
     bound_ms, bound_by = _bound(80 * b + 20 * n, EKF_OPS_PER_STEP * b * n)

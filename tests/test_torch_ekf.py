@@ -107,12 +107,15 @@ def test_trajectory_matches_oracle(rng, dtype):
 
 
 def test_rollout_shapes_and_determinism():
-    final, outs = tf.ekf_rollout(CFG, torch.Generator().manual_seed(0), 50)
+    final, outs = tf.ekf_rollout(CFG, torch.Generator().manual_seed(0), 50,
+                                 device="cpu")
     assert outs.x_true.shape == (50, 3) and outs.cov.shape == (50, 3, 3)
-    _, outs2 = tf.ekf_rollout(CFG, torch.Generator().manual_seed(0), 50)
+    _, outs2 = tf.ekf_rollout(CFG, torch.Generator().manual_seed(0), 50,
+                              device="cpu")
     assert torch.equal(outs.x_pre, outs2.x_pre)
     final, outs = tf.ekf_rollout_batch(
-        CFG, torch.Generator().manual_seed(1), 8, 10, dtype=torch.float64)
+        CFG, torch.Generator().manual_seed(1), 8, 10, dtype=torch.float64,
+        device="cpu")
     assert outs.x_true.shape == (8, 10, 3) and final.cov.shape == (8, 3, 3)
     assert outs.x_true.dtype == torch.float64
     nxt, out = tf.ekf_step(CFG, final, torch.Generator().manual_seed(2))
@@ -125,7 +128,7 @@ def test_noise_bands():
     bands = json.loads(FIXTURE.read_text())
     n_seeds, n_steps = bands["n_seeds"], bands["ekf_steps"]
     _, outs = tf.ekf_rollout_batch(CFG, torch.Generator().manual_seed(4242),
-                                   n_seeds, n_steps)
+                                   n_seeds, n_steps, device="cpu")
     e = (outs.x_pre - outs.x_true).numpy()
     e[..., 2] = wrap(e[..., 2])
     rmse = np.sqrt((e[..., 0] ** 2 + e[..., 1] ** 2).mean(axis=1))
@@ -159,3 +162,15 @@ def test_device_is_required(fn, args):
     """No default device: leaving it out is an error, not the CPU path."""
     with pytest.raises(TypeError, match="device"):
         fn(*args)
+
+
+@pytest.mark.parametrize("fn,args", [
+    (tf.ekf_rollout, (CFG, torch.Generator(), 2)),
+    (tf.ekf_rollout_batch, (CFG, torch.Generator(), 2, 2))])
+def test_rollout_needs_device_and_a_generator_on_it(fn, args):
+    """No default device, and a CPU generator with a CUDA device is an
+    error, not a CPU run."""
+    with pytest.raises(TypeError, match="device"):
+        fn(*args)
+    with pytest.raises(ValueError, match="generator on cpu"):
+        fn(*args, device="cuda")

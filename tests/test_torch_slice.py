@@ -39,6 +39,7 @@ def test_import_keeps_jax_out():
         "import tpuslam_torch, tpuslam_torch.entry, tpuslam_torch.convert\n"
         "import tpuslam_torch.utils, tpuslam_torch.ops.ekf_cuda\n"
         "import tpuslam_torch.ops.pf_cuda, tpuslam_torch.ops.resample_cuda\n"
+        "import tpuslam_torch.ops.pf_batch_cuda\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'tpuslam')]\n"
         "assert not bad, bad\n")

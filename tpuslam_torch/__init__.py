@@ -1,5 +1,5 @@
-"""tpu-slam-sim's batched EKF and single-filter particle filter in PyTorch,
-with CUDA kernels.
+"""tpu-slam-sim's batched EKF and its single-filter, batched and wide
+particle filters in PyTorch, with CUDA kernels.
 
 A port of the JAX package ``tpuslam`` that mirrors its layout and public
 names; it imports neither JAX nor ``tpuslam``.
@@ -10,8 +10,9 @@ Layer map:
     filters/   the EKF and the particle filter as plain functions on tensors
     metrics/   RMSE / NEES / divergence masks
     ops/       CUDA kernels (csrc/) beside their plain torch versions: the
-               EKF rollout, the PF step, the merge resample
-    utils/     timing on the card
+               EKF rollout, the PF step, the merge resample, the batched
+               and wide PF steps
+    utils/     timing on the card, host synchronisations
     convert    configs and state across from the JAX package
     entry      the single-call entry point
 """

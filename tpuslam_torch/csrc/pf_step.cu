@@ -34,28 +34,26 @@
 //
 // Modes: 0 = noise off (builtin sinf/cosf, for parity with the plain
 // path), 1 = Philox noise, 2 = caller-supplied standard normals of shape
-// (3, N).  Modes 1 and 2 use the polynomial sincos.
+// (3, N).  Modes 1 and 2 use the polynomial sincos.  The per-particle math
+// and the partial-row reduction live in pf_math.cuh, shared with K4 and
+// K5b.
 
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
 
-#include "fastmath.cuh"
+#include "pf_math.cuh"
 
 namespace {
 
-using tpuslam::kHalfPi;
-using tpuslam::normals_from_bits;
-using tpuslam::philox4x32_10;
-using tpuslam::sincos_rad;
-using tpuslam::wrap_angle;
+using tpuslam::block_partial_row;
+using tpuslam::kPartStride;
+using tpuslam::philox_normals3;
+using tpuslam::predict_loglik;
 
 constexpr int kBlock = 256;
-constexpr int kWarps = kBlock / 32;
 constexpr int kMaxLandmarks = 8;
-constexpr int kPartStride = 8;
-constexpr unsigned kFull = 0xffffffffu;
 
 // Host-folded constants; the layout matches ops/pf_cuda.py::_PfParams.
 struct PfParams {
@@ -69,29 +67,6 @@ struct PfParams {
   float log_norm;      // log(2 pi sx sy) (folded in double)
   float lm[2 * kMaxLandmarks];  // landmark (x, y) pairs
 };
-
-// Keep (key, idx) of the larger key; on equal keys the larger index.
-__device__ __forceinline__ void arg_max(float& key, int& idx, float o_key,
-                                        int o_idx) {
-  if (o_key > key || (o_key == key && o_idx > idx)) {
-    key = o_key;
-    idx = o_idx;
-  }
-}
-
-__device__ __forceinline__ void warp_arg_max(float& key, int& idx) {
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) {
-    arg_max(key, idx, __shfl_down_sync(kFull, key, d),
-            __shfl_down_sync(kFull, idx, d));
-  }
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) v += __shfl_down_sync(kFull, v, d);
-  return v;
-}
 
 template <int MODE, bool STATS>
 __global__ void __launch_bounds__(kBlock)
@@ -110,54 +85,15 @@ pf_step_kernel(const float* __restrict__ p_in,
     y = p_in[n + i];
     yaw = p_in[2 * n + i];
     float n0 = 0.0f, n1 = 0.0f, n2 = 0.0f;
-    if (MODE == 1) {
-      const uint4 r = philox4x32_10(
-          make_uint4(static_cast<uint32_t>(i), 0u, 0u, 0u),
-          make_uint2(prm.key0, prm.key1));
-      const float2 a = normals_from_bits(r.x, r.y);
-      const float2 b = normals_from_bits(r.z, r.w);
-      n0 = a.x;
-      n1 = a.y;
-      n2 = b.x;
-    } else if (MODE == 2) {
+    if (MODE == tpuslam::kNoisePhilox) {
+      philox_normals3(static_cast<uint32_t>(i), 0u, prm.key0, prm.key1, n0,
+                      n1, n2);
+    } else if (MODE == tpuslam::kNoiseNormals) {
       n0 = normals[i];
       n1 = normals[n + i];
       n2 = normals[2 * n + i];
     }
-
-    // Predict (particle_filter.py:156-168); the yaw noise is added after
-    // the wrapped step, with no second wrap.
-    float c_o, s_o;
-    if (MODE == 0) {
-      c_o = cosf(yaw);
-      s_o = sinf(yaw);
-    } else {
-      sincos_rad(yaw, &c_o, &s_o);
-    }
-    x = x + prm.vdt * c_o + n0 * prm.q0;
-    y = y + prm.vdt * s_o + n1 * prm.q1;
-    yaw = wrap_angle(yaw + prm.wdt) + n2 * prm.q2;
-
-    // Landmarks in the particle's frame (angle pi/2 - yaw, whose cos and
-    // sin are sin(yaw) and cos(yaw)) against the observation.
-    float c, s;
-    if (MODE == 0) {
-      const float ang = kHalfPi - yaw;
-      c = cosf(ang);
-      s = sinf(ang);
-    } else {
-      sincos_rad(yaw, &s, &c);
-    }
-    float acc = 0.0f;
-    for (int li = 0; li < prm.n_lm; ++li) {
-      const float dx = prm.lm[2 * li] - x;
-      const float dy = prm.lm[2 * li + 1] - y;
-      const float px = c * dx - s * dy;
-      const float py = s * dx + c * dy;
-      const float ddx = (px - __ldg(z + 2 * li)) / prm.sx;
-      const float ddy = (py - __ldg(z + 2 * li + 1)) / prm.sy;
-      acc = acc - 0.5f * (ddx * ddx + ddy * ddy) - prm.log_norm;
-    }
+    const float acc = predict_loglik<MODE>(x, y, yaw, n0, n1, n2, prm, z);
     const float lw0 = (STATS && prm.flag > 0.0f) ? 0.0f : lw_in[i];
     lw = lw0 + acc;
     p_out[i] = x;
@@ -166,62 +102,9 @@ pf_step_kernel(const float* __restrict__ p_in,
     lw_out[i] = lw;
   }
   if (!STATS) return;
-
-  // Block max and MAP index; a NaN log weight never wins but poisons the
-  // sums below, so logsumexp goes NaN as in the reference.
-  __shared__ float s_key[kWarps];
-  __shared__ int s_idx[kWarps];
-  __shared__ float s_sum[kWarps], s_sum2[kWarps];
-  __shared__ float s_max;
-  __shared__ int s_best;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  float key = (valid && lw == lw) ? lw : -INFINITY;  // lw != lw: NaN
-  int idx = valid ? static_cast<int>(i) : -1;
-  warp_arg_max(key, idx);
-  if (lane == 0) {
-    s_key[warp] = key;
-    s_idx[warp] = idx;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    key = lane < kWarps ? s_key[lane] : -INFINITY;
-    idx = lane < kWarps ? s_idx[lane] : -1;
-    warp_arg_max(key, idx);
-    if (lane == 0) {
-      s_max = key;
-      s_best = idx;
-    }
-  }
-  __syncthreads();
-  const float m = s_max;
-  const int best = s_best;
-  // An all -inf block keeps the shift finite: exp(-inf - m) = 0, no NaN.
-  const float e = valid ? expf(lw - fmaxf(m, -1.0e30f)) : 0.0f;
-  float sum = warp_sum(e);
-  float sum2 = warp_sum(e * e);
-  if (lane == 0) {
-    s_sum[warp] = sum;
-    s_sum2[warp] = sum2;
-  }
-  __syncthreads();
-  float* row = parts + static_cast<long long>(blockIdx.x) * kPartStride;
-  if (valid && static_cast<int>(i) == best) {
-    row[3] = x;
-    row[4] = y;
-    row[5] = yaw;
-  }
-  if (warp == 0) {
-    sum = warp_sum(lane < kWarps ? s_sum[lane] : 0.0f);
-    sum2 = warp_sum(lane < kWarps ? s_sum2[lane] : 0.0f);
-    if (lane == 0) {
-      row[0] = m;
-      row[1] = sum;
-      row[2] = sum2;
-      row[6] = static_cast<float>(best);
-      row[7] = 0.0f;
-    }
-  }
+  block_partial_row<kBlock>(
+      valid, lw, x, y, yaw, static_cast<int>(i),
+      parts + static_cast<long long>(blockIdx.x) * kPartStride);
 }
 
 template <int MODE>

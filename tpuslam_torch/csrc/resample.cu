@@ -33,6 +33,12 @@
 // tile), its bf16 three-way splits for one-hot matmuls and its XLA
 // fallback have no counterpart: every weight profile, dense or a single
 // survivor, takes the same two launches.
+//
+// Pass 2 also has a segmented form for the wide batched filter (its pass
+// B, pf_batch_pallas.py:1367-1387, which ran _expand_kernel in slot
+// space): one more grid dimension over firing slots, each slot searching
+// only its own filter's boundaries.  The single-filter launch is
+// unchanged.
 
 #include <cuda_runtime.h>
 
@@ -81,6 +87,23 @@ boundary_kernel(const float* __restrict__ wq, const float* __restrict__ base,
   t_hi[j] = static_cast<int>(t);
 }
 
+// The source of output slot i: the first j with t[j] > i (t is
+// non-decreasing and t[n-1] = n > i).
+__device__ __forceinline__ int source_of(const int* __restrict__ t, int n,
+                                         int i) {
+  int lo = 0;
+  int hi = n - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (__ldg(t + mid) > i) {
+      hi = mid;
+    } else {
+      lo = mid + 1;
+    }
+  }
+  return lo;
+}
+
 __global__ void __launch_bounds__(kExpandBlock)
 expand_kernel(const float* __restrict__ p, const int* __restrict__ t_hi,
               float* __restrict__ out, int n, int n_pad) {
@@ -92,19 +115,32 @@ expand_kernel(const float* __restrict__ p, const int* __restrict__ t_hi,
     out[2 * n_pad + i] = 0.0f;
     return;
   }
-  int lo = 0;
-  int hi = n - 1;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (__ldg(t_hi + mid) > i) {
-      hi = mid;
-    } else {
-      lo = mid + 1;
-    }
-  }
+  const int lo = source_of(t_hi, n, i);
   out[i] = __ldg(p + lo);
   out[n_pad + i] = __ldg(p + n_pad + lo);
   out[2 * n_pad + i] = __ldg(p + 2 * n_pad + lo);
+}
+
+// The segmented form (the wide filter's pass B): blockIdx.y is a firing
+// slot s, which expands the boundaries t_hi[s] of its filter fids[s] into
+// its own output rows; an idle slot exits at once.  p and out are
+// (3, b, n) with no padding; t_hi is (b, n) in slot order.
+__global__ void __launch_bounds__(kExpandBlock)
+expand_seg_kernel(const float* __restrict__ p, const int* __restrict__ t_hi,
+                  const int* __restrict__ fids,
+                  const unsigned char* __restrict__ valid,
+                  float* __restrict__ out, int n, int b) {
+  const int s = blockIdx.y;
+  if (!valid[s]) return;
+  const int i = blockIdx.x * kExpandBlock + threadIdx.x;
+  if (i >= n) return;
+  const long long plane = static_cast<long long>(b) * n;
+  const long long dst = static_cast<long long>(s) * n + i;
+  const long long src = static_cast<long long>(fids[s]) * n +
+                        source_of(t_hi + static_cast<long long>(s) * n, n, i);
+  out[dst] = __ldg(p + src);
+  out[plane + dst] = __ldg(p + plane + src);
+  out[2 * plane + dst] = __ldg(p + 2 * plane + src);
 }
 
 }  // namespace
@@ -137,5 +173,23 @@ extern "C" int tpuslam_resample_expand(const float* p, const int* t_hi,
                                               kExpandBlock);
   expand_kernel<<<grid, kExpandBlock, 0, static_cast<cudaStream_t>(stream)>>>(
       p, t_hi, out, n, n_pad);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// p: (3, b, n) particle rows of b filters; t_hi: (b, n) boundaries in slot
+// order; fids, valid: (b,) each slot's filter and whether it fires.
+// Writes out: (3, b, n), slot s's resampled rows at s, valid slots only.
+extern "C" int tpuslam_resample_expand_seg(const float* p, const int* t_hi,
+                                           const int* fids,
+                                           const unsigned char* valid,
+                                           float* out, int n, int b,
+                                           void* stream) {
+  if (n < 1 || b < 1 || b > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid((n + kExpandBlock - 1) / kExpandBlock, b);
+  expand_seg_kernel<<<grid, kExpandBlock, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      p, t_hi, fids, valid, out, n, b);
   return static_cast<int>(cudaGetLastError());
 }

@@ -22,6 +22,7 @@ import torch
 from tpuslam_torch.core.angles import wrap_angle
 from tpuslam_torch.core.precision import highest_matmul_precision
 from tpuslam_torch.core.se2 import robot_to_world
+from tpuslam_torch.filters.pf import check_generator
 from tpuslam_torch.models.process import circular_jacobian, circular_step
 
 
@@ -191,19 +192,22 @@ def ekf_step(cfg: EkfConfig, state: EkfState, generator: torch.Generator):
 
 
 def ekf_rollout(cfg: EkfConfig, generator: torch.Generator, n_steps: int,
-                state0: EkfState | None = None):
-    """Run ``n_steps`` EKF steps.
+                state0: EkfState | None = None, *,
+                device: torch.device | str):
+    """Run ``n_steps`` EKF steps on ``device``.
 
-    All noise is drawn in bulk up front (as the JAX package does) and
-    the steps run as a Python loop.  ``state0`` defaults to
-    :func:`ekf_init` in float32 on the generator's device.
+    ``device`` is required, and ``generator`` must lie on it.  All noise
+    is drawn in bulk up front (as the JAX package does) and the steps run
+    as a Python loop.  ``state0`` defaults to :func:`ekf_init` in float32
+    on ``device``.
 
     Returns:
         ``(final_state, outs)``; each field of ``outs`` is stacked along
         a leading time axis.
     """
+    device = check_generator(generator, device)
     if state0 is None:
-        state0 = ekf_init(cfg, device=generator.device)
+        state0 = ekf_init(cfg, device=device)
     lead = (n_steps,) + tuple(state0.x_true.shape[:-1])
     obs_noise, dr_noise = _draw_noise(cfg, generator, lead, state0.x_true)
     state = state0
@@ -217,15 +221,18 @@ def ekf_rollout(cfg: EkfConfig, generator: torch.Generator, n_steps: int,
 
 def ekf_rollout_batch(cfg: EkfConfig, generator: torch.Generator,
                       batch: int, n_steps: int, *,
-                      dtype: torch.dtype = torch.float32):
-    """Monte-Carlo sweep of ``batch`` independent rollouts on the
-    generator's device (BASELINE config 3 is 8192 rollouts).
+                      dtype: torch.dtype = torch.float32,
+                      device: torch.device | str):
+    """Monte-Carlo sweep of ``batch`` independent rollouts on ``device``
+    (required; ``generator`` must lie on it).  BASELINE config 3 is 8192
+    rollouts.
 
     Returns:
         ``(final_state, outs)`` in the JAX package's layout: the final
         state is ``(batch, ...)`` and every field of ``outs`` is
         ``(batch, n_steps, ...)``.
     """
-    state0 = ekf_init(cfg, (batch,), dtype=dtype, device=generator.device)
-    final, outs = ekf_rollout(cfg, generator, n_steps, state0)
+    device = check_generator(generator, device)
+    state0 = ekf_init(cfg, (batch,), dtype=dtype, device=device)
+    final, outs = ekf_rollout(cfg, generator, n_steps, state0, device=device)
     return final, EkfOut(*(f.movedim(0, 1) for f in outs))

@@ -362,8 +362,10 @@ def pf_step(cfg: PfConfig, state: PfState, generator: torch.Generator):
     return pf_step_with_noise(cfg, state, offs, pred_noise, obs_noise)
 
 
-def _check_generator(generator: torch.Generator,
-                     device: torch.device | str) -> torch.device:
+def check_generator(generator: torch.Generator,
+                    device: torch.device | str) -> torch.device:
+    """``device`` as a :class:`torch.device`; raises unless ``generator``
+    lies on it (a rollout never draws on one device and runs on another)."""
     device = torch.device(device)
     if generator.device.type != device.type or (
             device.index is not None
@@ -389,7 +391,7 @@ def pf_rollout(cfg: PfConfig, generator: torch.Generator, n_steps: int,
         ``(final_state, outs)``; each field of ``outs`` is stacked along
         a leading time axis.
     """
-    device = _check_generator(generator, device)
+    device = check_generator(generator, device)
     if state0 is None:
         state0 = pf_init(cfg, device=device)
     state = state0
@@ -418,7 +420,7 @@ def pf_rollout_batch(cfg: PfConfig, generator: torch.Generator, batch: int,
         field of ``outs`` is ``(batch, n_steps, ...)`` (the dropped
         particle and weight fields are ``(batch, n_steps, 0)``).
     """
-    device = _check_generator(generator, device)
+    device = check_generator(generator, device)
     state0 = pf_init(cfg, (batch,), device=device)
     final, outs = pf_rollout(cfg, generator, n_steps, state0, device=device)
     empty = outs.weights.new_zeros((batch, n_steps, 0))

@@ -77,6 +77,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         "tpuslam_resample_boundary": [ptr, ptr, ptr, ptr, ptr, c_int, c_int,
                                       ptr],
         "tpuslam_resample_expand": [ptr, ptr, ptr, c_int, c_int, ptr],
+        "tpuslam_resample_expand_seg": [ptr, ptr, ptr, ptr, ptr, c_int,
+                                        c_int, ptr],
+        "tpuslam_pf_batch_step": [ptr, ptr, c_int, c_int, ptr],
+        "tpuslam_wide_boundary": [ptr, ptr, ptr, ptr, ptr, ptr, c_int, c_int,
+                                  ptr],
+        "tpuslam_wide_stats": [ptr, ptr, c_int, c_int, ptr],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
@@ -100,6 +106,17 @@ def resolve_device(device: torch.device | str) -> torch.device:
             and torch.cuda.is_available()):
         device = torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+def device_constant(values, like: torch.Tensor) -> torch.Tensor:
+    """Python ``values`` as a tensor of ``like``'s dtype on its device,
+    with no host synchronisation: on a CUDA device the values go through
+    pinned host memory and a non-blocking copy (a plain ``torch.tensor``
+    on the device waits for the copy)."""
+    t = torch.tensor(values, dtype=like.dtype)
+    if like.device.type == "cuda":
+        return t.pin_memory().to(like.device, non_blocking=True)
+    return t.to(like.device)
 
 
 def check_tensor(name: str, t: torch.Tensor, shape: tuple,

@@ -124,14 +124,22 @@ def _check(cfg: PfConfig, p_rows: torch.Tensor, lw: torch.Tensor,
 
 def _predict_loglik(cfg: PfConfig, z: torch.Tensor, x, y, yaw, mode: int,
                     normals: torch.Tensor | None = None, seed: int = 0):
-    """The kernel's per-particle math in plain torch: circular predict
+    """The kernels' per-particle math in plain torch: circular predict
     with Q noise, then the landmark log-likelihood.
 
-    Returns the ``(N,)`` rows ``(x', y', yaw', loglik)``.
+    Rows are ``(N,)`` with ``z`` of shape ``(L, 2)``, or ``(B, N)`` with
+    ``z`` of shape ``(B, L, 2)`` (filter b's own observation).  Philox
+    normals come from the counter ``(particle, filter, 0, 0)``, filter 0
+    for ``(N,)`` rows; ``normals`` unbinds into three rows of the rows'
+    shape.
+
+    Returns the rows ``(x', y', yaw', loglik)``.
     """
     if mode == _MODE_PHILOX:
-        idx = torch.arange(x.shape[0], dtype=torch.int64, device=x.device)
-        a0, a1, a2, a3 = philox4x32(idx, 0, 0, 0, seed & _MASK32,
+        idx = torch.arange(x.shape[-1], dtype=torch.int64, device=x.device)
+        filt = (torch.arange(x.shape[0], dtype=torch.int64,
+                             device=x.device)[:, None] if x.ndim == 2 else 0)
+        a0, a1, a2, a3 = philox4x32(idx, filt, 0, 0, seed & _MASK32,
                                     (seed >> 32) & _MASK32)
         n0, n1 = normals_from_bits(a0, a1)
         n2, _ = normals_from_bits(a2, a3)
@@ -159,39 +167,47 @@ def _predict_loglik(cfg: PfConfig, z: torch.Tensor, x, y, yaw, mode: int,
     for li, (lm_x, lm_y) in enumerate(cfg.landmarks):
         dx = lm_x - x
         dy = lm_y - y
-        ddx = (c * dx - s * dy - z[li, 0]) / sx
-        ddy = (s * dx + c * dy - z[li, 1]) / sy
+        ddx = (c * dx - s * dy - z[..., li, 0, None]) / sx
+        ddy = (s * dx + c * dy - z[..., li, 1, None]) / sy
         acc = acc - 0.5 * (ddx * ddx + ddy * ddy) - log_norm
     return x, y, yaw, acc
 
 
 def _partial_plain(p_rows: torch.Tensor, lw: torch.Tensor) -> torch.Tensor:
-    """The kernel's partial row over all particles at once: ``(1, 8)``."""
+    """The kernel's partial row over all particles at once: ``(1, 8)``
+    for rows ``(3, N)``, ``(N,)``; ``(..., 1, 8)`` for ``(3, ..., N)``,
+    ``(..., N)``."""
     key = torch.where(torch.isnan(lw), _NEG_INF, lw)
-    m = key.max()
-    e = torch.exp(lw - torch.clamp(m, min=-1e30))
-    idx = torch.arange(lw.shape[0], device=lw.device)
-    best = torch.where(key == m, idx, -1).max()
-    return torch.cat([torch.stack([m, e.sum(), (e * e).sum()]),
-                      p_rows[:, best], best.to(lw.dtype)[None],
-                      lw.new_zeros(1)])[None]
+    m = key.max(dim=-1).values
+    e = torch.exp(lw - torch.clamp(m, min=-1e30)[..., None])
+    idx = torch.arange(lw.shape[-1], device=lw.device)
+    best = torch.where(key == m[..., None], idx, -1).max(dim=-1).values
+    pick = torch.take_along_dim(p_rows, best[None, ..., None], dim=-1)[..., 0]
+    row = torch.cat([torch.stack([m, e.sum(dim=-1), (e * e).sum(dim=-1)],
+                                 dim=-1),
+                     torch.movedim(pick, 0, -1), best.to(lw.dtype)[..., None],
+                     torch.zeros_like(m)[..., None]], dim=-1)
+    return row[..., None, :]
 
 
 def _combine_stats(parts: torch.Tensor):
-    """Reduce the ``(G, 8)`` partial rows.
+    """Reduce the ``(..., G, 8)`` partial rows over ``G``.
 
-    Returns ``(stats, best)``: ``stats`` is ``(6,)``
+    Returns ``(stats, best)``: ``stats`` is ``(..., 6)``
     ``[lse, lse2, x_map, y_map, yaw_map, best_lw]`` (the JAX package's
     contract) and ``best`` the MAP particle's flat index (float32): the
     highest index among the maxima.
     """
-    m_g, s_g, s2_g = parts[:, 0], parts[:, 1], parts[:, 2]
-    m = m_g.max()
-    e = torch.exp(m_g - torch.clamp(m, min=-1e30))
-    lse = m + torch.log(torch.sum(e * s_g))
-    lse2 = 2.0 * m + torch.log(torch.sum(e * e * s2_g))
-    row = parts[torch.argmax(torch.where(m_g == m, parts[:, 6], -1.0))]
-    return torch.cat([torch.stack([lse, lse2]), row[3:6], m[None]]), row[6]
+    m_g, s_g, s2_g = parts[..., 0], parts[..., 1], parts[..., 2]
+    m = m_g.max(dim=-1).values
+    e = torch.exp(m_g - torch.clamp(m, min=-1e30)[..., None])
+    lse = m + torch.log(torch.sum(e * s_g, dim=-1))
+    lse2 = 2.0 * m + torch.log(torch.sum(e * e * s2_g, dim=-1))
+    pick = torch.argmax(torch.where(m_g == m[..., None], parts[..., 6], -1.0),
+                        dim=-1)
+    row = torch.take_along_dim(parts, pick[..., None, None], dim=-2)[..., 0, :]
+    return (torch.cat([torch.stack([lse, lse2], dim=-1), row[..., 3:6],
+                       m[..., None]], dim=-1), row[..., 6])
 
 
 def _constants(cfg: PfConfig) -> dict:
@@ -462,9 +478,8 @@ def _draws(cfg: PfConfig, generator: torch.Generator | None, n_steps: int,
 
 
 def _observe(cfg: PfConfig, x_true: torch.Tensor) -> torch.Tensor:
-    lm = torch.tensor(cfg.landmarks, dtype=x_true.dtype,
-                      device=x_true.device)
-    return world_to_robot(x_true, lm)
+    return world_to_robot(x_true, _build.device_constant(cfg.landmarks,
+                                                         x_true))
 
 
 def _step_stats(cfg, fs, generator, seed, noise_on, offs, obs_noise,

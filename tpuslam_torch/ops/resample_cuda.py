@@ -14,10 +14,13 @@ prefix -> boundary -> slots -> copy (see ``csrc/resample.cu``):
 * :func:`resample_boundary` (kernel, K3a): the exact in-block prefix
   plus the base, the boundary law, the forcing ``t[n-1] = n``;
 * :func:`resample_expand` (kernel, K3b): each output slot's source
-  particle and the copy of its values.
+  particle and the copy of its values;
+* :func:`resample_expand_seg` (the same kernel in segments): the wide
+  batched filter's pass B, each firing slot expanding its own filter.
 
 Each kernel wrapper has its plain twin (:func:`resample_boundary_plain`,
-:func:`resample_expand_plain`) on the same inputs, and
+:func:`resample_expand_plain`, :func:`resample_expand_seg_plain`) on the
+same inputs, and
 :func:`merge_resample_rows_plain` is the whole resample in plain torch:
 quantize, boundaries, :func:`decode_indices`, gather.  Dispatch is by
 device: a CPU tensor runs the plain twins; a CUDA tensor launches the
@@ -40,6 +43,7 @@ from tpuslam_torch.ops import _build
 #: Launches of each CUDA kernel since its count was last set to 0.
 boundary_launch_count = 0
 expand_launch_count = 0
+expand_seg_launch_count = 0
 
 #: Lanes per boundary block: the kernel's ``kScanBlock``.
 BLOCK = 1024
@@ -196,6 +200,72 @@ def resample_expand(p_rows: torch.Tensor, t_hi: torch.Tensor,
         raise RuntimeError(f"resample_expand kernel launch failed: CUDA "
                            f"error {rc}")
     expand_launch_count += 1
+    return out
+
+
+def _check_seg(p_rows: torch.Tensor, t_hi: torch.Tensor, fids: torch.Tensor,
+               valid: torch.Tensor) -> tuple[int, int]:
+    device = p_rows.device
+    if t_hi.dim() != 2:
+        raise ValueError(f"t_hi must be (B, n), got {tuple(t_hi.shape)}")
+    b, n = t_hi.shape
+    _check_n(n, n)
+    if b > 65535:
+        raise ValueError(f"at most 65535 slots, got {b}")
+    _build.check_tensor("p_rows", p_rows, (3, b, n), torch.float32, device)
+    _build.check_tensor("t_hi", t_hi, (b, n), torch.int32, device)
+    _build.check_tensor("fids", fids, (b,), torch.int32, device)
+    _build.check_tensor("valid", valid, (b,), torch.bool, device)
+    return b, n
+
+
+def resample_expand_seg_plain(p_rows: torch.Tensor, t_hi: torch.Tensor,
+                              fids: torch.Tensor,
+                              valid: torch.Tensor) -> torch.Tensor:
+    """Plain twin of :func:`resample_expand_seg`: :func:`decode_indices`
+    of each valid slot's boundaries, then a gather from its filter's
+    rows; idle slots' rows are 0."""
+    _, n = _check_seg(p_rows, t_hi, fids, valid)
+    t = torch.where(valid[:, None], t_hi, n).to(torch.int64)
+    idx = decode_slots(t)
+    out = p_rows[:, fids.to(torch.int64)[:, None], idx]
+    return torch.where(valid[None, :, None], out, 0.0)
+
+
+def resample_expand_seg(p_rows: torch.Tensor, t_hi: torch.Tensor,
+                        fids: torch.Tensor,
+                        valid: torch.Tensor) -> torch.Tensor:
+    """K3b in segments (the wide filter's pass B), one kernel launch.
+
+    Args:
+        p_rows: ``(3, B, n)`` particle rows of B filters.
+        t_hi: ``(B, n)`` int32 boundaries in slot order (K5a's).
+        fids: ``(B,)`` int32, slot s's filter.
+        valid: ``(B,)`` bool, whether slot s serves a firing filter.
+
+    Returns:
+        ``(3, B, n)``: slot s's resampled rows at s.  Only the valid
+        slots' rows are written; a CPU tensor runs
+        :func:`resample_expand_seg_plain`.
+    """
+    global expand_seg_launch_count
+    device = p_rows.device
+    if device.type == "cpu":
+        return resample_expand_seg_plain(p_rows, t_hi, fids, valid)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    b, n = _check_seg(p_rows, t_hi, fids, valid)
+    lib = _build.cuda_library(device)
+    with torch.cuda.device(device):
+        out = torch.empty_like(p_rows)
+        rc = lib.tpuslam_resample_expand_seg(
+            p_rows.data_ptr(), t_hi.data_ptr(), fids.data_ptr(),
+            valid.data_ptr(), out.data_ptr(), n, b,
+            torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"resample_expand_seg kernel launch failed: CUDA "
+                           f"error {rc}")
+    expand_seg_launch_count += 1
     return out
 
 

@@ -1,5 +1,6 @@
-"""Utilities: timing on the card."""
+"""Utilities: timing on the card, host synchronisations."""
 
-from tpuslam_torch.utils.profiling import steps_per_second, timed
+from tpuslam_torch.utils.profiling import (HostSyncs, count_host_syncs,
+                                           steps_per_second, timed)
 
-__all__ = ["steps_per_second", "timed"]
+__all__ = ["HostSyncs", "count_host_syncs", "steps_per_second", "timed"]

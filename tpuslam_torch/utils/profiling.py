@@ -1,12 +1,20 @@
-"""Timing on the card with CUDA events.
+"""Timing on the card with CUDA events, and a count of host
+synchronisations.
 
 :func:`timed` records an event pair on the device's current stream
 around each call, so it measures the device's time from the first
 enqueued operation to the last, including any gap the host leaves.  It
 refuses to run without a CUDA device: a CPU time is not a device time.
+
+:func:`count_host_syncs` counts the operations inside a block that make
+the host wait for the card (``.item()``, ``.tolist()``, a blocking copy
+to or from the device), as torch's own sync debug mode reports them.
 """
 
 from __future__ import annotations
+
+import contextlib
+import warnings
 
 import torch
 
@@ -40,3 +48,35 @@ def steps_per_second(fn, *args, work_items: int, reps: int = 5,
     """``work_items`` over the median time of ``fn(*args)``."""
     return work_items / timed(fn, *args, reps=reps, warmup=warmup,
                               device=device)
+
+
+class HostSyncs:
+    """The count :func:`count_host_syncs` fills in when its block ends."""
+
+    count = 0
+
+
+@contextlib.contextmanager
+def count_host_syncs():
+    """Count the synchronising CUDA operations made inside the block.
+
+    Sets ``torch.cuda.set_sync_debug_mode("warn")`` for the block and
+    counts the warnings torch raises for each synchronising operation.
+    Without CUDA nothing synchronises and the count stays 0.
+
+    Yields a :class:`HostSyncs` whose ``count`` is set when the block
+    exits.
+    """
+    syncs = HostSyncs()
+    if not torch.cuda.is_available():
+        yield syncs
+        return
+    before = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield syncs
+        finally:
+            torch.cuda.set_sync_debug_mode(before)
+    syncs.count = sum("synchroniz" in str(w.message) for w in seen)
