@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths once on one CUDA card: the batched
-EKF and the single-filter, batched and wide particle filters.
+EKF, the single-filter, batched and wide particle filters, and the merge
+resample's compressed path.
 
 Run from the repository root with no arguments::
 
@@ -11,10 +12,12 @@ against its plain torch version on the card, checks the noisy filters
 against their statistical bands, drives each path through the calls a
 user makes (the EKF entry point; the fused PF rollout at 2,097,152
 particles x 400 steps; the batched PF at 8192 filters x 1000 particles
-and the wide PF at 1024 x 10,000, 400 steps each) with the kernels'
-launch counts set to 0 just before and read just after (and, on the
-batched paths, the host synchronisations counted, which must be 0), and
-times the kernels and the plain versions at the main paths' shapes,
+and the wide PF at 1024 x 10,000, 400 steps each; the fused PF rollout
+with ``merge_caps_kw=(("pass2", "compressed"),)`` and the wide PF with
+``pass2="compressed"`` at the same sizes) with the
+kernels' launch counts set to 0 just before and read just after (and, on
+the batched paths, the host synchronisations counted, which must be 0),
+and times the kernels and the plain versions at the main paths' shapes,
 holding the timed outputs to the plain versions' or to their bands.  Each phase prints one line; a failing phase raises, so
 the script exits non-zero and prints no result.  The second-to-last
 line is a JSON object describing each kernel; the last line is
@@ -77,6 +80,13 @@ F32_OPS_PER_S = 67e12
 EKF_OPS_PER_STEP = 320
 PF_STEP_OPS = 240
 BOUNDARY_OPS = 6
+
+# The single-filter rollout's keywords for its compressed path, and the
+# gate of the one-step wide comparison (phase 24: about a fifth of
+# _batch_inputs' filters, whose ESS runs from about 0.9 n down to 0.02 n,
+# fall under it).
+MERGE_KW = (("pass2", "compressed"),)
+WIDE_STEP_FRAC = 0.08
 
 
 def _require(ok, message) -> None:
@@ -260,14 +270,10 @@ def _pf_step_parity(dev) -> float:
     return max(err_pose, err_lw)
 
 
-def _resample_parity(dev) -> tuple[float, float]:
-    """9. The resample kernels bit-equal to their plain versions at the
-    flagship count on three weight profiles.  Returns the largest
-    |kernel - plain| seen on the boundaries and on the expanded rows
-    (with ``merge_resample_rows``) across the profiles."""
+def _resample_profiles(dev):
+    """The flagship count, particle rows and three weight profiles, each
+    with its comb offset: ``(n, p_rows, [(name, w, offs), ...])``."""
     import torch
-
-    from tpuslam_torch.ops import resample_cuda as rs
 
     f32 = dict(dtype=torch.float32, device=dev)
     n = PF_SIZES[0]
@@ -282,10 +288,23 @@ def _resample_parity(dev) -> tuple[float, float]:
         ("near-uniform", torch.softmax(0.1 * torch.randn(n, generator=g,
                                                          **f32), 0)),
         ("400-in-one-block", block / block.sum()))
+    return n, p_rows, [(name, w, torch.rand(1, generator=g, **f32))
+                       for name, w in profiles]
+
+
+def _resample_parity(dev) -> tuple[float, float]:
+    """9. The resample kernels bit-equal to their plain versions at the
+    flagship count on three weight profiles.  Returns the largest
+    |kernel - plain| seen on the boundaries and on the expanded rows
+    (with ``merge_resample_rows``) across the profiles."""
+    import torch
+
+    from tpuslam_torch.ops import resample_cuda as rs
+
+    n, p_rows, profiles = _resample_profiles(dev)
     seen = []
     err_t = err_rows = 0.0
-    for name, w in profiles:
-        offs = torch.rand(1, generator=g, **f32)
+    for name, w, offs in profiles:
         wq, base, q_tot = rs.quantize_weights(w)
         inv = 1.0 / q_tot
         t_k = rs.resample_boundary(wq, base, inv, offs, n)
@@ -419,7 +438,9 @@ def _pf_timings(dev, smi):
 
 def _profile(label: str, call, top_n: int = 4) -> None:
     """Where one call's time goes (torch.profiler): device busy time over
-    host wall time, and the largest device-time entries."""
+    host wall time, and the largest device-time entries.  Busy time sums
+    the device's own events (kernels, copies) only: a torch op's entry
+    repeats the time of the kernels it launched."""
     import torch
 
     activities = [torch.profiler.ProfilerActivity.CPU,
@@ -430,11 +451,14 @@ def _profile(label: str, call, top_n: int = 4) -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
+    busy_us = 0.0
     for evt in prof.key_averages():
         us = getattr(evt, "self_device_time_total", 0.0)
         if us > 0:
             by_name[evt.key] = by_name.get(evt.key, 0.0) + us
-    busy_ms = sum(by_name.values()) / 1e3
+            if evt.device_type != torch.autograd.DeviceType.CPU:
+                busy_us += us
+    busy_ms = busy_us / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:top_n]
     print(f"profile {label}: wall {wall_ms:.3f} ms, device busy "
           f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%); "
@@ -988,6 +1012,363 @@ def _batch_phases(dev, smi):
     return _batch_kernel_times(dev, smi, finals, launches, errs)
 
 
+# ---------------------------------------------------------------------------
+# The merge's compressed path (K3c, K3d and their segmented forms).
+# ---------------------------------------------------------------------------
+
+def _max_gap(pairs) -> float:
+    """The largest |a - b| over pairs of equal-shaped tensors."""
+    return max(float((a - b).abs().max()) for a, b in pairs)
+
+
+def _merge_paths_parity(dev) -> tuple[float, float]:
+    """23. The merge's compressed path at the flagship count on phase 9's
+    three weight profiles: K3c's stack and counts and K3d's rows equal
+    their twins bit for bit, and K3b's rows; both ``pass2`` merges equal
+    the default.  Returns the largest |kernel - plain| of K3c and of
+    K3d."""
+    import torch
+
+    from tpuslam_torch.ops import resample_cuda as rs
+
+    n, p_rows, profiles = _resample_profiles(dev)
+    err_c = err_d = 0.0
+    seen = []
+    for name, w, offs in profiles:
+        wq, base, q_tot = rs.quantize_weights(w)
+        t_k = rs.resample_boundary(wq, base, 1.0 / q_tot, offs, n)
+        stack = rs.compact_particles(p_rows, t_k)
+        stack_p = rs.compact_particles_plain(p_rows, t_k)
+        err_c = max(err_c, _max_gap(zip(stack, stack_p)))
+        _require(all(torch.equal(a, b) for a, b in zip(stack, stack_p)),
+                 f"{name}: K3c stack or counts differ")
+        out = rs.expand_compressed(*stack[:2], n)
+        out_p = rs.expand_compressed_plain(*stack[:2], n)
+        err_d = max(err_d, _max_gap([(out, out_p)]))
+        _require(torch.equal(out, out_p), f"{name}: K3d rows differ")
+        default = rs.merge_resample_rows(p_rows, w, n, offs, device=dev)
+        _require(torch.equal(out, default), f"{name}: K3d differs from K3b")
+        for pass2 in rs.PASS2:
+            got = rs.merge_resample_rows(p_rows, w, n, offs, device=dev,
+                                         pass2=pass2)
+            _require(torch.equal(got, default),
+                     f"{name}: merge pass2={pass2} differs")
+        seen.append(f"{name} {int(stack[2].sum()):,} survivors")
+    torch.cuda.synchronize()
+    print(f"merge paths parity at {n:,}: K3c stack and counts and K3d rows "
+          f"bit-equal to plain and K3d to K3b, both pass2 merges equal the "
+          f"default ({', '.join(seen)}); max|kernel-plain| K3c {err_c}, K3d "
+          f"{err_d}", flush=True)
+    return err_c, err_d
+
+
+def _wide_compressed_parity(dev) -> tuple[float, float]:
+    """24. The segmented K3c and K3d bit-equal to their twins at
+    1024 x 10,000 on phase 16's inputs (a fifth of the filters firing),
+    their rows equal to the segmented K3b's; then one whole wide step with
+    ``pass2="compressed"`` equal to the windowed step bit for bit.
+    Returns the largest |kernel - plain| of each."""
+    import torch
+
+    from tpuslam_torch.ops import pf_batch_cuda as pb
+    from tpuslam_torch.ops import resample_cuda as rs
+
+    b, n = WIDE_MAIN
+    f32 = dict(dtype=torch.float32, device=dev)
+    particles, log_w, lse, lse2, _, fire, _, offs = _wide_inputs(dev, b, n,
+                                                                 16)
+    slots = pb.wide_slots(log_w, lse, fire, offs)
+    t_hi = pb.wide_boundary(slots.cum, slots.fids, slots.valid,
+                            slots.inv_tot, slots.offs)
+    v = slots.valid
+    args = (particles, t_hi, slots.fids, v)
+    (vals, iv, cnt) = rs.compact_particles_seg(*args)
+    (vals_p, iv_p, cnt_p) = rs.compact_particles_seg_plain(*args)
+    pairs = [(vals[:, v], vals_p[:, v]), (iv[:, v], iv_p[:, v]),
+             (cnt, cnt_p)]
+    err_c = _max_gap(pairs)
+    _require(all(torch.equal(a, c) for a, c in pairs),
+             "segmented K3c stack or counts differ")
+    ex = rs.expand_compressed_seg(vals, iv, v)
+    ex_p = rs.expand_compressed_seg_plain(vals, iv, v)
+    err_d = _max_gap([(ex[:, v], ex_p[:, v])])
+    _require(torch.equal(ex[:, v], ex_p[:, v]), "segmented K3d rows differ")
+    _require(torch.equal(ex[:, v], rs.resample_expand_seg(*args)[:, v]),
+             "segmented K3d differs from the segmented K3b")
+    survivors = int(cnt.sum())
+
+    x0, _ = _truth_view(dev)
+    state = pb.PfBatchWideState(x0, particles, log_w, lse, lse2,
+                                x0.expand(b, 3).contiguous())
+    cfg = _batch_cfg(n, WIDE_STEP_FRAC)
+    kw = dict(obs_noise=torch.zeros((b, 5, 2), **f32), offs=offs)
+    st_w, out_w = pb.pf_batch_wide_step(cfg, state, None, 4242, **kw)
+    st_c, out_c = pb.pf_batch_wide_step(cfg, state, None, 4242,
+                                        pass2="compressed", **kw)
+    for name in ("particles", "log_w", "lse", "lse2", "x_est"):
+        _require(torch.equal(getattr(st_w, name), getattr(st_c, name)),
+                 f"compressed wide step: {name} differs from the windowed")
+    fired = int(out_c.resampled.sum())
+    _require(0 < fired < b and torch.equal(out_w.resampled, out_c.resampled),
+             f"compressed wide step: {fired} of {b} fired")
+    torch.cuda.synchronize()
+    print(f"wide compressed pass B (segmented K3c + K3d) parity at "
+          f"{b:,}x{n:,}: {int(v.sum())} of {b} filters firing, "
+          f"{survivors:,} survivors; stack, counts and rows bit-equal to "
+          f"plain and to the segmented K3b (max|kernel-plain| {err_c}, "
+          f"{err_d}); one Philox step with {fired} firing: particles, log "
+          f"weights, normalizers and x_est of pass2='compressed' equal the "
+          f"windowed step's", flush=True)
+    return err_c, err_d
+
+
+def _merge_main_paths(dev, default_fired: int) -> dict:
+    """25. The compressed paths through the user's calls, the counts set to
+    0 just before each and read just after: ``pf_fused_rollout`` with
+    :data:`MERGE_KW` at 2,097,152 x 400 (K3a, K3c and K3d once a firing
+    step, as often as the default path's K3a in phase 11; no K3b; one host
+    sync a step) and ``pf_batch_wide_rollout(pass2="compressed")`` at
+    1024 x 10,000 x 400 (400 launches each of the segmented K3c and K3d, no
+    segmented K3b, 0 host syncs).  Returns the launch counts."""
+    import torch
+
+    from tpuslam_torch.ops import pf_batch_cuda as pb
+    from tpuslam_torch.ops import (pf_batch_wide_rollout, pf_cuda,
+                                   pf_fused_rollout)
+    from tpuslam_torch.ops import resample_cuda as rs
+    from tpuslam_torch.utils import count_host_syncs
+
+    n = PF_SIZES[0]
+    pf_cuda.launch_count = pf_cuda.sync_count = 0
+    rs.boundary_launch_count = rs.expand_launch_count = 0
+    rs.compact_launch_count = rs.expand_compressed_launch_count = 0
+    final, (x_true, x_est) = pf_fused_rollout(
+        _pf_cfg(n), _gen(dev, 0), PF_STEPS, device=dev,
+        merge_caps_kw=MERGE_KW)
+    torch.cuda.synchronize()
+    single = {"pf_step": pf_cuda.launch_count,
+              "resample_boundary": rs.boundary_launch_count,
+              "resample_expand": rs.expand_launch_count,
+              "compact": rs.compact_launch_count,
+              "expand_compressed": rs.expand_compressed_launch_count}
+    syncs = pf_cuda.sync_count
+    _require(single["resample_boundary"] == single["compact"]
+             == single["expand_compressed"] == default_fired
+             and single["resample_expand"] == 0
+             and single["pf_step"] == PF_STEPS,
+             f"compressed PF launches {single}, default fired "
+             f"{default_fired}")
+    _require(syncs == PF_STEPS, f"compressed PF: {syncs} host syncs")
+    _require(bool(final.particles.isfinite().all()), "PF final state")
+    rmse = _rmse(x_true, x_est)
+    _require(PF_BAND[0] < rmse < PF_BAND[1], f"compressed PF RMSE {rmse}")
+    print(f"pf_fused_rollout(device='cuda', merge_caps_kw={MERGE_KW}) "
+          f"{n:,}x{PF_STEPS}: rmse {rmse:.4f}, launches {single}, host "
+          f"syncs {syncs}", flush=True)
+
+    with count_host_syncs() as control:
+        torch.ones(1, device=dev).item()
+    _require(control.count >= 1, "the host-sync counter saw no .item()")
+    b, n = WIDE_MAIN
+    pb.wide_boundary_launch_count = pb.wide_stats_launch_count = 0
+    rs.expand_seg_launch_count = rs.compact_seg_launch_count = 0
+    rs.expand_compressed_seg_launch_count = 0
+    with count_host_syncs() as syncs:
+        final, outs = pf_batch_wide_rollout(_batch_cfg(n), _gen(dev, 0), b,
+                                            PF_STEPS, device=dev,
+                                            pass2="compressed")
+    torch.cuda.synchronize()
+    wide = {"wide_boundary": pb.wide_boundary_launch_count,
+            "resample_expand_seg": rs.expand_seg_launch_count,
+            "compact_seg": rs.compact_seg_launch_count,
+            "expand_compressed_seg": rs.expand_compressed_seg_launch_count,
+            "wide_stats": pb.wide_stats_launch_count}
+    _require(wide["compact_seg"] == wide["expand_compressed_seg"]
+             == wide["wide_boundary"] == wide["wide_stats"] == PF_STEPS
+             and wide["resample_expand_seg"] == 0,
+             f"compressed wide launches {wide}")
+    _require(syncs.count == 0, f"compressed wide: {syncs.count} host syncs")
+    _require(bool(final.particles.isfinite().all())
+             and bool(final.lse.isfinite().all()), "wide final state")
+    rmse = _batch_rmse(outs)
+    _require(BATCH_BAND[0] < rmse < BATCH_BAND[1],
+             f"compressed wide RMSE {rmse}")
+    print(f"pf_batch_wide_rollout(device='cuda', pass2='compressed') "
+          f"{b:,}x{n:,}x{PF_STEPS}: rmse {rmse:.4f}, launches {wide}, host "
+          f"syncs {syncs.count} (control .item(): {control.count})",
+          flush=True)
+    return {**single, **wide}
+
+
+def _merge_timings(dev, smi) -> dict:
+    """26. Both compressed main paths beside their default twins, in this
+    call, in turns (default, compressed, compressed, default; each turn
+    the median of 3 by CUDA events after one warm-up); the final
+    particles and the estimates of the two forms equal bit for bit; then
+    where a compressed rollout's time goes.  Returns the compressed runs'
+    final states."""
+    import torch
+
+    from tpuslam_torch.ops import pf_batch_wide_rollout, pf_fused_rollout
+    from tpuslam_torch.utils import timed
+
+    n = PF_SIZES[0]
+    b, n_w = WIDE_MAIN
+    runs = (
+        (f"pf {n:,}x{PF_STEPS}", n * PF_STEPS,
+         lambda **kw: pf_fused_rollout(_pf_cfg(n), _gen(dev, 0), PF_STEPS,
+                                       device=dev, **kw),
+         {"merge_caps_kw": MERGE_KW}),
+        (f"wide {b:,}x{n_w:,}x{PF_STEPS}", b * n_w * PF_STEPS,
+         lambda **kw: pf_batch_wide_rollout(_batch_cfg(n_w), _gen(dev, 0),
+                                            b, PF_STEPS, device=dev, **kw),
+         {"pass2": "compressed"}))
+    finals = []
+    for label, work, fn, kw in runs:
+        out, secs = {}, {"default": [], "compressed": []}
+        forms = {"default": {}, "compressed": kw}
+        # In turns (default, compressed, compressed, default), so a drift
+        # of the host within the call shows as a gap between each form's
+        # two medians rather than between the forms.
+        for form in ("default", "compressed", "compressed", "default"):
+            def call(form=form):
+                out[form] = fn(**forms[form])
+
+            secs[form].append(timed(call, reps=3, warmup=1, device=dev))
+        (fin_d, traj_d), (fin_c, traj_c) = out["default"], out["compressed"]
+        _require(torch.equal(fin_d.particles, fin_c.particles)
+                 and torch.equal(traj_d[1], traj_c[1]),
+                 f"timed {label}: compressed differs from the default")
+        finals.append(fin_c)
+        mean = {form: sum(s) / len(s) for form, s in secs.items()}
+        print(f"timing merge paths {label}: default "
+              f"{work / mean['default']:.4e} particle-steps/s (medians "
+              f"{secs['default'][0] * 1e3:.3f}, "
+              f"{secs['default'][1] * 1e3:.3f} ms), compressed "
+              f"{work / mean['compressed']:.4e} (medians "
+              f"{secs['compressed'][0] * 1e3:.3f}, "
+              f"{secs['compressed'][1] * 1e3:.3f} ms); final particles and "
+              f"estimates equal; on {smi}", flush=True)
+        _profile(f"{label} compressed", lambda fn=fn, kw=kw: fn(**kw),
+                 top_n=6)
+    return finals
+
+
+def _merge_kernel_times(dev, smi, finals, launches, errs) -> list:
+    """27. K3c, K3d and their segmented forms alone at the main paths'
+    shapes, on the states the compressed rollouts reached, beside their
+    twins, their bounds and one library call each: boolean-mask
+    compaction ``rows[:, flags]`` (which also compresses, and synchronises
+    with the host) for K3c, ``torch.repeat_interleave`` of the stack by
+    ``t_hi - t_lo`` (0 for its inert columns) for K3d.  Returns their
+    entries of the ``kernels`` line."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpuslam_torch.ops import pf_batch_cuda as pb
+    from tpuslam_torch.ops import pf_fused_init
+    from tpuslam_torch.ops import resample_cuda as rs
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    n = PF_SIZES[0]
+    fs = pf_fused_init(_pf_cfg(n), finals[0], device=dev)
+    p_rows = fs.particles
+    t_hi = rs.slot_boundaries(torch.exp(fs.log_w - fs.lse), n,
+                              torch.full((1,), 0.5, **f32))
+    vals, iv, cnt = rs.compact_particles(p_rows, t_hi)
+    survivors = int(cnt.sum())
+    flags = t_hi > F.pad(t_hi[:-1], (1, 0))
+    counts = (iv[1] - iv[0]).to(torch.int64)
+    blocks = -(-n // rs.BLOCK)
+
+    b, n_w = WIDE_MAIN
+    sw = finals[1]
+    _, _, fire = pb._gate(_batch_cfg(n_w), sw.lse, sw.lse2)
+    slots = pb.wide_slots(sw.log_w, sw.lse, fire,
+                          torch.rand(b, generator=_gen(dev, 27), **f32))
+    t_w = pb.wide_boundary(slots.cum, slots.fids, slots.valid,
+                           slots.inv_tot, slots.offs)
+    v = slots.valid
+    seg_args = (sw.particles, t_w, slots.fids, v)
+    vals_w, iv_w, cnt_w = rs.compact_particles_seg(*seg_args)
+    n_fire = int(v.sum())
+    survivors_w = int(cnt_w[v].sum())
+    lanes_fire = n_fire * n_w
+    rows = sw.particles[:, slots.fids[v].long()].reshape(3, -1)
+    t_rows = t_w[v]
+    flags_w = (t_rows > F.pad(t_rows[:, :-1], (1, 0))).reshape(-1)
+    stack_rows = vals_w[:, v].reshape(3, -1)
+    counts_w = (iv_w[1] - iv_w[0])[v].reshape(-1).to(torch.int64)
+    blocks_w = -(-n_w // rs.BLOCK)
+    at_single = f"{n:,}, {survivors:,} survivors"
+    at_wide = f"{b:,}x{n_w:,}, {n_fire} firing, {survivors_w:,} survivors"
+
+    kernels = [
+        ("compact", "tpuslam/ops/resample_pallas.py:203",
+         lambda: rs.compact_particles(p_rows, t_hi),
+         lambda: rs.compact_particles_plain(p_rows, t_hi),
+         ("boolean-mask compaction", lambda: p_rows[:, flags]),
+         _bound(24 * n + 12 * survivors + 4 * blocks, 0), errs["compact"],
+         at_single),
+        ("expand_compressed", "tpuslam/ops/resample_pallas.py:489",
+         lambda: rs.expand_compressed(vals, iv, n),
+         lambda: rs.expand_compressed_plain(vals, iv, n),
+         ("torch.repeat_interleave",
+          lambda: torch.repeat_interleave(vals, counts, dim=1,
+                                          output_size=n)),
+         _bound(20 * survivors + 12 * n + 1, 0), errs["expand_compressed"],
+         at_single),
+        ("compact_seg", "tpuslam/ops/resample_pallas.py:203",
+         lambda: rs.compact_particles_seg(*seg_args),
+         lambda: rs.compact_particles_seg_plain(*seg_args),
+         ("boolean-mask compaction", lambda: rows[:, flags_w]),
+         _bound(24 * lanes_fire + 12 * survivors_w + 4 * b * blocks_w
+                + 5 * b, 0), errs["compact_seg"], at_wide),
+        ("expand_compressed_seg", "tpuslam/ops/resample_pallas.py:489",
+         lambda: rs.expand_compressed_seg(vals_w, iv_w, v),
+         lambda: rs.expand_compressed_seg_plain(vals_w, iv_w, v),
+         ("torch.repeat_interleave",
+          lambda: torch.repeat_interleave(stack_rows, counts_w, dim=1,
+                                          output_size=lanes_fire)),
+         _bound(20 * survivors_w + 12 * lanes_fire + b, 0),
+         errs["expand_compressed_seg"], at_wide),
+    ]
+    entries = []
+    for name, replaces, fn, plain_fn, (lib_name, lib_fn), bound, max_err, \
+            shape in kernels:
+        ms = _device_ms(fn, 50)
+        plain_ms = _device_ms(plain_fn, 5)
+        library_ms = _device_ms(lib_fn, 20)
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "tpuslam_torch/csrc/resample.cu",
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": library_ms})
+        print(f"kernel {name} at {shape}: {ms:.4f} ms a launch, plain "
+              f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}), "
+              f"{lib_name} {library_ms:.4f} ms; {launches[name]} launches "
+              f"in the main path; on {smi}", flush=True)
+    return entries
+
+
+def _merge_phases(dev, smi, default_fired: int):
+    """The merge's compressed path's phases, in order; returns its
+    kernels' entries."""
+    t0 = time.perf_counter()
+    errs = {}
+    errs["compact"], errs["expand_compressed"] = _merge_paths_parity(dev)
+    errs["compact_seg"], errs["expand_compressed_seg"] = \
+        _wide_compressed_parity(dev)
+    launches = _merge_main_paths(dev, default_fired)
+    finals = _merge_timings(dev, smi)
+    entries = _merge_kernel_times(dev, smi, finals, launches, errs)
+    print(f"merge-path phases 23-27: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -1146,6 +1527,9 @@ def main() -> int:
 
     pf_entries = _pf_phases(dev, smi)
     pf_entries += _batch_phases(dev, smi)
+    default_fired = next(e["launches"] for e in pf_entries
+                         if e["name"] == "resample_boundary")
+    pf_entries += _merge_phases(dev, smi, default_fired)
 
     b, n = FLAGSHIP
     bound_ms, bound_by = _bound(80 * b + 20 * n, EKF_OPS_PER_STEP * b * n)

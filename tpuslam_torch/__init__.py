@@ -10,8 +10,9 @@ Layer map:
     filters/   the EKF and the particle filter as plain functions on tensors
     metrics/   RMSE / NEES / divergence masks
     ops/       CUDA kernels (csrc/) beside their plain torch versions: the
-               EKF rollout, the PF step, the merge resample, the batched
-               and wide PF steps
+               EKF rollout, the PF step, the merge resample (boundaries,
+               expand, and the survivor stack's compaction and compressed
+               expand), the batched and wide PF steps
     utils/     timing on the card, host synchronisations
     convert    configs and state across from the JAX package
     entry      the single-call entry point

@@ -39,9 +39,40 @@
 // space): one more grid dimension over firing slots, each slot searching
 // only its own filter's boundaries.  The single-filter launch is
 // unchanged.
+//
+// The merge's pass2="compressed" form runs pass 2 through a survivor stack,
+// which two more kernels build and read; each serves the single filter as one
+// slot of its segmented form (the wide filter's pass B), blockIdx.y being
+// the slot:
+//   * compact (K3c, replaces _compact_kernel, resample_pallas.py:203):
+//     per 1024-lane block, an exact int32 warp-shuffle scan of the
+//     survivor flags t_j > t_{j-1} (t_{-1} = 0; a block's first lane
+//     reads the last boundary of the block before) moves each survivor's
+//     three floats and its slot interval [t_{j-1}, t_j) to column
+//     block * 1024 + rank.  Columns past the block's count get zero values
+//     and an empty interval at the block's last boundary, so no output
+//     slot can select them; cnt[block] is the count.  A block holds at
+//     most 1024 survivors, so the stack has the rows' own width and no
+//     cap can overflow.  Bytes: 8 a lane read (t_j, and t_{j-1} from L1),
+//     12 a survivor read, 20 a column written.
+//   * expand_compressed (K3d, replaces _expand_compressed_kernel,
+//     resample_pallas.py:489): output slot i takes the first stack column
+//     with t_hi > i and copies its three floats from the stack.  The TPU
+//     gathered every block's survivors into one list first (in XLA); here
+//     the per-block stack is searched as it stands, because its t_hi row
+//     is already sorted: survivors' t_hi rise strictly, and an inert
+//     column repeats the last boundary before it, so the first column
+//     above i is always a survivor, never an inert one.  That removes the
+//     gather, its survivor count and any host read of it: done in torch
+//     over every lane, the gather took ten times the two kernels' time on
+//     an H100 on the wide path.  The survivor's t_lo <= i is asserted.
+//     Bytes: 20 a survivor read, 12 a slot written.
+// The TPU's bf16 splits, one-hot products, t_k / w_b caps, skip table and
+// fallback have no counterpart here.
 
 #include <cuda_runtime.h>
 
+#include <cassert>
 #include <cstdint>
 
 namespace {
@@ -143,6 +174,91 @@ expand_seg_kernel(const float* __restrict__ p, const int* __restrict__ t_hi,
   out[2 * plane + dst] = __ldg(p + 2 * plane + src);
 }
 
+// K3c: block blockIdx.x of slot s = blockIdx.y, which compacts the
+// particles of its filter fids[s] by its boundaries t_hi[s] into row s of
+// the (3, b, len) / (2, b, len) stack (t_lo, then t_hi a plane on) and
+// row s of the (b, nblk) counts; an idle slot writes zero counts and exits
+// at once.  p is (3, b, len): filter f's particles at f.
+__global__ void __launch_bounds__(kScanBlock)
+compact_kernel(const float* __restrict__ p, const int* __restrict__ t_hi,
+               const int* __restrict__ fids,
+               const unsigned char* __restrict__ valid,
+               float* __restrict__ vals, int* __restrict__ iv,
+               int* __restrict__ cnt, int len, int b) {
+  __shared__ int warp_sums[kScanWarps];
+  const int s = blockIdx.y;
+  if (!valid[s]) {
+    if (threadIdx.x == 0) cnt[s * gridDim.x + blockIdx.x] = 0;
+    return;
+  }
+  const long long plane = static_cast<long long>(b) * len;
+  const long long row = static_cast<long long>(s) * len;
+  const int* t = t_hi + row;
+  p += static_cast<long long>(fids[s]) * len;
+  vals += row;
+  iv += row;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int col0 = blockIdx.x * kScanBlock;
+  const int j = col0 + threadIdx.x;
+  const bool in = j < len;
+  const int t_j = in ? __ldg(t + j) : 0;
+  const int t_prev = (in && j > 0) ? __ldg(t + j - 1) : 0;
+  const int f = t_j > t_prev ? 1 : 0;
+  const int incl = warp_inclusive_scan(f, lane);
+  if (lane == 31) warp_sums[warp] = incl;
+  __syncthreads();
+  if (warp == 0) warp_sums[lane] = warp_inclusive_scan(warp_sums[lane], lane);
+  __syncthreads();
+  const int count = warp_sums[kScanWarps - 1];
+  if (threadIdx.x == 0) cnt[s * gridDim.x + blockIdx.x] = count;
+  if (!in) return;
+  if (f) {
+    const int col = col0 + (warp > 0 ? warp_sums[warp - 1] : 0) + incl - 1;
+    vals[col] = __ldg(p + j);
+    vals[plane + col] = __ldg(p + plane + j);
+    vals[2 * plane + col] = __ldg(p + 2 * plane + j);
+    iv[col] = t_prev;
+    iv[plane + col] = t_j;
+  }
+  if (static_cast<int>(threadIdx.x) >= count) {
+    const int t_run = __ldg(t + min(len, col0 + kScanBlock) - 1);
+    vals[j] = 0.0f;
+    vals[plane + j] = 0.0f;
+    vals[2 * plane + j] = 0.0f;
+    iv[j] = t_run;
+    iv[plane + j] = t_run;
+  }
+}
+
+// K3d: slot s = blockIdx.y expands its own stack row (cv: (3, b, len),
+// civ: (2, b, len)) into row s of out: slot i < n takes the first column k
+// with t_hi[k] > i (a survivor, and k <= n - 1, see above) and copies its
+// values; slots n <= i < len are 0; an idle slot exits at once.
+__global__ void __launch_bounds__(kExpandBlock)
+expand_compressed_kernel(const float* __restrict__ cv,
+                         const int* __restrict__ civ,
+                         const unsigned char* __restrict__ valid,
+                         float* __restrict__ out, int n, int len, int b) {
+  const int s = blockIdx.y;
+  if (!valid[s]) return;
+  const int i = blockIdx.x * kExpandBlock + threadIdx.x;
+  if (i >= len) return;
+  const long long plane = static_cast<long long>(b) * len;
+  const long long row = static_cast<long long>(s) * len;
+  if (i >= n) {
+    out[row + i] = 0.0f;
+    out[plane + row + i] = 0.0f;
+    out[2 * plane + row + i] = 0.0f;
+    return;
+  }
+  const long long src = row + source_of(civ + plane + row, n, i);
+  assert(__ldg(civ + src) <= i);  // the survivor's interval holds slot i
+  out[row + i] = __ldg(cv + src);
+  out[plane + row + i] = __ldg(cv + plane + src);
+  out[2 * plane + row + i] = __ldg(cv + 2 * plane + src);
+}
+
 }  // namespace
 
 // C entry points for ctypes.  Each launches on `stream` and returns
@@ -191,5 +307,41 @@ extern "C" int tpuslam_resample_expand_seg(const float* p, const int* t_hi,
   expand_seg_kernel<<<grid, kExpandBlock, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       p, t_hi, fids, valid, out, n, b);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// p: (3, b, len) particle rows of b filters; t_hi: (b, len) boundaries in
+// slot order; fids, valid: (b,).  Writes the valid slots' rows of vals:
+// (3, b, len) and iv: (2, b, len), and cnt: (b, ceil(len / 1024)), zero
+// for idle slots.
+extern "C" int tpuslam_resample_compact(const float* p, const int* t_hi,
+                                        const int* fids,
+                                        const unsigned char* valid,
+                                        float* vals, int* iv, int* cnt,
+                                        int len, int b, void* stream) {
+  if (len < 1 || b < 1 || b > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid((len + kScanBlock - 1) / kScanBlock, b);
+  compact_kernel<<<grid, kScanBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+      p, t_hi, fids, valid, vals, iv, cnt, len, b);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// cv: (3, b, len), civ: (2, b, len) each slot's stack from the compaction;
+// valid: (b,).  Writes the valid slots' rows of out: (3, b, len), lanes
+// from n on zero.
+extern "C" int tpuslam_resample_expand_compressed(const float* cv,
+                                                  const int* civ,
+                                                  const unsigned char* valid,
+                                                  float* out, int n, int len,
+                                                  int b, void* stream) {
+  if (n < 1 || len < n || b < 1 || b > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid((len + kExpandBlock - 1) / kExpandBlock, b);
+  expand_compressed_kernel<<<grid, kExpandBlock, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      cv, civ, valid, out, n, len, b);
   return static_cast<int>(cudaGetLastError());
 }

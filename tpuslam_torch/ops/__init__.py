@@ -21,7 +21,12 @@ from tpuslam_torch.ops.pf_cuda import (PfFusedState, pf_fused_init,
                                        pf_fused_step_stats,
                                        pf_fused_step_stats_plain,
                                        pf_fused_to_state)
-from tpuslam_torch.ops.resample_cuda import (merge_resample_rows,
+from tpuslam_torch.ops.resample_cuda import (compact_particles,
+                                             compact_particles_seg,
+                                             expand_compressed,
+                                             expand_compressed_seg,
+                                             merge_options,
+                                             merge_resample_rows,
                                              merge_resample_rows_plain)
 
 __all__ = ["ekf_fused_rollout", "ekf_fused_rollout_plain",
@@ -33,6 +38,8 @@ __all__ = ["ekf_fused_rollout", "ekf_fused_rollout_plain",
            "pf_fused_step_stats", "pf_fused_step_stats_plain",
            "pf_fused_rollout", "pf_fused_rollout_plain",
            "merge_resample_rows", "merge_resample_rows_plain",
+           "merge_options", "compact_particles", "compact_particles_seg",
+           "expand_compressed", "expand_compressed_seg",
            "PfBatchState", "PfBatchOut", "PfBatchWideState", "pf_batch_init",
            "pf_batch_refresh_stats", "pf_batch_step", "pf_batch_rollout",
            "pf_batch_wide_init", "pf_batch_wide_step",

@@ -79,6 +79,10 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         "tpuslam_resample_expand": [ptr, ptr, ptr, c_int, c_int, ptr],
         "tpuslam_resample_expand_seg": [ptr, ptr, ptr, ptr, ptr, c_int,
                                         c_int, ptr],
+        "tpuslam_resample_compact": [ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+                                     c_int, c_int, ptr],
+        "tpuslam_resample_expand_compressed": [ptr, ptr, ptr, ptr, c_int,
+                                               c_int, c_int, ptr],
         "tpuslam_pf_batch_step": [ptr, ptr, c_int, c_int, ptr],
         "tpuslam_wide_boundary": [ptr, ptr, ptr, ptr, ptr, ptr, c_int, c_int,
                                   ptr],

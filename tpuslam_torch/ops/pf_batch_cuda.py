@@ -17,6 +17,8 @@ reference's scale advance in lockstep, the Monte-Carlo sweep shape.
   boundaries, ``csrc/pf_wide.cu``), the segmented K3b (the copies,
   ``csrc/resample.cu``) and K5b (predict, weight and per-block partial
   rows, ``csrc/pf_wide.cu``), reduced by :func:`_combine_wide_stats`.
+  With ``pass2="compressed"`` the segmented K3c and K3d take the
+  segmented K3b's place, bit for bit.
 
 Layouts: particles ``(3, B, n)`` rows x, y, yaw (filter f's particles
 contiguous), log weights ``(B, n)``, per-filter normalizers ``(B,)``; the
@@ -794,14 +796,15 @@ def _combine_wide_stats(parts: torch.Tensor):
     return stats[:, 0], stats[:, 1], stats[:, 2:5]
 
 
-def _wide_step_core(cfg, state, x_true, z, seed, offs, noise_on, normals):
+def _wide_step_core(cfg, state, x_true, z, seed, offs, noise_on, normals,
+                    pass2):
     """One wide step from the step's truth and observation."""
     bad, ess, fire = _gate(cfg, state.lse, state.lse2)
     slots = wide_slots(state.log_w, state.lse, fire, offs)
     t_hi = wide_boundary(slots.cum, slots.fids, slots.valid, slots.inv_tot,
                          slots.offs)
-    expanded = resample_cuda.resample_expand_seg(state.particles, t_hi,
-                                                 slots.fids, slots.valid)
+    expanded = resample_cuda.expand_seg(state.particles, t_hi, slots.fids,
+                                        slots.valid, pass2)
     p, lw, parts = wide_stats_rows(cfg, seed, state.particles, state.log_w,
                                    z, bad, fire, slots.src, expanded,
                                    noise_on, normals)
@@ -813,7 +816,8 @@ def _wide_step_core(cfg, state, x_true, z, seed, offs, noise_on, normals):
 def pf_batch_wide_step(cfg: PfConfig, state: PfBatchWideState,
                        generator: torch.Generator | None, seed: int,
                        noise_on: bool = True, *, obs_noise=None, offs=None,
-                       normals: torch.Tensor | None = None):
+                       normals: torch.Tensor | None = None,
+                       pass2: str = "windowed"):
     """One step of B wide filters (main_pf order), every launch made
     whatever the gate says and no host sync.
 
@@ -824,10 +828,15 @@ def pf_batch_wide_step(cfg: PfConfig, state: PfBatchWideState,
         obs_noise: optional ``(B, L, 2)`` scaled observation noise.
         offs: optional ``(B,)`` comb offsets in [0, 1).
         normals: optional ``(3, B, n)`` standard normals (noise on).
+        pass2: the resample's pass B: ``"windowed"`` (the segmented
+            expand) or ``"compressed"`` (the segmented compaction and the
+            segmented expand over its stack); the two give the same step
+            bit for bit.
 
     Returns:
         ``(next_state, PfBatchOut)``.
     """
+    resample_cuda.check_pass2(pass2)
     device = state.log_w.device
     b = state.log_w.shape[0]
     noise = _obs_noise(cfg, generator, (b,), obs_noise, device)
@@ -835,14 +844,15 @@ def pf_batch_wide_step(cfg: PfConfig, state: PfBatchWideState,
     x_true = circular_step(state.x_true, cfg.vel, cfg.yaw_rate, cfg.dt)
     z = (_observe(cfg, x_true) + noise).contiguous()
     return _wide_step_core(cfg, state, x_true, z, seed, offs, noise_on,
-                           normals)
+                           normals, pass2)
 
 
 def pf_batch_wide_rollout(cfg: PfConfig, generator: torch.Generator | None,
                           batch: int, n_steps: int, noise_on: bool = True, *,
                           device: torch.device | str,
                           state0: PfBatchWideState | None = None,
-                          obs_noise=None, offs=None):
+                          obs_noise=None, offs=None,
+                          pass2: str = "windowed"):
     """``n_steps`` wide steps (the path of ``bench.py``'s
     ``bench_pf_batch_wide``), no host sync.
 
@@ -854,10 +864,12 @@ def pf_batch_wide_rollout(cfg: PfConfig, generator: torch.Generator | None,
         obs_noise: optional ``(n_steps, B, L, 2)`` scaled observation
             noise.
         offs: optional ``(n_steps, B)`` comb offsets.
+        pass2: the resample's pass B, as in :func:`pf_batch_wide_step`.
 
     Returns:
         ``(final_state, outs)`` as :func:`pf_batch_rollout`'s.
     """
+    resample_cuda.check_pass2(pass2)
     device = _rollout_device(generator, device)
     if n_steps < 1:
         raise ValueError(f"n_steps {n_steps} must be positive")
@@ -875,7 +887,7 @@ def pf_batch_wide_rollout(cfg: PfConfig, generator: torch.Generator | None,
     outs = []
     for k in range(n_steps):
         state, out = _wide_step_core(cfg, state, x_tbl[k], z_all[k], seed,
-                                     offs[k], noise_on, None)
+                                     offs[k], noise_on, None, pass2)
         outs.append(out)
         seed += stride
     return state, PfBatchOut(x_tbl, *(torch.stack(f) for f in

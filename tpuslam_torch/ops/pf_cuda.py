@@ -414,9 +414,11 @@ def pf_fused_to_state(cfg: PfConfig, fs: PfFusedState) -> PfState:
 
 def _step(cfg: PfConfig, fs: PfFusedState, x_true: torch.Tensor,
           z: torch.Tensor, seed: int, offs: torch.Tensor, noise_on: bool,
-          normals: torch.Tensor | None, plain: bool):
+          normals: torch.Tensor | None, plain: bool, merge_kw: dict):
     """One step from the step's truth and observation: ESS gate,
-    resample where it fires, then the stats pass and the estimate."""
+    resample where it fires (the merge with ``merge_kw``, from
+    :func:`~tpuslam_torch.ops.resample_cuda.merge_options`), then the
+    stats pass and the estimate."""
     global sync_count
     n = cfg.num_particles
     bad = ~(torch.isfinite(fs.lse) & torch.isfinite(fs.lse2))
@@ -432,7 +434,7 @@ def _step(cfg: PfConfig, fs: PfFusedState, x_true: torch.Tensor,
             resample = (resample_cuda.merge_resample_rows_plain if plain
                         else resample_cuda.merge_resample_rows)
             particles = resample(particles, w, n, offs,
-                                 device=particles.device)
+                                 device=particles.device, **merge_kw)
         else:
             idx = resample_indices_from_offs(offs, w, cfg.resample_method)
             particles = particles[:, idx]
@@ -483,19 +485,21 @@ def _observe(cfg: PfConfig, x_true: torch.Tensor) -> torch.Tensor:
 
 
 def _step_stats(cfg, fs, generator, seed, noise_on, offs, obs_noise,
-                normals, plain):
+                normals, plain, merge_caps_kw):
+    merge_kw = resample_cuda.merge_options(merge_caps_kw)
     offs, obs_noise = _draws(cfg, generator, 1, offs, obs_noise,
                              fs.particles.device)
     x_true = circular_step(fs.x_true, cfg.vel, cfg.yaw_rate, cfg.dt)
     z = (_observe(cfg, x_true) + obs_noise[0]).contiguous()
     return _step(cfg, fs, x_true, z, seed, offs[0], noise_on, normals,
-                 plain)
+                 plain, merge_kw)
 
 
 def pf_fused_step_stats(cfg: PfConfig, fs: PfFusedState,
                         generator: torch.Generator | None, seed: int,
                         noise_on: bool = True, *, offs=None, obs_noise=None,
-                        normals: torch.Tensor | None = None):
+                        normals: torch.Tensor | None = None,
+                        merge_caps_kw: tuple = ()):
     """One PF step on the fused state, one pass over particle memory
     unless the ESS gate fires.
 
@@ -514,23 +518,30 @@ def pf_fused_step_stats(cfg: PfConfig, fs: PfFusedState,
         obs_noise: optional ``(L, 2)`` scaled observation noise.
         normals: optional ``(3, N)`` standard normals for the particle
             noise (noise on only).
+        merge_caps_kw: the JAX package's ``(name, value)`` pairs for the
+            merge; ``("pass2", str)`` chooses its path
+            (:func:`.resample_cuda.merge_resample_rows`), ``("fused",
+            True)`` is accepted as what the port always does, and any
+            other entry raises a ``ValueError``
+            (:func:`.resample_cuda.merge_options`).
 
     Returns:
         ``(next_fs, ess)`` with the ESS before resampling.
     """
     return _step_stats(cfg, fs, generator, seed, noise_on, offs, obs_noise,
-                       normals, plain=False)
+                       normals, plain=False, merge_caps_kw=merge_caps_kw)
 
 
 def pf_fused_step_stats_plain(cfg: PfConfig, fs: PfFusedState,
                               generator: torch.Generator | None, seed: int,
                               noise_on: bool = True, *, offs=None,
                               obs_noise=None,
-                              normals: torch.Tensor | None = None):
+                              normals: torch.Tensor | None = None,
+                              merge_caps_kw: tuple = ()):
     """:func:`pf_fused_step_stats` through the plain twins only, on any
     device."""
     return _step_stats(cfg, fs, generator, seed, noise_on, offs, obs_noise,
-                       normals, plain=True)
+                       normals, plain=True, merge_caps_kw=merge_caps_kw)
 
 
 def pf_fused_step(cfg: PfConfig, state: PfState,
@@ -577,10 +588,11 @@ def _truth_tables(cfg: PfConfig, fs: PfFusedState, n_steps: int,
 
 
 def _rollout(cfg, generator, n_steps, state0, noise_on, device, offs,
-             obs_noise, plain):
+             obs_noise, plain, merge_caps_kw):
     device = _build.resolve_device(device)
     if n_steps < 1:
         raise ValueError(f"n_steps {n_steps} must be positive")
+    merge_kw = resample_cuda.merge_options(merge_caps_kw)
     if device.type == "cuda" and not plain:
         _build.cuda_library(device)
     fs = pf_fused_init(cfg, state0, device=device)
@@ -592,7 +604,7 @@ def _rollout(cfg, generator, n_steps, state0, noise_on, device, offs,
     x_est = []
     for k in range(n_steps):
         fs, _ = _step(cfg, fs, x_tbl[k], z_all[k], seed, offs[k], noise_on,
-                      None, plain)
+                      None, plain, merge_kw)
         x_est.append(fs.x_est)
         seed += SEED_STEP
     return pf_fused_to_state(cfg, fs), (x_tbl, torch.stack(x_est))
@@ -601,7 +613,7 @@ def _rollout(cfg, generator, n_steps, state0, noise_on, device, offs,
 def pf_fused_rollout(cfg: PfConfig, generator: torch.Generator | None,
                      n_steps: int, state0: PfState | None = None,
                      noise_on: bool = True, *, device: torch.device | str,
-                     offs=None, obs_noise=None):
+                     offs=None, obs_noise=None, merge_caps_kw: tuple = ()):
     """``n_steps`` fused PF steps (the path of ``bench.py``'s
     ``bench_pf_pallas``).
 
@@ -617,13 +629,15 @@ def pf_fused_rollout(cfg: PfConfig, generator: torch.Generator | None,
             lands on the plain path by leaving it out.
         offs: optional ``(n_steps,)`` comb offsets.
         obs_noise: optional ``(n_steps, L, 2)`` scaled observation noise.
+        merge_caps_kw: the merge's path, as in
+            :func:`pf_fused_step_stats`.
 
     Returns:
         ``(final_state, (x_true, x_est))`` with ``(n_steps, 3)``
         trajectories.
     """
     return _rollout(cfg, generator, n_steps, state0, noise_on, device, offs,
-                    obs_noise, plain=False)
+                    obs_noise, plain=False, merge_caps_kw=merge_caps_kw)
 
 
 def pf_fused_rollout_plain(cfg: PfConfig,
@@ -631,8 +645,8 @@ def pf_fused_rollout_plain(cfg: PfConfig,
                            state0: PfState | None = None,
                            noise_on: bool = True, *,
                            device: torch.device | str, offs=None,
-                           obs_noise=None):
+                           obs_noise=None, merge_caps_kw: tuple = ()):
     """:func:`pf_fused_rollout` through the plain twins only, on any
     device."""
     return _rollout(cfg, generator, n_steps, state0, noise_on, device, offs,
-                    obs_noise, plain=True)
+                    obs_noise, plain=True, merge_caps_kw=merge_caps_kw)
