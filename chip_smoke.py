@@ -7,7 +7,8 @@ Run from the repository root with no arguments::
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from ``tpuslam_torch/csrc``, holds each kernel
+It builds the CUDA kernels from ``tpuslam_torch/csrc`` and prints each
+kernel's compiler and occupancy report, holds each kernel
 against its plain torch version on the card, checks the noisy filters
 against their statistical bands, drives each path through the calls a
 user makes (the EKF entry point; the fused PF rollout at 2,097,152
@@ -63,6 +64,17 @@ PF_STEP_CHECK = (1_000_000, 65_536)
 BATCH_SIZES = ((8192, 1000), (1024, 1000))
 WIDE_SIZES = ((1024, 10_000), (128, 10_000))
 BATCH_MAIN, WIDE_MAIN = BATCH_SIZES[0], WIDE_SIZES[0]
+# K4 and K5b are also held to their twins at ragged shapes: K4 with rows
+# that are not 16-byte aligned and a partial last thread, once in one pass
+# of the block and once in five; K5b with scalar rows and a ragged last
+# pass of its block, and at 128 filters, one block a SM.
+BATCH_RAGGED = ((8192, 997), (256, 4099))
+WIDE_RAGGED = ((64, 10_001), (128, 10_000))
+# The previous K4 and K5b designs' times a launch at the main shapes (one
+# particle a thread; NVIDIA H100 80GB HBM3, 700.00 W; PERF.md), printed
+# beside the new ones on the human line only: this run did not measure
+# them.
+PREV_MS = {"pf_batch_step": 0.6548, "wide_stats": 0.7909}
 BATCH_BAND = (0.02, 0.50)
 BATCH_BAND_SHAPE = (256, 1000, 100)
 WIDE_BAND_SHAPE = (32, 10_000, 100)
@@ -436,11 +448,13 @@ def _pf_timings(dev, smi):
     return finals[PF_SIZES[0]], err
 
 
-def _profile(label: str, call, top_n: int = 4) -> None:
+def _profile(label: str, call, top_n: int = 4,
+             steps: int | None = None) -> None:
     """Where one call's time goes (torch.profiler): device busy time over
     host wall time, and the largest device-time entries.  Busy time sums
     the device's own events (kernels, copies) only: a torch op's entry
-    repeats the time of the kernels it launched."""
+    repeats the time of the kernels it launched.  With ``steps``, also the
+    torch operations a step (``aten::`` events that no other encloses)."""
     import torch
 
     activities = [torch.profiler.ProfilerActivity.CPU,
@@ -460,8 +474,15 @@ def _profile(label: str, call, top_n: int = 4) -> None:
                 busy_us += us
     busy_ms = busy_us / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:top_n]
+    ops = ""
+    if steps:
+        n_ops = sum(1 for evt in prof.events()
+                    if evt.name.startswith("aten::")
+                    and (evt.cpu_parent is None
+                         or not evt.cpu_parent.name.startswith("aten::")))
+        ops = f", {n_ops / steps:.1f} torch ops a step"
     print(f"profile {label}: wall {wall_ms:.3f} ms, device busy "
-          f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%); "
+          f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%){ops}; "
           + "; ".join(f"{k[:40]} {v / 1e3:.3f} ms" for k, v in top),
           flush=True)
 
@@ -614,55 +635,64 @@ def _map_agrees(kp, klw, k_est, plw, what: str) -> None:
 
 
 def _batch_parity(dev):
-    """15. K4 against its twin, one step at 8192 x 1000: noise off with the
-    gate closed and forced (ess_threshold_frac 2.0), injected normals and
-    comb offsets with a mixed gate (selection bit-equal), and Philox with
-    a mixed gate.  Returns the largest difference."""
+    """15. K4 against its twin, one step at 8192 x 1000 and at the
+    :data:`BATCH_RAGGED` shapes: the gate closed (ess_threshold_frac 1e-3),
+    forced (2.0) and natural (0.3, a mixed gate), each with injected
+    normals and comb offsets and with Philox, and noise off with the gate
+    closed and forced; selection bit-equal.  Returns the largest
+    difference."""
     import torch
 
     from tpuslam_torch.ops import pf_batch_cuda as pb
 
-    b, n = BATCH_MAIN
-    particles, log_w, lse, lse2, z, g = _batch_inputs(dev, b, n, 15)
     f32 = dict(dtype=torch.float32, device=dev)
-    normals = torch.randn((3, b, n), generator=g, **f32)
-    offs = torch.rand(b, generator=g, **f32)
-    worst, lines = 0.0, []
-    closed, forced, mixed = (0, 0), (b, b), (1, b - 1)  # filters firing
-    for label, frac, fired_range, noise_on, nrm, off in (
-            ("noise off, gate closed", 1e-3, closed, False, None, None),
-            ("noise off, gate forced", 2.0, forced, False, None, None),
-            ("injected normals and offsets", 0.3, mixed, True, normals,
-             offs),
-            ("Philox", 0.3, mixed, True, None, None)):
-        args = (_batch_cfg(n, frac), 777, particles, log_w, lse, lse2, z,
-                noise_on, nrm, off)
-        kern = pb.pf_batch_step_rows(*args, with_sel=True)
-        plain = pb.pf_batch_step_rows_plain(*args, with_sel=True)
-        _require(torch.equal(kern.resampled, plain.resampled)
-                 and torch.equal(kern.bad, plain.bad),
-                 f"K4 {label}: gate flags differ")
-        _require(torch.equal(kern.ess, plain.ess), f"K4 {label}: ESS")
-        fired = int(kern.resampled.sum())
-        _require(fired_range[0] <= fired <= fired_range[1],
-                 f"K4 {label}: {fired} of {b} fired")
-        _require(torch.equal(kern.sel, plain.sel),
-                 f"K4 {label}: selection differs")
-        pose, lw_gap = _step_gap((kern.particles, kern.log_w, None),
-                                 (plain.particles, plain.log_w, None),
-                                 f"K4 {label}")
-        _require(torch.allclose(kern.lse, plain.lse, rtol=1e-5, atol=1e-4)
-                 and torch.allclose(kern.lse2, plain.lse2, rtol=1e-5,
-                                    atol=1e-4), f"K4 {label}: lse/lse2")
-        _map_agrees(kern.particles, kern.log_w, kern.x_est, plain.log_w,
-                    f"K4 {label}")
-        worst = max(worst, pose, lw_gap)
-        lines.append(f"{label}: {fired} fired, poses {pose:.3e}, log "
-                     f"weights {lw_gap:.3e}")
-    torch.cuda.synchronize()
-    print(f"pf_batch (K4) parity at {b:,}x{n:,}, selection bit-equal: "
-          + "; ".join(lines) + " (atol 1e-4 poses, 1e-4 + 1e-5|lw|)",
-          flush=True)
+    worst = 0.0
+    for b, n in (BATCH_MAIN,) + BATCH_RAGGED:
+        particles, log_w, lse, lse2, z, g = _batch_inputs(dev, b, n, 15)
+        normals = torch.randn((3, b, n), generator=g, **f32)
+        offs = torch.rand(b, generator=g, **f32)
+        lines = []
+        for gate, frac, fired_range in (("closed", 1e-3, (0, 0)),
+                                        ("forced", 2.0, (b, b)),
+                                        ("natural", 0.3, (1, b - 1))):
+            for noise, noise_on, nrm, off in (
+                    ("noise off", False, None, None),
+                    ("injected normals and offsets", True, normals, offs),
+                    ("Philox", True, None, None)):
+                if gate == "natural" and not noise_on:
+                    continue
+                label = f"{b}x{n} {gate} {noise}"
+                args = (_batch_cfg(n, frac), 777, particles, log_w, lse,
+                        lse2, z, noise_on, nrm, off)
+                kern = pb.pf_batch_step_rows(*args, with_sel=True)
+                plain = pb.pf_batch_step_rows_plain(*args, with_sel=True)
+                _require(torch.equal(kern.resampled, plain.resampled)
+                         and torch.equal(kern.bad, plain.bad),
+                         f"K4 {label}: gate flags differ")
+                _require(torch.equal(kern.ess, plain.ess),
+                         f"K4 {label}: ESS")
+                fired = int(kern.resampled.sum())
+                _require(fired_range[0] <= fired <= fired_range[1],
+                         f"K4 {label}: {fired} of {b} fired")
+                _require(torch.equal(kern.sel, plain.sel),
+                         f"K4 {label}: selection differs")
+                pose, lw_gap = _step_gap((kern.particles, kern.log_w, None),
+                                         (plain.particles, plain.log_w,
+                                          None), f"K4 {label}")
+                _require(torch.allclose(kern.lse, plain.lse, rtol=1e-5,
+                                        atol=1e-4)
+                         and torch.allclose(kern.lse2, plain.lse2,
+                                            rtol=1e-5, atol=1e-4),
+                         f"K4 {label}: lse/lse2")
+                _map_agrees(kern.particles, kern.log_w, kern.x_est,
+                            plain.log_w, f"K4 {label}")
+                worst = max(worst, pose, lw_gap)
+                lines.append(f"{gate} {noise}: {fired} fired, poses "
+                             f"{pose:.3e}, log weights {lw_gap:.3e}")
+        torch.cuda.synchronize()
+        print(f"pf_batch (K4) parity at {b:,}x{n:,}, selection bit-equal: "
+              + "; ".join(lines) + " (atol 1e-4 poses, 1e-4 + 1e-5|lw|)",
+              flush=True)
     return worst
 
 
@@ -683,8 +713,8 @@ def _wide_inputs(dev, b: int, n: int, seed: int):
 
 def _wide_resample_parity(dev):
     """16. K5a and the segmented K3b bit-equal to their twins at
-    1024 x 10,000 with a fifth of the filters firing.  Returns the slot
-    prerequisites, the expanded rows and the largest differences."""
+    1024 x 10,000 with a fifth of the filters firing.  Returns the largest
+    differences."""
     import torch
 
     from tpuslam_torch.ops import pf_batch_cuda as pb
@@ -711,44 +741,69 @@ def _wide_resample_parity(dev):
           f"{n_fire} of {b} filters firing, {srv:,} survivors; boundaries "
           f"and expanded rows bit-equal to plain (max|kernel-plain| "
           f"{err_t}, {err_rows})", flush=True)
-    return slots, ex_k, err_t, err_rows
+    return err_t, err_rows
 
 
-def _wide_stats_parity(dev, slots, expanded):
-    """17. K5b against its twin at 1024 x 10,000: fused (the main path's
-    form) and unfused, noise off and Philox, with firing and bad filters
-    mixed.  Returns the largest difference."""
+def _wide_stats_parity(dev):
+    """17. K5b against its twin at 1024 x 10,000 and at
+    :data:`WIDE_RAGGED`: the fused form (the main path's) with the gate
+    closed (no filter fires), forced (every filter) and natural (a fifth
+    fire, a twentieth are bad), each with injected normals and with
+    Philox; on the natural gate also noise off and the unfused form.
+    Poses and log weights at the step tolerances, the filter's lse and
+    lse2 at rtol 1e-5 (their sums are taken in another order), the MAP
+    the kernel's own highest-index maximum.  Returns the largest
+    difference."""
     import torch
 
     from tpuslam_torch.ops import pf_batch_cuda as pb
+    from tpuslam_torch.ops import resample_cuda as rs
 
-    b, n = WIDE_MAIN
-    particles, log_w, _, _, z, fire, bad, _ = _wide_inputs(dev, b, n, 16)
-    cfg = _batch_cfg(n)
-    worst, lines = 0.0, []
-    for fused in (True, False):
-        for noise_on in (False, True):
-            extra = (slots.src, expanded) if fused else (None, None)
-            args = (cfg, 4242, particles, log_w, z, bad, fire, *extra,
-                    noise_on)
-            kern = pb.wide_stats_rows(*args)
-            plain = pb.wide_stats_rows_plain(*args)
-            label = (f"{'fused' if fused else 'unfused'} "
-                     f"{'Philox' if noise_on else 'noise off'}")
-            pose, lw_gap = _step_gap(kern, plain, f"K5b {label}")
-            (kp, klw, kparts), (_, plw, pparts) = kern, plain
-            k_lse, k_lse2, k_est = pb._combine_wide_stats(kparts)
-            p_lse, p_lse2, _ = pb._combine_wide_stats(pparts)
-            _require(torch.allclose(k_lse, p_lse, rtol=1e-5, atol=1e-4)
-                     and torch.allclose(k_lse2, p_lse2, rtol=1e-5,
-                                        atol=1e-4), f"K5b {label}: lse")
-            _map_agrees(kp, klw, k_est, plw, f"K5b {label}")
-            worst = max(worst, pose, lw_gap)
-            lines.append(f"{label} poses {pose:.3e}, log weights "
-                         f"{lw_gap:.3e}")
-    torch.cuda.synchronize()
-    print(f"wide stats (K5b) parity at {b:,}x{n:,}: " + "; ".join(lines)
-          + " (atol 1e-4 poses, 1e-4 + 1e-5|lw|)", flush=True)
+    f32 = dict(dtype=torch.float32, device=dev)
+    worst = 0.0
+    for b, n in (WIDE_MAIN,) + WIDE_RAGGED:
+        particles, log_w, lse, _, z, natural, bad, offs = _wide_inputs(
+            dev, b, n, 17)
+        normals = torch.randn((3, b, n), generator=_gen(dev, 170 + b), **f32)
+        ids = torch.arange(b, device=dev)
+        cfg = _batch_cfg(n)
+        lines = []
+        for gate, fire in (("closed", ids < 0), ("forced", ids >= 0),
+                           ("natural", natural)):
+            slots = pb.wide_slots(log_w, lse, fire, offs)
+            t_hi = pb.wide_boundary(slots.cum, slots.fids, slots.valid,
+                                    slots.inv_tot, slots.offs)
+            fused = (slots.src,
+                     rs.resample_expand_seg(particles, t_hi, slots.fids,
+                                            slots.valid))
+            runs = [("fused normals", fused, True, normals),
+                    ("fused Philox", fused, True, None)]
+            if gate == "natural":
+                runs += [("fused noise off", fused, False, None),
+                         ("unfused Philox", (None, None), True, None),
+                         ("unfused noise off", (None, None), False, None)]
+            for form, extra, noise_on, nrm in runs:
+                label = f"{b}x{n} {gate} {form}"
+                args = (cfg, 4242, particles, log_w, z, bad, fire, *extra,
+                        noise_on, nrm)
+                kern = pb.wide_stats_rows(*args)
+                plain = pb.wide_stats_rows_plain(*args)
+                pose, lw_gap = _step_gap(kern[:2] + (None,),
+                                         plain[:2] + (None,), f"K5b {label}")
+                _require(torch.allclose(kern[2], plain[2], rtol=1e-5,
+                                        atol=1e-4)
+                         and torch.allclose(kern[3], plain[3], rtol=1e-5,
+                                            atol=1e-4),
+                         f"K5b {label}: lse/lse2")
+                _map_agrees(kern[0], kern[1], kern[4], plain[1],
+                            f"K5b {label}")
+                worst = max(worst, pose, lw_gap)
+                lines.append(f"{gate} {form} poses {pose:.3e}, log weights "
+                             f"{lw_gap:.3e}")
+        torch.cuda.synchronize()
+        print(f"wide stats (K5b) parity at {b:,}x{n:,}, lse/lse2 and MAP "
+              f"written by the kernel: " + "; ".join(lines)
+              + " (atol 1e-4 poses, 1e-4 + 1e-5|lw|)", flush=True)
     return worst
 
 
@@ -897,7 +952,8 @@ def _batch_profiles(dev) -> None:
                               ("wide", pf_batch_wide_rollout, WIDE_MAIN)):
         _profile(f"pf {label} {b:,}x{n:,}x{PF_STEPS}",
                  lambda fn=fn, b=b, n=n: fn(_batch_cfg(n), _gen(dev, 0), b,
-                                            PF_STEPS, device=dev), top_n=6)
+                                            PF_STEPS, device=dev), top_n=6,
+                 steps=PF_STEPS)
 
 
 def _batch_kernel_times(dev, smi, finals, launches, errs) -> list:
@@ -972,8 +1028,7 @@ def _batch_kernel_times(dev, smi, finals, launches, errs) -> list:
          "tpuslam/ops/pf_batch_pallas.py:876",
          lambda: pb.wide_stats_rows(*k5b_args),
          lambda: pb.wide_stats_rows_plain(*k5b_args), None,
-         _bound(28 * b_w * n_w + 4 * (b_w - n_fire) * n_w
-                + 32 * b_w * -(-n_w // pb._BLOCK) + 50 * b_w,
+         _bound(28 * b_w * n_w + 4 * (b_w - n_fire) * n_w + 66 * b_w,
                 PF_STEP_OPS * b_w * n_w),
          errs["wide_stats"], f"{b_w:,}x{n_w:,}, {n_fire} firing"),
     ]
@@ -989,8 +1044,11 @@ def _batch_kernel_times(dev, smi, finals, launches, errs) -> list:
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound[0], "bound_by": bound[1],
             "library_ms": library_ms})
-        print(f"kernel {name} at {shape}: {ms:.4f} ms a launch, plain "
-              f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})"
+        print(f"kernel {name} at {shape}: {ms:.4f} ms a launch"
+              + (f" (previous design: {PREV_MS[name]} ms)"
+                 if name in PREV_MS else "")
+              + f", plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms "
+              f"({bound[1]})"
               + ("" if library_ms is None
                  else f", torch.repeat_interleave {library_ms:.4f} ms")
               + f"; {launches[name]} launches in the main path; on {smi}",
@@ -1002,9 +1060,9 @@ def _batch_phases(dev, smi):
     """The batched and wide paths' phases, in order; returns their
     kernels' entries."""
     errs = {"pf_batch_step": _batch_parity(dev)}
-    slots, expanded, errs["wide_boundary"], errs["resample_expand_seg"] = \
+    errs["wide_boundary"], errs["resample_expand_seg"] = \
         _wide_resample_parity(dev)
-    errs["wide_stats"] = _wide_stats_parity(dev, slots, expanded)
+    errs["wide_stats"] = _wide_stats_parity(dev)
     _batch_bands(dev)
     launches = _batch_main_paths(dev)
     finals = _batch_timings(dev, smi)
@@ -1379,7 +1437,7 @@ def main() -> int:
     from tpuslam_torch import entry as entry_mod
     from tpuslam_torch.filters import EkfConfig
     from tpuslam_torch.ops import _build, ekf_cuda
-    from tpuslam_torch.utils import timed
+    from tpuslam_torch.utils import kernel_report, timed
 
     dev = torch.device("cuda", torch.cuda.current_device())
     cfg = EkfConfig()
@@ -1393,15 +1451,15 @@ def main() -> int:
           f" (CUDA {torch.version.cuda}), device {torch.cuda.get_device_name(dev)}")
     print(smi, flush=True)
 
-    # 2. Build.
+    # 2. Build, then what the compiler and the occupancy calculator say of
+    # each kernel (registers, stack frame, spills; the PF kernels' SASS
+    # opcodes; resident blocks a SM).
     t0 = time.perf_counter()
     _build.load_library()
-    regs = sorted({line.split("Used ")[1].split(" registers")[0]
-                   for line in _build.build_log.splitlines()
-                   if "registers" in line})
     print(f"build: nvcc {_build.build_seconds:.2f} s, load "
-          f"{time.perf_counter() - t0:.2f} s, registers/thread "
-          f"{'/'.join(regs) or 'cached'}", flush=True)
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for line in kernel_report.report_lines(BATCH_MAIN[1]):
+        print(line, flush=True)
 
     # 3. Noise-free parity (the JAX package's on-chip gate: atol 1e-4 after
     # 50 steps, accumulator below 1e-6).

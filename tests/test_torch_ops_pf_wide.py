@@ -212,6 +212,69 @@ def test_rollout_matches_jax_steps(rng):
     _assert_close(_port(jst), jout, final, out, ess_rtol=1e-4)
 
 
+def _stats64(p_rows: torch.Tensor, lw: torch.Tensor):
+    """Each filter's ``(lse, lse2, x_est)`` in float64 from ``(B, n)``
+    log weights: a NaN poisons the sums, an all -inf filter sums to -inf,
+    and the MAP is the highest index among the non-NaN maxima."""
+    lw64 = lw.double().numpy()
+    key = np.where(np.isnan(lw64), -np.inf, lw64)
+    lse, lse2, est = [], [], []
+    for f, (row, k) in enumerate(zip(lw64, key)):
+        m = k.max()
+        shift = m if np.isfinite(m) else 0.0
+        e = np.exp(row - shift)
+        with np.errstate(divide="ignore"):
+            lse.append(m + np.log(e.sum()))
+            lse2.append(2 * m + np.log((e * e).sum()))
+        best = np.flatnonzero(k == m).max()
+        est.append(p_rows[:, f, best].numpy())
+    return np.array(lse), np.array(lse2), np.stack(est)
+
+
+@pytest.mark.parametrize("case", ["tied maxima", "NaN log weight",
+                                  "all -inf filter", "n = 10,001"])
+def test_stats_twin_matches_float64(case):
+    """K5b's twin writes each filter's ``lse``, ``lse2`` and MAP particle
+    itself: they equal a float64 logsumexp (rtol 1e-6) and argmax of the
+    log weights it returns.  Tied maxima go to the highest index, a NaN
+    log weight never wins but makes that filter's sums NaN, an all -inf
+    filter keeps ``lse = lse2 = -inf`` with no NaN, and a filter of
+    10,001 particles (the kernel's ragged last pass) reduces as any."""
+    b, n = (2, 10_001) if case == "n = 10,001" else (3, 64)
+    g = torch.Generator().manual_seed(3)
+    cfg = tpf.PfConfig(num_particles=n, weight_mode="log")
+    particles = (torch.tensor(CFG.x0)[:, None, None]
+                 + 0.4 * torch.randn((3, b, n), generator=g))
+    log_w = 2.0 * torch.randn((b, n), generator=g)
+    # 1e5 lifts a particle above any other's log-likelihood here.
+    if case == "tied maxima":  # three equal poses and weights on top
+        for j in (5, 40, 63):
+            particles[:, 1, j] = particles[:, 1, 5]
+            log_w[1, j] = 1e5
+    elif case == "NaN log weight":
+        log_w[1, 7] = float("nan")
+        log_w[1, 9] = 1e5
+    elif case == "all -inf filter":
+        log_w[2] = float("-inf")
+    z = torch.randn((b, N_LM, 2), generator=g)
+    off = torch.zeros(b, dtype=torch.bool)
+    p, lw, lse, lse2, x_est = pb.wide_stats_rows_plain(
+        cfg, 0, particles, log_w, z, off, off, noise_on=False)
+    want_lse, want_lse2, want_est = _stats64(p, lw)
+    np.testing.assert_allclose(lse.numpy(), want_lse, rtol=1e-6)
+    np.testing.assert_allclose(lse2.numpy(), want_lse2, rtol=1e-6)
+    np.testing.assert_array_equal(x_est.numpy(), want_est)
+    if case == "tied maxima":
+        assert torch.equal(x_est[1], p[:, 1, 63])
+    elif case == "NaN log weight":
+        assert torch.isnan(lse[1]) and torch.isnan(lse2[1])
+        assert torch.isfinite(lse[[0, 2]]).all()
+        assert torch.equal(x_est[1], p[:, 1, 9])
+    elif case == "all -inf filter":
+        assert lse[2] == float("-inf") and lse2[2] == float("-inf")
+        assert torch.equal(x_est[2], p[:, 2, n - 1])
+
+
 def test_philox_rollout_tracks_truth():
     """The twins' own Philox noise, 4 filters x 5000 particles x 60 steps
     from ``pf_batch_wide_init`` (under torch's 32768-element grain, so
@@ -329,6 +392,7 @@ def test_structs_mirror_cuda_source():
         names = re.findall(r"(\w+)\s*(?:\[[^\]]*\])?\s*[,;]", body)
         assert names == [f[0] for f in mirror._fields_], name
     assert ctypes.sizeof(pb._WideParams) == 5 * 4 + 8 * 4 + 16 * 4
-    assert ctypes.sizeof(pb._WideBuffers) == 11 * 8
-    assert re.search(r"kBlock = (\d+)", src).group(1) == str(pb._BLOCK)
+    assert ctypes.sizeof(pb._WideBuffers) == 13 * 8
+    # A filter is one block, within the card's 1024 threads a block.
+    assert int(re.search(r"kStatsThreads = (\d+)", src).group(1)) <= 1024
     assert math.isclose(pb._WideParams(sx=0.3).sx, 0.3, rel_tol=1e-6)

@@ -1,13 +1,20 @@
 // Per-particle device math shared by the particle-filter kernels: K2
 // (pf_step.cu), K4 (pf_batch.cu) and K5b (pf_wide.cu).
 //
-// Device twins of ops/pf_cuda.py::_predict_loglik and the partial-row
-// reduction of ops/pf_cuda.py::_partial_plain: the circular predict with
-// Q noise, the landmark log-likelihood, the Philox/Box-Muller draw of a
-// particle's three normals, and the warp and block reductions behind the
-// (max, sum, sum of squares, MAP particle) partial rows.  Moving them here
-// changes no operation and no operand order, so each kernel rounds as K2
-// did before the move.
+// Device twins of ops/pf_cuda.py::_predict_loglik and of the reductions
+// of ops/pf_cuda.py::_partial_plain and ops/pf_batch_cuda.py::_map_plain:
+// the circular predict with Q noise, the landmark log-likelihood, the
+// Philox/Box-Muller draw of a particle's three normals, the partial rows
+// of K2 and the running statistics K4 and K5b reduce inside a block.  A
+// particle's operations and their operand order are the plain twin's,
+// whatever the number of particles a thread carries.
+//
+// The landmark loop is unrolled to kMaxLandmarks under a predicate, so a
+// landmark is a constant-bank operand of its multiplies and no parameter
+// struct is indexed at run time; with P particles a thread, an observed
+// landmark is loaded once and used P times, and the P particles' chains
+// (Philox, the two polynomial sincos, the divides) are independent, so
+// the scheduler can interleave them.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -20,7 +27,8 @@
 namespace tpuslam {
 
 constexpr unsigned kFullMask = 0xffffffffu;
-constexpr int kPartStride = 8;  // floats a partial row
+constexpr int kPartStride = 8;  // floats a partial row (and a stats row)
+constexpr int kMaxLandmarks = 8;
 
 // Noise modes of every PF kernel: off (builtin sinf/cosf, for parity with
 // the plain path), Philox, or caller-supplied standard normals.  Modes 1
@@ -28,6 +36,11 @@ constexpr int kPartStride = 8;  // floats a partial row
 constexpr int kNoiseOff = 0;
 constexpr int kNoisePhilox = 1;
 constexpr int kNoiseNormals = 2;
+
+// Whether a row may be read or written as float4s.
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
 
 // Keep (key, idx) of the larger key; on equal keys the larger index.
 __device__ __forceinline__ void arg_max(float& key, int& idx, float o_key,
@@ -69,50 +82,79 @@ __device__ __forceinline__ void philox_normals3(uint32_t i, uint32_t f,
   n2 = b.x;
 }
 
-// One particle's predict (particle_filter.py:156-168) and the summed
+// P particles' predict (particle_filter.py:156-168) and the summed
 // log-likelihood of the observation z (n_lm (x, y) pairs in the robot
-// frame; particle_filter.py:170-198).  `P` is a kernel's parameter struct
-// with the fields n_lm, vdt, wdt, q0, q1, q2, sx, sy, log_norm and lm.
-// The yaw noise is added after the wrapped step, with no second wrap.
-// Returns the log-likelihood; x, y and yaw are updated in place.
-template <int MODE, class P>
+// frame, at most kMaxLandmarks; particle_filter.py:170-198), each
+// particle's operations in the plain twin's order.  `Prm` is a kernel's
+// parameter struct with the fields n_lm, vdt, wdt, q0, q1, q2, sx, sy,
+// log_norm and lm.  The yaw noise is added after the wrapped step, with no
+// second wrap.  x, y and yaw are updated in place; acc gets each
+// particle's log-likelihood.
+template <int MODE, int P, class Prm>
+__device__ __forceinline__ void predict_loglik_n(
+    float (&x)[P], float (&y)[P], float (&yaw)[P], const float (&n0)[P],
+    const float (&n1)[P], const float (&n2)[P], const Prm& prm,
+    const float* __restrict__ z, float (&acc)[P]) {
+  float c[P], s[P];
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    float c_o, s_o;
+    if (MODE == kNoiseOff) {
+      c_o = cosf(yaw[k]);
+      s_o = sinf(yaw[k]);
+    } else {
+      sincos_rad(yaw[k], &c_o, &s_o);
+    }
+    x[k] = x[k] + prm.vdt * c_o + n0[k] * prm.q0;
+    y[k] = y[k] + prm.vdt * s_o + n1[k] * prm.q1;
+    yaw[k] = wrap_angle(yaw[k] + prm.wdt) + n2[k] * prm.q2;
+    // Landmarks in the particle's frame (angle pi/2 - yaw, whose cos and
+    // sin are sin(yaw) and cos(yaw)) against the observation.
+    if (MODE == kNoiseOff) {
+      const float ang = kHalfPi - yaw[k];
+      c[k] = cosf(ang);
+      s[k] = sinf(ang);
+    } else {
+      sincos_rad(yaw[k], &s[k], &c[k]);
+    }
+    acc[k] = 0.0f;
+  }
+#pragma unroll
+  for (int li = 0; li < kMaxLandmarks; ++li) {
+    if (li < prm.n_lm) {
+      const float lx = prm.lm[2 * li];
+      const float ly = prm.lm[2 * li + 1];
+      const float zx = z[2 * li];
+      const float zy = z[2 * li + 1];
+#pragma unroll
+      for (int k = 0; k < P; ++k) {
+        const float dx = lx - x[k];
+        const float dy = ly - y[k];
+        const float px = c[k] * dx - s[k] * dy;
+        const float py = s[k] * dx + c[k] * dy;
+        const float ddx = (px - zx) / prm.sx;
+        const float ddy = (py - zy) / prm.sy;
+        acc[k] = acc[k] - 0.5f * (ddx * ddx + ddy * ddy) - prm.log_norm;
+      }
+    }
+  }
+}
+
+// One particle's predict_loglik_n; returns its log-likelihood.
+template <int MODE, class Prm>
 __device__ __forceinline__ float predict_loglik(float& x, float& y,
                                                 float& yaw, float n0,
                                                 float n1, float n2,
-                                                const P& prm,
+                                                const Prm& prm,
                                                 const float* __restrict__ z) {
-  float c_o, s_o;
-  if (MODE == kNoiseOff) {
-    c_o = cosf(yaw);
-    s_o = sinf(yaw);
-  } else {
-    sincos_rad(yaw, &c_o, &s_o);
-  }
-  x = x + prm.vdt * c_o + n0 * prm.q0;
-  y = y + prm.vdt * s_o + n1 * prm.q1;
-  yaw = wrap_angle(yaw + prm.wdt) + n2 * prm.q2;
-
-  // Landmarks in the particle's frame (angle pi/2 - yaw, whose cos and
-  // sin are sin(yaw) and cos(yaw)) against the observation.
-  float c, s;
-  if (MODE == kNoiseOff) {
-    const float ang = kHalfPi - yaw;
-    c = cosf(ang);
-    s = sinf(ang);
-  } else {
-    sincos_rad(yaw, &s, &c);
-  }
-  float acc = 0.0f;
-  for (int li = 0; li < prm.n_lm; ++li) {
-    const float dx = prm.lm[2 * li] - x;
-    const float dy = prm.lm[2 * li + 1] - y;
-    const float px = c * dx - s * dy;
-    const float py = s * dx + c * dy;
-    const float ddx = (px - __ldg(z + 2 * li)) / prm.sx;
-    const float ddy = (py - __ldg(z + 2 * li + 1)) / prm.sy;
-    acc = acc - 0.5f * (ddx * ddx + ddy * ddy) - prm.log_norm;
-  }
-  return acc;
+  float xs[1] = {x}, ys[1] = {y}, ws[1] = {yaw};
+  const float a[1] = {n0}, b[1] = {n1}, c[1] = {n2};
+  float acc[1];
+  predict_loglik_n<MODE, 1>(xs, ys, ws, a, b, c, prm, z, acc);
+  x = xs[0];
+  y = ys[0];
+  yaw = ws[0];
+  return acc[0];
 }
 
 // One block's partial row
@@ -180,6 +222,112 @@ __device__ __forceinline__ void block_partial_row(bool valid, float lw,
       row[7] = 0.0f;
     }
   }
+}
+
+// The shift of an exp sum: the maximum clamped to +-1e30, so an all -inf
+// set sums exp(-inf) = 0 and a rescale never forms inf - inf, while a
+// +inf maximum still sums to +inf as the plain twin's does.
+__device__ __forceinline__ float stat_shift(float m) {
+  return fminf(fmaxf(m, -1.0e30f), 1.0e30f);
+}
+
+// A thread's running statistics over the particles it has seen (K4,
+// K5b): the MAP particle by arg_max (the highest index among the maxima;
+// a NaN log weight never wins) and the sums of exp(lw - shift) and of its
+// square with shift = stat_shift(key), rescaled whenever the key rises.
+// A NaN log weight poisons the sums, so the logsumexp goes NaN as in the
+// reference.
+struct Stats {
+  float key = -INFINITY;
+  int idx = -1;
+  float x = 0.0f, y = 0.0f, yaw = 0.0f;
+  float sum = 0.0f, sum2 = 0.0f;
+};
+
+template <int P>
+__device__ __forceinline__ void stats_add(Stats& st, const float (&lw)[P],
+                                          const float (&x)[P],
+                                          const float (&y)[P],
+                                          const float (&yaw)[P],
+                                          const int (&idx)[P],
+                                          const bool (&valid)[P]) {
+  const float old_shift = stat_shift(st.key);
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    const float key = lw[k] == lw[k] ? lw[k] : -INFINITY;  // NaN: -inf
+    if (valid[k] && (key > st.key || (key == st.key && idx[k] > st.idx))) {
+      st.key = key;
+      st.idx = idx[k];
+      st.x = x[k];
+      st.y = y[k];
+      st.yaw = yaw[k];
+    }
+  }
+  const float shift = stat_shift(st.key);
+  const float r = expf(old_shift - shift);
+  float sum = st.sum * r;
+  float sum2 = st.sum2 * (r * r);
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    const float e = valid[k] ? expf(lw[k] - shift) : 0.0f;
+    sum += e;
+    sum2 += e * e;
+  }
+  st.sum = sum;
+  st.sum2 = sum2;
+}
+
+// The block's Stats reduced to one row in shared memory:
+//   [max lw, sum exp(lw - shift), sum exp(2 (lw - shift)), x, y, yaw of
+//    the best particle, its index, 0], shift = stat_shift(max lw),
+// in a fixed order (deterministic).  Every thread of the block must call
+// it; the row is complete for every thread on return.  Two barriers: the
+// second level of the arg-max runs in every warp at once.
+template <int T>
+__device__ __forceinline__ void block_stats_row(const Stats& st, float* row) {
+  constexpr int kW = T / 32;
+  __shared__ float s_key[kW], s_sum[kW], s_sum2[kW];
+  __shared__ int s_idx[kW];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  float key = st.key;
+  int idx = st.idx;
+  warp_arg_max(key, idx);
+  if (lane == 0) {
+    s_key[warp] = key;
+    s_idx[warp] = idx;
+  }
+  __syncthreads();
+  key = lane < kW ? s_key[lane] : -INFINITY;
+  idx = lane < kW ? s_idx[lane] : -1;
+  warp_arg_max(key, idx);
+  const float m = __shfl_sync(kFullMask, key, 0);
+  const int best = __shfl_sync(kFullMask, idx, 0);
+  const float r = expf(stat_shift(st.key) - stat_shift(m));
+  float sum = warp_sum(st.sum * r);
+  float sum2 = warp_sum(st.sum2 * (r * r));
+  if (lane == 0) {
+    s_sum[warp] = sum;
+    s_sum2[warp] = sum2;
+  }
+  if (best >= 0 && st.idx == best) {
+    row[3] = st.x;
+    row[4] = st.y;
+    row[5] = st.yaw;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    sum = warp_sum(lane < kW ? s_sum[lane] : 0.0f);
+    sum2 = warp_sum(lane < kW ? s_sum2[lane] : 0.0f);
+    if (lane == 0) {
+      row[0] = m;
+      row[1] = sum;
+      row[2] = sum2;
+      row[6] = static_cast<float>(best);
+      row[7] = 0.0f;
+    }
+  }
+  __syncthreads();
 }
 
 }  // namespace tpuslam

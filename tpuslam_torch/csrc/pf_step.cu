@@ -36,24 +36,26 @@
 // path), 1 = Philox noise, 2 = caller-supplied standard normals of shape
 // (3, N).  Modes 1 and 2 use the polynomial sincos.  The per-particle math
 // and the partial-row reduction live in pf_math.cuh, shared with K4 and
-// K5b.
+// K5b.  The parameter struct is a __grid_constant__, so predict_loglik's
+// reference to it reads the parameter space and nvcc makes no local copy.
 
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
 
+#include "occupancy.cuh"
 #include "pf_math.cuh"
 
 namespace {
 
 using tpuslam::block_partial_row;
+using tpuslam::kMaxLandmarks;
 using tpuslam::kPartStride;
 using tpuslam::philox_normals3;
 using tpuslam::predict_loglik;
 
 constexpr int kBlock = 256;
-constexpr int kMaxLandmarks = 8;
 
 // Host-folded constants; the layout matches ops/pf_cuda.py::_PfParams.
 struct PfParams {
@@ -74,7 +76,7 @@ pf_step_kernel(const float* __restrict__ p_in,
                const float* __restrict__ lw_in, const float* __restrict__ z,
                const float* __restrict__ normals, float* __restrict__ p_out,
                float* __restrict__ lw_out, float* __restrict__ parts,
-               const PfParams prm) {
+               const __grid_constant__ PfParams prm) {
   const long long n = prm.n;
   const long long i = static_cast<long long>(blockIdx.x) * kBlock +
                       threadIdx.x;
@@ -147,4 +149,21 @@ extern "C" int tpuslam_pf_step(const float* p_in, const float* lw_in,
     default: launch<2>(st, grid, s, p_in, lw_in, z, normals, p_out, lw_out, parts, p); break;
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Resident blocks per SM of kernel `which` (0: K2b, 1: K2a, Philox mode),
+// *name its name; cudaErrorInvalidValue past the last.  n is unused.
+extern "C" int tpuslam_occupancy_pf_step(int which, int n, int* blocks,
+                                         const char** name) {
+  (void)n;
+  switch (which) {
+    case 0:
+      return tpuslam::occupancy(pf_step_kernel<1, true>, "K2b pf_step",
+                                kBlock, 0, blocks, name);
+    case 1:
+      return tpuslam::occupancy(pf_step_kernel<1, false>, "K2a pf_step",
+                                kBlock, 0, blocks, name);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

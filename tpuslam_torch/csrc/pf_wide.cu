@@ -24,11 +24,12 @@
 //           Idle slots exit at once.
 //   K3b:    per (slot, 256 output lanes): each slot's output particle i
 //           copies the first particle j of its filter with t_hi[j] > i.
-//   K5b:    per (filter, 256 lanes): on fire[f] the particles come from
-//           the expanded rows of slot src[f] and the log weights restart
-//           at 0 (the JAX fused form); where bad & !fire they reset to 0;
-//           then predict, the landmark log-likelihood and one partial row
-//           a block for ops/pf_batch_cuda.py::_combine_wide_stats.
+//   K5b:    per filter, one 1024-thread block: on
+//           fire[f] the particles come from the expanded rows of slot
+//           src[f] and the log weights restart at 0 (the JAX fused form);
+//           where bad & !fire they reset to 0; then predict, the landmark
+//           log-likelihood and the filter's lse, lse2 and MAP particle,
+//           written by the kernel itself.
 // Every launch happens every step, whatever the gate says: no host
 // decision, no host sync.
 //
@@ -39,12 +40,31 @@
 // compaction, no survivor cap, no _SLOT_MOD slot keys, no skip table and
 // no XLA fallback.
 //
-// What bounds them on an H100: bytes.  K5a reads 4 bytes of prefix and
-// writes 4 bytes of boundary a lane of a firing filter; K5b reads and
-// writes 16 bytes a particle (from the expanded rows on a firing filter)
-// with K2's few hundred operations a particle.  So: one thread a lane,
-// coalesced rows, the reductions in shared memory and warp shuffles.
-//
+// What bounds them on an H100.  K5a: bytes (4 of prefix read and 4 of
+// boundary written a lane of a firing filter; one thread a lane).  K5b:
+// instruction issue.  It moves 16-20 bytes a particle (0.096 ms at
+// 1024 x 10,000) but runs K2's several hundred instructions of math a
+// particle.  So K5b spends as little as it can beside that math:
+//   * four particles a thread a pass, one float4 of each row where a
+//     filter's rows are 16-byte aligned (n % 4 == 0), four scalars
+//     otherwise; their Philox, sincos and divide chains are independent,
+//     so the scheduler interleaves them.  A warp whose first particle is
+//     past the filter's end skips the pass;
+//   * the per-filter values (fire, bad, src, the filter's observation)
+//     are read once a block into shared memory; the landmarks are
+//     constant-bank operands (pf_math.cuh);
+//   * the filter's statistics inside the kernel, in a fixed order
+//     (deterministic: no atomics, no partial rows in device memory, no
+//     combine in torch).  A filter is one block of 1024 threads that
+//     loops over it (three passes at 10,000) with a running max and
+//     rescaled sums, and reduces them to one (max, sum exp, sum exp^2,
+//     MAP index and pose) row in shared memory (block_stats_row), from
+//     which thread 0 writes the filter's outputs.
+// On an H100 80GB HBM3 at 700 W, one block a filter beat thread-block
+// clusters of 256-thread blocks with eight particles a thread (0.2406
+// against 0.3437 ms at 1024 x 10,000) and clusters of 512-thread blocks
+// (0.3099 ms; PERF.md).
+
 // Noise (K5b): 0 = off (builtin trig), 1 = Philox keyed by the step's seed
 // with counter (particle, filter, 0, 0), as K4, 2 = caller-supplied
 // normals (3, B, n).
@@ -54,19 +74,26 @@
 #include <cmath>
 #include <cstdint>
 
+#include "occupancy.cuh"
 #include "pf_math.cuh"
 
 namespace {
 
-using tpuslam::block_partial_row;
+using tpuslam::aligned16;
+using tpuslam::block_stats_row;
+using tpuslam::kMaxLandmarks;
 using tpuslam::kNoiseNormals;
 using tpuslam::kNoisePhilox;
 using tpuslam::kPartStride;
 using tpuslam::philox_normals3;
-using tpuslam::predict_loglik;
+using tpuslam::predict_loglik_n;
+using tpuslam::stat_shift;
+using tpuslam::Stats;
+using tpuslam::stats_add;
 
-constexpr int kBlock = 256;
-constexpr int kMaxLandmarks = 8;
+constexpr int kBlock = 256;           // K5a's lanes a block
+constexpr int kStatsThreads = 1024;   // K5b's threads a block
+constexpr int kStatsVec = 1;          // K5b's float4 vectors a thread a pass
 
 // Host-folded constants of K5b; the layout matches
 // ops/pf_batch_cuda.py::_WideParams.
@@ -95,7 +122,9 @@ struct WideBuffers {
   const float* expanded;        // (3, B, n) slot rows (FUSED)
   float* p_out;                 // (3, B, n)
   float* lw_out;                // (B, n)
-  float* parts;                 // (B, ceil(n / 256), 8)
+  float* lse_out;               // (B,) logsumexp(lw')
+  float* lse2_out;              // (B,) logsumexp(2 lw')
+  float* est_out;               // (B, 3) MAP particle
 };
 
 __global__ void __launch_bounds__(kBlock)
@@ -118,63 +147,160 @@ wide_boundary_kernel(const float* __restrict__ cum,
   t_hi[static_cast<long long>(s) * n + j] = static_cast<int>(t);
 }
 
+// Four consecutive floats from j on (zeros past n): one float4 where
+// `vec` (n % 4 == 0 and the row 16-byte aligned), else four scalars.
+__device__ __forceinline__ float4 load4(const float* p, int j, int n,
+                                        bool vec) {
+  if (vec) {
+    return j < n ? *reinterpret_cast<const float4*>(p + j)
+                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  return make_float4(j < n ? p[j] : 0.0f, j + 1 < n ? p[j + 1] : 0.0f,
+                     j + 2 < n ? p[j + 2] : 0.0f,
+                     j + 3 < n ? p[j + 3] : 0.0f);
+}
+
+__device__ __forceinline__ void store4(float* p, int j, int n, bool vec,
+                                       float4 v) {
+  if (vec) {
+    if (j < n) *reinterpret_cast<float4*>(p + j) = v;
+    return;
+  }
+  if (j < n) p[j] = v.x;
+  if (j + 1 < n) p[j + 1] = v.y;
+  if (j + 2 < n) p[j + 2] = v.z;
+  if (j + 3 < n) p[j + 3] = v.w;
+}
+
+// K5b, one block a filter.
 template <int MODE, bool FUSED>
-__global__ void __launch_bounds__(kBlock)
-wide_stats_kernel(const WideBuffers buf, const WideParams prm) {
+__global__ void __launch_bounds__(kStatsThreads, 1)
+wide_stats_kernel(const __grid_constant__ WideBuffers buf,
+                  const __grid_constant__ WideParams prm) {
+  constexpr int T = kStatsThreads;
+  constexpr int V = kStatsVec;
+  constexpr int P = 4 * V;  // particles a thread a pass
+  __shared__ float s_z[2 * kMaxLandmarks];
+  __shared__ int s_filter[3];  // fire, bad, src
+  __shared__ float s_row[kPartStride];
+
   const int n = prm.n;
-  const int f = blockIdx.y;
-  const int j = blockIdx.x * kBlock + threadIdx.x;
-  const bool valid = j < n;
+  const int f = blockIdx.x;
+  const int t = threadIdx.x;
+  if (t < 2 * prm.n_lm) {
+    s_z[t] = buf.z[static_cast<long long>(f) * 2 * prm.n_lm + t];
+  }
+  if (t == 0) {
+    s_filter[0] = buf.fire[f];
+    s_filter[1] = buf.bad[f];
+    s_filter[2] = FUSED ? buf.src[f] : 0;
+  }
+  __syncthreads();
+  const bool fire = s_filter[0] != 0;
+  const bool take = FUSED && fire;  // the uniform restart after a resample
+  const bool restart = take || (s_filter[1] != 0 && !fire);  // or NaN reset
   const long long row = static_cast<long long>(f) * n;
   const long long plane = static_cast<long long>(prm.b) * n;
-  float x = 0.0f, y = 0.0f, yaw = 0.0f, lw = -INFINITY;
-  if (valid) {
-    const bool fire = buf.fire[f] != 0;
-    float lw0;
-    if (FUSED && fire) {
-      const long long e = static_cast<long long>(buf.src[f]) * n + j;
-      x = buf.expanded[e];
-      y = buf.expanded[plane + e];
-      yaw = buf.expanded[2 * plane + e];
-      lw0 = 0.0f;  // the uniform restart after a resample
-    } else {
-      x = buf.p_in[row + j];
-      y = buf.p_in[plane + row + j];
-      yaw = buf.p_in[2 * plane + row + j];
-      lw0 = buf.lw_in[row + j];
+  const float* x_in =
+      take ? buf.expanded + static_cast<long long>(s_filter[2]) * n
+           : buf.p_in + row;
+  const float* lw_in = buf.lw_in + row;
+  const float* nr = buf.normals + row;
+  float* x_out = buf.p_out + row;
+  float* lw_out = buf.lw_out + row;
+  const bool vec = (n & 3) == 0 && aligned16(buf.p_in) &&
+                   aligned16(buf.lw_in) && aligned16(buf.p_out) &&
+                   aligned16(buf.lw_out) &&
+                   (!FUSED || aligned16(buf.expanded)) &&
+                   (MODE != kNoiseNormals || aligned16(buf.normals));
+
+  Stats st;
+  for (int base = 0; base < n; base += T * P) {
+    // A warp whose first particle lies past the end has none left.
+    if (base + 4 * (t & ~31) >= n) break;
+    float x[P], y[P], yaw[P], lw[P], n0[P], n1[P], n2[P], acc[P];
+    int idx[P];
+    bool valid[P];
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const int j = base + 4 * (v * T + t);
+      const float4 a = load4(x_in, j, n, vec);
+      const float4 c = load4(x_in + plane, j, n, vec);
+      const float4 d = load4(x_in + 2 * plane, j, n, vec);
+      const float4 e = restart ? make_float4(0.0f, 0.0f, 0.0f, 0.0f)
+                               : load4(lw_in, j, n, vec);
+      const int k = 4 * v;
+      x[k] = a.x; x[k + 1] = a.y; x[k + 2] = a.z; x[k + 3] = a.w;
+      y[k] = c.x; y[k + 1] = c.y; y[k + 2] = c.z; y[k + 3] = c.w;
+      yaw[k] = d.x; yaw[k + 1] = d.y; yaw[k + 2] = d.z; yaw[k + 3] = d.w;
+      lw[k] = e.x; lw[k + 1] = e.y; lw[k + 2] = e.z; lw[k + 3] = e.w;
+      if (MODE == kNoiseNormals) {
+        const float4 g = load4(nr, j, n, vec);
+        const float4 h = load4(nr + plane, j, n, vec);
+        const float4 q = load4(nr + 2 * plane, j, n, vec);
+        n0[k] = g.x; n0[k + 1] = g.y; n0[k + 2] = g.z; n0[k + 3] = g.w;
+        n1[k] = h.x; n1[k + 1] = h.y; n1[k + 2] = h.z; n1[k + 3] = h.w;
+        n2[k] = q.x; n2[k + 1] = q.y; n2[k + 2] = q.z; n2[k + 3] = q.w;
+      }
+#pragma unroll
+      for (int e4 = 0; e4 < 4; ++e4) {
+        idx[k + e4] = j + e4;
+        valid[k + e4] = j + e4 < n;
+      }
     }
-    if (buf.bad[f] != 0 && !fire) lw0 = 0.0f;  // the NaN -> uniform reset
-    float n0 = 0.0f, n1 = 0.0f, n2 = 0.0f;
-    if (MODE == kNoisePhilox) {
-      philox_normals3(static_cast<uint32_t>(j), static_cast<uint32_t>(f),
-                      prm.key0, prm.key1, n0, n1, n2);
-    } else if (MODE == kNoiseNormals) {
-      n0 = buf.normals[row + j];
-      n1 = buf.normals[plane + row + j];
-      n2 = buf.normals[2 * plane + row + j];
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      if (MODE == kNoisePhilox) {
+        philox_normals3(static_cast<uint32_t>(idx[k]),
+                        static_cast<uint32_t>(f), prm.key0, prm.key1, n0[k],
+                        n1[k], n2[k]);
+      } else if (MODE != kNoiseNormals) {
+        n0[k] = n1[k] = n2[k] = 0.0f;
+      }
     }
-    lw = lw0 + predict_loglik<MODE>(
-                   x, y, yaw, n0, n1, n2, prm,
-                   buf.z + static_cast<long long>(f) * 2 * prm.n_lm);
-    buf.p_out[row + j] = x;
-    buf.p_out[plane + row + j] = y;
-    buf.p_out[2 * plane + row + j] = yaw;
-    buf.lw_out[row + j] = lw;
+    predict_loglik_n<MODE, P>(x, y, yaw, n0, n1, n2, prm, s_z, acc);
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const int j = base + 4 * (v * T + t);
+      const int k = 4 * v;
+#pragma unroll
+      for (int e4 = 0; e4 < 4; ++e4) lw[k + e4] = lw[k + e4] + acc[k + e4];
+      store4(x_out, j, n, vec, make_float4(x[k], x[k + 1], x[k + 2],
+                                           x[k + 3]));
+      store4(x_out + plane, j, n, vec,
+             make_float4(y[k], y[k + 1], y[k + 2], y[k + 3]));
+      store4(x_out + 2 * plane, j, n, vec,
+             make_float4(yaw[k], yaw[k + 1], yaw[k + 2], yaw[k + 3]));
+      store4(lw_out, j, n, vec,
+             make_float4(lw[k], lw[k + 1], lw[k + 2], lw[k + 3]));
+    }
+    stats_add(st, lw, x, y, yaw, idx, valid);
   }
-  block_partial_row<kBlock>(
-      valid, lw, x, y, yaw, j,
-      buf.parts + (static_cast<long long>(f) * gridDim.x + blockIdx.x) *
-                      kPartStride);
+
+  block_stats_row<T>(st, s_row);
+  if (t == 0) {
+    // The row's sums are taken at stat_shift(max), which is the max
+    // wherever the max is finite.
+    const float m = s_row[0];
+    buf.lse_out[f] = m + logf(s_row[1]);
+    buf.lse2_out[f] = 2.0f * m + logf(s_row[2]);
+    buf.est_out[3 * f] = s_row[3];
+    buf.est_out[3 * f + 1] = s_row[4];
+    buf.est_out[3 * f + 2] = s_row[5];
+  }
 }
 
 template <int MODE>
-void launch_stats(bool fused, dim3 grid, cudaStream_t stream,
-                  const WideBuffers& buf, const WideParams& prm) {
+int launch_stats(bool fused, cudaStream_t stream, const WideBuffers& buf,
+                 const WideParams& prm) {
   if (fused) {
-    wide_stats_kernel<MODE, true><<<grid, kBlock, 0, stream>>>(buf, prm);
+    wide_stats_kernel<MODE, true>
+        <<<prm.b, kStatsThreads, 0, stream>>>(buf, prm);
   } else {
-    wide_stats_kernel<MODE, false><<<grid, kBlock, 0, stream>>>(buf, prm);
+    wide_stats_kernel<MODE, false>
+        <<<prm.b, kStatsThreads, 0, stream>>>(buf, prm);
   }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -211,12 +337,29 @@ extern "C" int tpuslam_wide_stats(const void* buffers, const void* params,
       (fused && (buf.src == nullptr || buf.expanded == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((p.n + kBlock - 1) / kBlock, p.b);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mode) {
-    case 0: launch_stats<0>(fused != 0, grid, s, buf, p); break;
-    case 1: launch_stats<1>(fused != 0, grid, s, buf, p); break;
-    default: launch_stats<2>(fused != 0, grid, s, buf, p); break;
+    case 0: return launch_stats<0>(fused != 0, s, buf, p);
+    case 1: return launch_stats<1>(fused != 0, s, buf, p);
+    default: return launch_stats<2>(fused != 0, s, buf, p);
   }
-  return static_cast<int>(cudaGetLastError());
+}
+
+// Resident blocks per SM of kernel `which` (0: K5a, 1: K5b fused, Philox
+// mode), *name its name;
+// cudaErrorInvalidValue past the last.  n is unused.
+extern "C" int tpuslam_occupancy_pf_wide(int which, int n, int* blocks,
+                                         const char** name) {
+  (void)n;
+  using tpuslam::occupancy;
+  switch (which) {
+    case 0:
+      return occupancy(wide_boundary_kernel, "K5a wide_boundary", kBlock, 0,
+                       blocks, name);
+    case 1:
+      return occupancy(wide_stats_kernel<1, true>, "K5b wide_stats",
+                       kStatsThreads, 0, blocks, name);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

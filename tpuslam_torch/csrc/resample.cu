@@ -75,6 +75,8 @@
 #include <cassert>
 #include <cstdint>
 
+#include "occupancy.cuh"
+
 namespace {
 
 constexpr int kScanBlock = 1024;  // lanes per boundary block (ops: BLOCK)
@@ -344,4 +346,32 @@ extern "C" int tpuslam_resample_expand_compressed(const float* cv,
                              static_cast<cudaStream_t>(stream)>>>(
       cv, civ, valid, out, n, len, b);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Resident blocks per SM of kernel `which` (0: boundary, 1: expand, 2: the
+// segmented expand, 3: compact, 4: the compressed expand), *name its name;
+// cudaErrorInvalidValue past the last.  n is unused.
+extern "C" int tpuslam_occupancy_resample(int which, int n, int* blocks,
+                                          const char** name) {
+  (void)n;
+  using tpuslam::occupancy;
+  switch (which) {
+    case 0:
+      return occupancy(boundary_kernel, "K3a boundary", kScanBlock, 0,
+                       blocks, name);
+    case 1:
+      return occupancy(expand_kernel, "K3b expand", kExpandBlock, 0, blocks,
+                       name);
+    case 2:
+      return occupancy(expand_seg_kernel, "K3b expand_seg", kExpandBlock, 0,
+                       blocks, name);
+    case 3:
+      return occupancy(compact_kernel, "K3c compact", kScanBlock, 0, blocks,
+                       name);
+    case 4:
+      return occupancy(expand_compressed_kernel, "K3d expand_compressed",
+                       kExpandBlock, 0, blocks, name);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -38,9 +38,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 NVCC_LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
+#: The sources with a ``tpuslam_occupancy_<source>`` entry point.
+OCCUPANCY_SOURCES = ("pf_step", "resample", "pf_batch", "pf_wide")
+
 _lib: ctypes.CDLL | None = None
-#: Seconds the last build took (0.0 when the library was already built)
-#: and the compiler's report (registers, spills) of that build.
+#: The loaded library's path, the seconds its build took (0.0 when it was
+#: already built) and the compiler's report (``ptxas -v``: registers,
+#: stack frames, spills) of its build, kept beside it.
+library_path: pathlib.Path | None = None
 build_seconds = 0.0
 build_log = ""
 
@@ -88,6 +93,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
                                   ptr],
         "tpuslam_wide_stats": [ptr, ptr, c_int, c_int, ptr],
     }
+    signatures.update({f"tpuslam_occupancy_{src}": [
+        c_int, c_int, ctypes.POINTER(c_int),
+        ctypes.POINTER(ctypes.c_char_p)] for src in OCCUPANCY_SOURCES})
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
@@ -165,12 +173,13 @@ def load_library() -> ctypes.CDLL:
     Each source is compiled by its own ``nvcc``, all started together;
     one more ``nvcc`` links the objects into the shared library.
     """
-    global _lib, build_seconds, build_log
+    global _lib, library_path, build_seconds, build_log
     if _lib is not None:
         return _lib
     _check_checkout()
     sources, digest = _sources()
     target = BUILD_DIR / f"tpuslam_torch_kernels-{digest}.so"
+    log_path = target.with_suffix(".log")
     if not target.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         nvcc = _nvcc()
@@ -181,8 +190,10 @@ def load_library() -> ctypes.CDLL:
                             for src, obj in zip(sources, objs)])
             lib_tmp = os.path.join(tmp, target.name)
             log += _run_all([[nvcc, *NVCC_LINK_FLAGS, "-o", lib_tmp, *objs]])
+            log_path.write_text(log)
             os.replace(lib_tmp, target)
         build_seconds = time.perf_counter() - t0
-        build_log = log
+    build_log = log_path.read_text() if log_path.exists() else ""
     _lib = _declare(ctypes.CDLL(str(target)))
+    library_path = target
     return _lib

@@ -15,10 +15,10 @@ reference's scale advance in lockstep, the Monte-Carlo sweep shape.
   ``2**24`` particles.  A step is the gate, the slot compaction of the
   firing filters and their quantized prefixes in torch, then K5a (the
   boundaries, ``csrc/pf_wide.cu``), the segmented K3b (the copies,
-  ``csrc/resample.cu``) and K5b (predict, weight and per-block partial
-  rows, ``csrc/pf_wide.cu``), reduced by :func:`_combine_wide_stats`.
-  With ``pass2="compressed"`` the segmented K3c and K3d take the
-  segmented K3b's place, bit for bit.
+  ``csrc/resample.cu``) and K5b (predict, weight and each filter's
+  normalizers and MAP particle, reduced inside the kernel: one
+  1024-thread block a filter; ``csrc/pf_wide.cu``).  With ``pass2="compressed"`` the
+  segmented K3c and K3d take the segmented K3b's place, bit for bit.
 
 Layouts: particles ``(3, B, n)`` rows x, y, yaw (filter f's particles
 contiguous), log weights ``(B, n)``, per-filter normalizers ``(B,)``; the
@@ -64,9 +64,8 @@ from tpuslam_torch.filters.pf import (PfConfig, boundary_law,
 from tpuslam_torch.models.process import circular_step
 from tpuslam_torch.ops import _build, pf_cuda, resample_cuda
 from tpuslam_torch.ops.fastmath import philox4x32
-from tpuslam_torch.ops.pf_cuda import (_MODE_PHILOX, _combine_stats,
-                                       _constants, _mode, _observe,
-                                       _partial_plain, _predict_loglik,
+from tpuslam_torch.ops.pf_cuda import (_MODE_PHILOX, _constants, _mode,
+                                       _observe, _predict_loglik,
                                        _truth_tables)
 
 #: Launches of each CUDA kernel since its count was last set to 0.
@@ -82,7 +81,6 @@ SEED_STEP = 7919
 WIDE_TILE = 1024
 
 _MASK32 = 0xFFFFFFFF
-_BLOCK = 256  # K5b's kBlock: particles a partial row
 _MAX_BATCH_N = 8192  # K4's kMaxN: shared memory holds 20 bytes a particle
 _MAX_N = 1 << 24  # boundaries and integer prefixes exact in float32
 _MAX_GRID_Y = 65535  # filters (wide) or slots a launch
@@ -125,7 +123,7 @@ class _WideBuffers(ctypes.Structure):
 
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "p_in", "lw_in", "z", "normals", "bad", "fire", "src", "expanded",
-        "p_out", "lw_out", "parts")]
+        "p_out", "lw_out", "lse_out", "lse2_out", "est_out")]
 
 
 class PfBatchState(typing.NamedTuple):
@@ -714,8 +712,7 @@ def wide_stats_rows_plain(cfg: PfConfig, seed: int, particles: torch.Tensor,
                           expanded: torch.Tensor | None = None,
                           noise_on: bool = True,
                           normals: torch.Tensor | None = None):
-    """Plain twin of :func:`wide_stats_rows`, on any device; one partial
-    row a filter."""
+    """Plain twin of :func:`wide_stats_rows`, on any device."""
     mode = _mode(noise_on, normals)
     _check_stats(cfg, particles, log_w, z, bad, fire, src, expanded,
                  normals)
@@ -729,7 +726,7 @@ def wide_stats_rows_plain(cfg: PfConfig, seed: int, particles: torch.Tensor,
                                      particles[2], mode, normals, int(seed))
     p_new = torch.stack([x, y, yaw])
     lw = lw0 + acc
-    return p_new, lw, _partial_plain(p_new, lw)
+    return (p_new, lw) + _map_plain(p_new, lw)
 
 
 def wide_stats_rows(cfg: PfConfig, seed: int, particles: torch.Tensor,
@@ -738,8 +735,8 @@ def wide_stats_rows(cfg: PfConfig, seed: int, particles: torch.Tensor,
                     expanded: torch.Tensor | None = None,
                     noise_on: bool = True,
                     normals: torch.Tensor | None = None):
-    """K5b: predict, weight and per-block partial rows of every filter,
-    one launch.
+    """K5b: predict, weight and each filter's normalizers and MAP
+    particle, one launch.
 
     With ``src`` and ``expanded`` (the fused form, the main path's), a
     firing filter takes its particles from the expanded rows of its slot
@@ -747,9 +744,10 @@ def wide_stats_rows(cfg: PfConfig, seed: int, particles: torch.Tensor,
     does not fire restarts at 0 in either form.
 
     Returns:
-        ``(particles', log_w', parts)`` with ``parts`` the
-        ``(B, ceil(n / 256), 8)`` partial rows for
-        :func:`_combine_wide_stats`.  A CPU tensor runs
+        ``(particles', log_w', lse, lse2, x_est)``: ``lse`` and ``lse2``
+        the ``(B,)`` logsumexp of ``log_w'`` and of twice it, ``x_est``
+        the ``(B, 3)`` MAP particle (the highest index among the maxima; a
+        NaN log weight never wins).  A CPU tensor runs
         :func:`wide_stats_rows_plain`.
     """
     global wide_stats_launch_count
@@ -766,14 +764,16 @@ def wide_stats_rows(cfg: PfConfig, seed: int, particles: torch.Tensor,
     with torch.cuda.device(device):
         p_out = torch.empty_like(particles)
         lw_out = torch.empty_like(log_w)
-        parts = torch.empty((b, -(-n // _BLOCK), 8), dtype=torch.float32,
-                            device=device)
+        f32 = dict(dtype=torch.float32, device=device)
+        lse, lse2 = torch.empty(b, **f32), torch.empty(b, **f32)
+        x_est = torch.empty((b, 3), **f32)
         bufs = _WideBuffers(
             p_in=particles.data_ptr(), lw_in=log_w.data_ptr(),
             z=z.data_ptr(), normals=_ptr(normals), bad=bad.data_ptr(),
             fire=fire.data_ptr(), src=_ptr(src), expanded=_ptr(expanded),
             p_out=p_out.data_ptr(), lw_out=lw_out.data_ptr(),
-            parts=parts.data_ptr())
+            lse_out=lse.data_ptr(), lse2_out=lse2.data_ptr(),
+            est_out=x_est.data_ptr())
         params = _WideParams(n=n, b=b, n_lm=len(cfg.landmarks),
                              **_key(seed), **_constants(cfg))
         rc = lib.tpuslam_wide_stats(ctypes.addressof(bufs),
@@ -784,16 +784,7 @@ def wide_stats_rows(cfg: PfConfig, seed: int, particles: torch.Tensor,
         raise RuntimeError(f"wide_stats kernel launch failed: CUDA error "
                            f"{rc}")
     wide_stats_launch_count += 1
-    return p_out, lw_out, parts
-
-
-def _combine_wide_stats(parts: torch.Tensor):
-    """Reduce the ``(B, G, 8)`` partial rows to ``(lse, lse2, x_est)``,
-    each filter's MAP particle the highest index among its maxima
-    (``pf_batch_pallas.py:991-1012`` picks the first block holding the
-    maximum; ROADMAP section 3)."""
-    stats, _ = _combine_stats(parts)
-    return stats[:, 0], stats[:, 1], stats[:, 2:5]
+    return p_out, lw_out, lse, lse2, x_est
 
 
 def _wide_step_core(cfg, state, x_true, z, seed, offs, noise_on, normals,
@@ -805,10 +796,9 @@ def _wide_step_core(cfg, state, x_true, z, seed, offs, noise_on, normals,
                          slots.offs)
     expanded = resample_cuda.expand_seg(state.particles, t_hi, slots.fids,
                                         slots.valid, pass2)
-    p, lw, parts = wide_stats_rows(cfg, seed, state.particles, state.log_w,
-                                   z, bad, fire, slots.src, expanded,
-                                   noise_on, normals)
-    lse, lse2, x_est = _combine_wide_stats(parts)
+    p, lw, lse, lse2, x_est = wide_stats_rows(
+        cfg, seed, state.particles, state.log_w, z, bad, fire, slots.src,
+        expanded, noise_on, normals)
     return (PfBatchWideState(x_true, p, lw, lse, lse2, x_est),
             PfBatchOut(x_true, x_est, ess, lse, fire, bad))
 
