@@ -39,6 +39,8 @@ import time
 FLAGSHIP = (8_388_608, 1600)
 BASELINE = (8192, 400)
 SWEEPS = (64, 8192, 400)
+# An odd step count, held to the plain version with Philox noise.
+ODD_SHAPE = (4096, 63)
 
 # Bands of the noisy filter at 8192 x 400: per-rollout RMSE and NEES of the
 # posterior position, as the JAX package's on-chip gate holds them.
@@ -70,26 +72,42 @@ BATCH_MAIN, WIDE_MAIN = BATCH_SIZES[0], WIDE_SIZES[0]
 # pass of its block, and at 128 filters, one block a SM.
 BATCH_RAGGED = ((8192, 997), (256, 4099))
 WIDE_RAGGED = ((64, 10_001), (128, 10_000))
-# The previous K4 and K5b designs' times a launch at the main shapes (one
-# particle a thread; NVIDIA H100 80GB HBM3, 700.00 W; PERF.md), printed
-# beside the new ones on the human line only: this run did not measure
-# them.
-PREV_MS = {"pf_batch_step": 0.6548, "wide_stats": 0.7909}
+# The segmented K3b's firing counts at WIDE_MAIN (timed: its fixed cost
+# against its cost a firing filter), and its edge shapes with every filter
+# firing: one survivor a filter (one particle takes every slot), ragged
+# rows, and rows longer than a block's shared memory holds.
+EXPAND_FIRING = (0, 240, 1024)
+EXPAND_EDGES = ((1024, 10_000, True), (64, 10_001, False),
+                (64, 10_001, True), (8, 100_000, False), (8, 100_000, True))
 BATCH_BAND = (0.02, 0.50)
 BATCH_BAND_SHAPE = (256, 1000, 100)
 WIDE_BAND_SHAPE = (32, 10_000, 100)
 
 # The least time the card could take: bytes over the HBM rate against
-# float32 operations over the non-tensor-core float32 rate (NVIDIA H100
-# SXM data sheet).  Operations a rollout-step, particle or lane, counted
-# from the plain versions' float arithmetic (ekf_cuda.py,
+# operations over their rate, float32 on the non-tensor-core float32 rate
+# (NVIDIA H100 SXM data sheet) and 32-bit integer on 64 results a clock an
+# SM (CUDA C++ Programming Guide, arithmetic instruction throughput,
+# compute capability 9.0) on 132 SMs at the 1.98 GHz that the data sheet's
+# float32 rate implies.  Operations a rollout-step, particle or lane,
+# counted from the plain versions' arithmetic (ekf_cuda.py,
 # pf_cuda.py::_predict_loglik, resample_cuda.py); exp, log, sqrt and a
-# divide count one each, and Philox's integer operations are left out
-# (the data sheet gives no integer rate to hold them to).  PF_STEP_OPS
-# includes the 5 operations of the reductions (exp, shift, square, sums).
+# divide count one each.  K1's float32 count is 224 for the filter and 32
+# for each of its 2.5 Box-Muller transforms a step; its integer count is
+# Philox's, 39 a call, 1.5 calls a step, plus the transforms' two shifts.
+# A Philox round is two 32x32->64 products and two three-input XORs, less
+# the first round's second product, whose factor (the counter's third
+# word, 0 or 1) is a constant.  Each counts as one operation, the fewest
+# the card could need: K1's SASS (kernel_report) issues a product as one
+# IMAD.WIDE.U32 and a three-input XOR as one LOP3.LUT.  So the int32 term
+# stays below the float32 one.
+# The PF kernels' Philox is left out of their counts (their bytes bound
+# them).  PF_STEP_OPS includes the 5 operations of the reductions (exp,
+# shift, square, sums).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-EKF_OPS_PER_STEP = 320
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+EKF_OPS_PER_STEP = 224 + 2.5 * 32
+EKF_INT_OPS_PER_STEP = 1.5 * 39 + 2.5 * 2
 PF_STEP_OPS = 240
 BOUNDARY_OPS = 6
 
@@ -144,31 +162,44 @@ def _compare(kernel, plain, *, atol_state, rtol_cov, atol_cov):
     return worst
 
 
-def _bound(n_bytes: float, n_ops: float):
-    """``(bound_ms, bound_by)``: the larger of the two least times."""
+def _k1_floors(clock_mhz: float) -> dict | None:
+    """2b. K1's floors at :data:`FLAGSHIP` from its step loop's SASS
+    (``kernel_report.floors_ms``): the issue floor and each pipe's.  The
+    loop reads the four truth-table words a step, so its ``LDG`` count
+    over 4 is the steps it holds.  None where no ``cuobjdump`` is
+    found."""
+    from tpuslam_torch.utils import kernel_report as kr
+
+    found = kr.counts_of("ekf_rollout_kernel<1, false")
+    if found is None or "loop" not in found[1]:
+        print("K1 floors: not measured (no SASS or no loop found)",
+              flush=True)
+        return None
+    name, counts = found
+    loop = counts["loop"]
+    steps = loop.get("LDG/STG", 0) / 4
+    _require(steps >= 1 and steps == int(steps),
+             f"K1 step loop: {loop.get('LDG/STG', 0)} loads")
+    per_step = {g: c / steps for g, c in loop.items()}
+    b, n = FLAGSHIP
+    floors = kr.floors_ms(per_step, b * n, clock_mhz * 1e6)
+    pipes = ", ".join(f"{p} {floors[p]:.3f} ms" for p, _, _ in kr.PIPES)
+    print(f"K1 floors at {b:,}x{n} ({name}, step loop {loop['total']} "
+          f"instructions for {steps:g} step(s): {per_step['total']:.1f} a "
+          f"step, of them fp32 {per_step.get('FFMA/FMUL/FADD', 0):.1f}, "
+          f"MUFU {per_step.get('MUFU', 0):.1f}; {clock_mhz:g} MHz max SM "
+          f"clock): issue {floors['issue']:.3f} ms; pipes {pipes}",
+          flush=True)
+    return floors
+
+
+def _bound(n_bytes: float, n_ops: float, n_int_ops: float = 0.0):
+    """``(bound_ms, bound_by)``: the largest of the least times for the
+    bytes, the float32 operations and the integer operations."""
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = n_ops / F32_OPS_PER_S
+    t_ops = max(n_ops / F32_OPS_PER_S, n_int_ops / INT32_OPS_PER_S)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
-
-
-def _device_ms(fn, reps: int) -> float:
-    """Device milliseconds a call of ``fn``, from CUDA events around
-    ``reps`` back-to-back calls.  A sleep kernel holds the card while
-    the calls are queued, so host launch overhead does not show."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(50_000_000)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def _step_gap(kernel, plain, what: str = "pf_step"):
@@ -506,6 +537,7 @@ def _pf_kernel_times(dev, smi, final, launches: dict, err: float,
 
     from tpuslam_torch.ops import pf_cuda, pf_fused_init
     from tpuslam_torch.ops import resample_cuda as rs
+    from tpuslam_torch.utils import device_ms
 
     n = PF_SIZES[0]
     cfg = _pf_cfg(n)
@@ -540,9 +572,9 @@ def _pf_kernel_times(dev, smi, final, launches: dict, err: float,
     ]
     entries = []
     for name, src, replaces, fn, plain_fn, lib_fn, bound, max_err in kernels:
-        ms = _device_ms(fn, 50)
-        plain_ms = _device_ms(plain_fn, 5)
-        library_ms = None if lib_fn is None else _device_ms(lib_fn, 20)
+        ms = device_ms(fn, 50)
+        plain_ms = device_ms(plain_fn, 5)
+        library_ms = None if lib_fn is None else device_ms(lib_fn, 20)
         entries.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[name],
@@ -557,9 +589,9 @@ def _pf_kernel_times(dev, smi, final, launches: dict, err: float,
               flush=True)
     # The same kernel without the reductions (K2a), which the convenience
     # call pf_fused_predict_weight launches; the main path does not.
-    ms = _device_ms(lambda: pf_cuda.pf_step_rows(*step_args,
+    ms = device_ms(lambda: pf_cuda.pf_step_rows(*step_args,
                                                  with_stats=False), 50)
-    plain_ms = _device_ms(lambda: pf_cuda.pf_step_rows_plain(
+    plain_ms = device_ms(lambda: pf_cuda.pf_step_rows_plain(
         *step_args, with_stats=False), 5)
     bound = _bound(32 * n + 40, (PF_STEP_OPS - 5) * n)
     print(f"kernel pf_step without stats at {n:,}: {ms:.4f} ms a launch, "
@@ -742,6 +774,55 @@ def _wide_resample_parity(dev):
           f"and expanded rows bit-equal to plain (max|kernel-plain| "
           f"{err_t}, {err_rows})", flush=True)
     return err_t, err_rows
+
+
+def _expand_seg_checks(dev, smi) -> None:
+    """16b. The segmented K3b bit-equal to its twin on the valid slots at
+    :data:`WIDE_MAIN` with :data:`EXPAND_FIRING` filters firing, each
+    timed alone (its fixed cost against its cost a firing filter), and
+    at :data:`EXPAND_EDGES` and with its boundaries in a view off 16-byte
+    alignment, on ``turns.seg_args``' clouds and weights."""
+    import torch
+
+    from tpuslam_torch.ops import resample_cuda as rs
+    from tpuslam_torch.utils import device_ms
+    from tpuslam_torch.utils.turns import seg_args
+
+    def held(args, what):
+        v = args[3]
+        k = rs.resample_expand_seg(*args)
+        p = rs.resample_expand_seg_plain(*args)
+        _require(torch.equal(k[:, v], p[:, v]),
+                 f"segmented K3b differs from its twin: {what}")
+
+    b, n = WIDE_MAIN
+    times = []
+    for n_fire in EXPAND_FIRING:
+        args = seg_args(dev, b, n, n_fire)
+        held(args, f"{b}x{n}, {n_fire} firing")
+        times.append(f"{n_fire} firing "
+                     f"{device_ms(lambda: rs.resample_expand_seg(*args), 20):.4f}"
+                     " ms")
+    print(f"segmented K3b at {b:,}x{n:,}: " + ", ".join(times)
+          + f" a launch; bit-equal to plain at each; on {smi}", flush=True)
+    for b, n, one in EXPAND_EDGES:
+        held(seg_args(dev, b, n, b, 17, one), f"{b}x{n}, one survivor "
+             f"{one}")
+    # Boundaries in a contiguous view 4 bytes past a 16-byte boundary: the
+    # kernel takes its scalar loads there.
+    b, n = WIDE_MAIN
+    particles, t_hi, fids, valid = seg_args(dev, b, n, b, 17)
+    shifted = torch.empty(t_hi.numel() + 1, dtype=t_hi.dtype,
+                          device=dev)[1:].view_as(t_hi).copy_(t_hi)
+    _require(shifted.data_ptr() % 16 != 0, "the shifted view is aligned")
+    held((particles, shifted, fids, valid), f"{b}x{n}, shifted boundaries")
+    torch.cuda.synchronize()
+    print("segmented K3b bit-equal to plain, every filter firing, at "
+          + ", ".join(f"{b:,}x{n:,}" + (" one survivor a filter" if one
+                                        else "")
+                      for b, n, one in EXPAND_EDGES)
+          + f", and {b:,}x{n:,} with its boundaries 4 bytes off 16-byte "
+          "alignment", flush=True)
 
 
 def _wide_stats_parity(dev):
@@ -965,6 +1046,7 @@ def _batch_kernel_times(dev, smi, finals, launches, errs) -> list:
 
     from tpuslam_torch.ops import pf_batch_cuda as pb
     from tpuslam_torch.ops import resample_cuda as rs
+    from tpuslam_torch.utils import device_ms
 
     f32 = dict(dtype=torch.float32, device=dev)
     g = _gen(dev, 21)
@@ -1035,9 +1117,9 @@ def _batch_kernel_times(dev, smi, finals, launches, errs) -> list:
     entries = []
     for name, src, replaces, fn, plain_fn, lib_fn, bound, max_err, shape \
             in kernels:
-        ms = _device_ms(fn, 20)
-        plain_ms = _device_ms(plain_fn, 3)
-        library_ms = None if lib_fn is None else _device_ms(lib_fn, 20)
+        ms = device_ms(fn, 20)
+        plain_ms = device_ms(plain_fn, 3)
+        library_ms = None if lib_fn is None else device_ms(lib_fn, 20)
         entries.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[name],
@@ -1045,8 +1127,6 @@ def _batch_kernel_times(dev, smi, finals, launches, errs) -> list:
             "bound_ms": bound[0], "bound_by": bound[1],
             "library_ms": library_ms})
         print(f"kernel {name} at {shape}: {ms:.4f} ms a launch"
-              + (f" (previous design: {PREV_MS[name]} ms)"
-                 if name in PREV_MS else "")
               + f", plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms "
               f"({bound[1]})"
               + ("" if library_ms is None
@@ -1062,6 +1142,7 @@ def _batch_phases(dev, smi):
     errs = {"pf_batch_step": _batch_parity(dev)}
     errs["wide_boundary"], errs["resample_expand_seg"] = \
         _wide_resample_parity(dev)
+    _expand_seg_checks(dev, smi)
     errs["wide_stats"] = _wide_stats_parity(dev)
     _batch_bands(dev)
     launches = _batch_main_paths(dev)
@@ -1326,6 +1407,7 @@ def _merge_kernel_times(dev, smi, finals, launches, errs) -> list:
     from tpuslam_torch.ops import pf_batch_cuda as pb
     from tpuslam_torch.ops import pf_fused_init
     from tpuslam_torch.ops import resample_cuda as rs
+    from tpuslam_torch.utils import device_ms
 
     f32 = dict(dtype=torch.float32, device=dev)
     n = PF_SIZES[0]
@@ -1394,9 +1476,9 @@ def _merge_kernel_times(dev, smi, finals, launches, errs) -> list:
     entries = []
     for name, replaces, fn, plain_fn, (lib_name, lib_fn), bound, max_err, \
             shape in kernels:
-        ms = _device_ms(fn, 50)
-        plain_ms = _device_ms(plain_fn, 5)
-        library_ms = _device_ms(lib_fn, 20)
+        ms = device_ms(fn, 50)
+        plain_ms = device_ms(plain_fn, 5)
+        library_ms = device_ms(lib_fn, 20)
         entries.append({
             "name": name, "route": "cuda",
             "source": "tpuslam_torch/csrc/resample.cu",
@@ -1460,6 +1542,11 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for line in kernel_report.report_lines(BATCH_MAIN[1]):
         print(line, flush=True)
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+        timeout=60).stdout.split()[0])
+    k1_floors = _k1_floors(clock_mhz)
 
     # 3. Noise-free parity (the JAX package's on-chip gate: atol 1e-4 after
     # 50 steps, accumulator below 1e-6).
@@ -1495,10 +1582,20 @@ def main() -> int:
         ekf_cuda.ekf_fused_rollout(cfg, 5, b, n, device=dev),
         ekf_cuda.ekf_fused_rollout_plain(cfg, 5, b, n, device=dev),
         atol_state=1e-3, rtol_cov=1e-4, atol_cov=1e-7)
+    # An odd step count: the last step's yaw normal is the first of its
+    # own pair, whose second goes unused.
+    b_odd, n_odd = ODD_SHAPE
+    err_odd = _compare(
+        ekf_cuda.ekf_fused_rollout(cfg, 6, b_odd, n_odd, with_nees=True,
+                                   device=dev),
+        ekf_cuda.ekf_fused_rollout_plain(cfg, 6, b_odd, n_odd,
+                                         with_nees=True, device=dev),
+        atol_state=1e-3, rtol_cov=1e-4, atol_cov=1e-7)
+    err_philox = max(err_philox, err_odd)
     torch.cuda.synchronize()
     print(f"parity noise-on: injected normals 4096x64 max|kernel-plain| "
-          f"{err_nrm:.3e}, Philox {b}x{n} {err_philox:.3e} (atol 1e-3 "
-          "poses, rtol 1e-4 cov)", flush=True)
+          f"{err_nrm:.3e}, Philox {b}x{n} and {b_odd}x{n_odd} (odd steps) "
+          f"{err_philox:.3e} (atol 1e-3 poses, rtol 1e-4 cov)", flush=True)
 
     # 5. Philox noise bands.
     b, n = BASELINE
@@ -1549,6 +1646,11 @@ def main() -> int:
             label, f"kernel {b}x{n}",
             lambda b=b, n=n: ekf_cuda.ekf_fused_rollout(cfg, 1, b, n,
                                                         device=dev), b * n)
+    if k1_floors is not None:
+        print(f"K1 flagship {ms['flagship']:.3f} ms against its issue floor "
+              f"{k1_floors['issue']:.3f} ms: "
+              f"{100 * k1_floors['issue'] / ms['flagship']:.1f}% of the issue"
+              " rate", flush=True)
     k, b, n = SWEEPS
     rate("sweeps", f"kernel {k}x{b}x{n}",
          lambda: ekf_cuda.ekf_fused_sweeps(cfg, 1, k, b, n, device=dev),
@@ -1590,7 +1692,8 @@ def main() -> int:
     pf_entries += _merge_phases(dev, smi, default_fired)
 
     b, n = FLAGSHIP
-    bound_ms, bound_by = _bound(80 * b + 20 * n, EKF_OPS_PER_STEP * b * n)
+    bound_ms, bound_by = _bound(80 * b + 20 * n, EKF_OPS_PER_STEP * b * n,
+                                EKF_INT_OPS_PER_STEP * b * n)
     print(json.dumps({"kernels": [{
         "name": "ekf_rollout",
         "route": "cuda",

@@ -83,3 +83,87 @@ def test_report_needs_a_card():
         pytest.skip("this host has CUDA; the report is chip_smoke's")
     with pytest.raises(RuntimeError, match="CUDA"):
         kr.main()
+
+
+# A step loop in both of cuobjdump's spellings of a branch target: a label
+# (.L_x_N) and a hex address.  Each loop holds a forward branch and a
+# self-branch after the kernel's EXIT, which are not its back-edge.
+LOOP_BODY = """\
+        /*0040*/                   LDG.E.CONSTANT R4, desc[UR4][R2.64] ;
+        /*0050*/                   IMAD.WIDE.U32 R6, R5, -0x2daee0ad, RZ ;
+        /*0060*/                   LOP3.LUT R7, R7, c[0x0][0x210], R8, 0x96, !PT ;
+        /*0070*/                   IADD3 R9, R0, 0x1715609d, RZ ;
+        /*0080*/                   SHF.R.U32.HI R2, RZ, 0x8, R2 ;
+        /*0090*/                   I2FP.F32.U32 R2, R2 ;
+        /*00a0*/                   FSETP.GT.AND P1, PT, R5, 3.1415927410125732422, PT ;
+        /*00b0*/              @!P1 BRA {fwd} ;
+        /*00c0*/                   FSEL R5, R5, R2, P1 ;
+        /*00d0*/                   FFMA R5, R4, R4, R5 ;
+        /*00e0*/                   MUFU.RSQ R6, R5 ;
+        /*00f0*/               @P0 BRA {back} ;
+        /*0100*/                   STG.E [R2.64], R5 ;
+        /*0110*/                   EXIT ;
+"""
+SASS_LABELS = ("""\
+\t\tFunction : _Z4loopPf
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   ISETP.GE.AND P0, PT, R0, 0x1, PT ;
+        /*0020*/                   MOV R3, RZ ;
+        /*0030*/                   MOV R4, RZ ;
+.L_x_0:
+""" + LOOP_BODY.format(fwd="`(.L_x_1)", back="`(.L_x_0)").replace(
+    "        /*00c0*/", ".L_x_1:\n        /*00c0*/") + """\
+.L_x_2:
+        /*0120*/                   BRA `(.L_x_2);
+""")
+SASS_HEX = SASS_LABELS.replace("`(.L_x_0)", "0x40").replace(
+    "`(.L_x_1)", "0xc0").replace("`(.L_x_2)", "0x120")
+
+
+@pytest.mark.parametrize("text", [SASS_LABELS, SASS_HEX],
+                         ids=["labels", "addresses"])
+def test_parse_sass_counts_the_step_loop(text):
+    """The loop runs from the back-edge's target to the back-edge, both
+    included: 12 instructions, each group counted; the integer groups
+    are their own; the self-branch after EXIT is no loop."""
+    counts = kr.parse_sass(text)["_Z4loopPf"]
+    assert counts["total"] == 19
+    loop = counts["loop"]
+    assert loop["total"] == 12
+    assert (loop["LDG/STG"], loop["IMAD*"], loop["LOP3"], loop["IADD3"],
+            loop["SHF"], loop["I2F/F2I"]) == (1, 1, 1, 1, 1, 1)
+    assert (loop["FSETP/ISETP"], loop["FSEL/SEL"], loop["FFMA/FMUL/FADD"],
+            loop["MUFU"]) == (1, 1, 1, 1)
+    assert counts["FSETP/ISETP"] == 2 and "STG" not in loop
+
+
+def test_parse_sass_without_a_loop_has_none():
+    assert "loop" not in kr.parse_sass(SASS)["_Z4stepPf"]
+
+
+def test_floors_of_a_loop():
+    """Issue at 4 warp instructions a clock an SM; fp32 at 128 results,
+    int at 64, MUFU at 16, each on 132 SMs."""
+    counts = {"total": 640, "FFMA/FMUL/FADD": 256, "IMAD*": 32, "LOP3": 16,
+              "IADD3": 8, "SHF": 8, "MUFU": 4}
+    f = kr.floors_ms(counts, 132 * 1e9, 1e9)
+    assert f["issue"] == pytest.approx(1e3 * 640 / 128)
+    assert f["fp32"] == pytest.approx(1e3 * 256 / 128)
+    assert f["int"] == pytest.approx(1e3 * 64 / 64)
+    assert f["mufu"] == pytest.approx(1e3 * 4 / 16)
+
+
+@pytest.mark.parametrize("demangled,prefix", [
+    ("void (anonymous namespace)::ekf_rollout_kernel<1, false>(const float "
+     "*, const float *, float *, float *, float *, (anonymous namespace)"
+     "::EkfParams)", "ekf_rollout_kernel<1, false"),
+    ("void <unnamed>::expand_seg_kernel(const float *, const int *, const "
+     "int *, const unsigned char *, float *, int, int)", "expand_seg_kernel"),
+])
+def test_report_counts_k1_and_the_segmented_expand(demangled, prefix):
+    """K1 in the flagship's mode and the segmented K3b are among the
+    kernels whose opcodes (and loops) the report prints."""
+    assert prefix in kr.SASS_KERNELS
+    assert kr._short(demangled).startswith(prefix)
+    others = [p for p in kr.SASS_KERNELS if p != prefix]
+    assert not any(kr._short(demangled).startswith(p) for p in others)

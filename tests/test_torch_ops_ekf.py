@@ -236,9 +236,17 @@ def test_params_struct_mirrors_cuda_source():
     src = (_build.CSRC_DIR / "ekf_rollout.cu").read_text()
     body = re.search(r"struct EkfParams \{(.*?)\};", src, re.S).group(1)
     body = re.sub(r"//[^\n]*", "", body)
-    names = re.findall(r"(\w+)\s*[,;]", body)
-    assert names == [f[0] for f in ekf_cuda._EkfParams._fields_]
-    assert ctypes.sizeof(ekf_cuda._EkfParams) == 8 + 4 + 4 + 4 + 18 * 4 + 4
+    fields = re.findall(r"(\w+)(?:\[(\w+)\])?\s*[,;]", body)
+    assert [f for f, _ in fields] == [
+        f[0] for f in ekf_cuda._EkfParams._fields_]
+    # The Philox round keys: two arrays of one key a round, ten rounds.
+    assert [(f, n) for f, n in fields if n] == [("rk0", "kPhiloxRounds"),
+                                                ("rk1", "kPhiloxRounds")]
+    for name in ("rk0", "rk1"):
+        assert getattr(ekf_cuda._EkfParams, name).size == 10 * 4
+    assert "constexpr int kPhiloxRounds = 10;" in (
+        _build.CSRC_DIR / "fastmath.cuh").read_text()
+    assert ctypes.sizeof(ekf_cuda._EkfParams) == 8 + 4 + 2 * 10 * 4 + 18 * 4 + 4
 
 
 def test_build_flags_and_sources():

@@ -37,15 +37,17 @@ __device__ __forceinline__ void sincos_turns(float u, float* c, float* s) {
   cp = cp * h2 + 0x1.555548p-5f;               //  4.1666640e-02
   cp = cp * h2 + -0x1p-1f;                     // -0.49999999 -> -0.5
   cp = cp * h2 + 0x1p+0f;                      //  1
-  if (q == 1.0f) {
-    *c = -sp; *s = cp;
-  } else if (q == 2.0f) {
-    *c = -cp; *s = -sp;
-  } else if (q == 3.0f) {
-    *c = sp; *s = -cp;
-  } else {
-    *c = cp; *s = sp;
-  }
+  // The quadrant's swap and signs by selects, not branches: Box-Muller's
+  // angles put a warp's lanes in every quadrant, and a branch on q would
+  // run each quadrant's path one after another.  Negation by the sign bit
+  // is exact, so the values are those of the four-way if.
+  const bool swap = q == 1.0f || q == 3.0f;
+  const float cs = swap ? sp : cp;
+  const float sn = swap ? cp : sp;
+  const unsigned neg_c = (q == 1.0f || q == 2.0f) ? 0x80000000u : 0u;
+  const unsigned neg_s = (q == 2.0f || q == 3.0f) ? 0x80000000u : 0u;
+  *c = __uint_as_float(__float_as_uint(cs) ^ neg_c);
+  *s = __uint_as_float(__float_as_uint(sn) ^ neg_s);
 }
 
 // (cos, sin) of an angle in radians of any magnitude.
@@ -66,29 +68,51 @@ __device__ __forceinline__ float2 normals_from_bits(uint32_t b1, uint32_t b2) {
   return make_float2(r * c, r * s);
 }
 
+constexpr int kPhiloxRounds = 10;
+constexpr uint32_t kPhiloxW0 = 0x9E3779B9u;
+constexpr uint32_t kPhiloxW1 = 0xBB67AE85u;
+
 // Philox4x32-10 (Salmon et al., SC'11): ten rounds of two 32x32->64
-// multiplies, the key bumped by the Weyl constants between rounds.
-__device__ __forceinline__ uint4 philox4x32_10(uint4 ctr, uint2 key) {
+// multiplies, each round under its own key, k0[r] = key.x + r * W0 and
+// k1[r] = key.y + r * W1 (mod 2^32).  A caller whose key is the same for
+// every thread passes that schedule folded once (on the host), and the
+// rounds read it from the kernel's parameters.
+__device__ __forceinline__ uint4 philox4x32_10(uint4 ctr, const uint32_t* k0,
+                                               const uint32_t* k1) {
 #pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r) {
-      key.x += 0x9E3779B9u;
-      key.y += 0xBB67AE85u;
-    }
+  for (int r = 0; r < kPhiloxRounds; ++r) {
     const uint32_t lo0 = 0xD2511F53u * ctr.x;
     const uint32_t hi0 = __umulhi(0xD2511F53u, ctr.x);
     const uint32_t lo1 = 0xCD9E8D57u * ctr.z;
     const uint32_t hi1 = __umulhi(0xCD9E8D57u, ctr.z);
-    ctr = make_uint4(hi1 ^ ctr.y ^ key.x, lo1, hi0 ^ ctr.w ^ key.y, lo0);
+    ctr = make_uint4(hi1 ^ ctr.y ^ k0[r], lo1, hi0 ^ ctr.w ^ k1[r], lo0);
   }
   return ctr;
 }
 
-// Angle wrap of tpuslam/core/angles.py::wrap_angle in closed form.
+// The same generator under the key itself, its schedule computed here.
+__device__ __forceinline__ uint4 philox4x32_10(uint4 ctr, uint2 key) {
+  uint32_t k0[kPhiloxRounds], k1[kPhiloxRounds];
+#pragma unroll
+  for (int r = 0; r < kPhiloxRounds; ++r) {
+    k0[r] = key.x + static_cast<uint32_t>(r) * kPhiloxW0;
+    k1[r] = key.y + static_cast<uint32_t>(r) * kPhiloxW1;
+  }
+  return philox4x32_10(ctr, k0, k1);
+}
+
+// Angle wrap of tpuslam/core/angles.py::wrap_angle in closed form.  Where
+// |a| <= pi the closed form gives w = |a| (k = 0), so the divide runs only
+// behind the branch, which a warp takes together where its lanes follow
+// one trajectory.  The sign goes back on by the same select as the closed
+// form's, so -0.0f still maps to +0.0f.
 __device__ __forceinline__ float wrap_angle(float a) {
   const float mag = fabsf(a);
-  const float k = fmaxf(ceilf((mag - kPi) / kTwoPi), 0.0f);
-  const float w = mag - kTwoPi * k;
+  float w = mag;
+  if (mag > kPi) {
+    const float k = fmaxf(ceilf((mag - kPi) / kTwoPi), 0.0f);
+    w = mag - kTwoPi * k;
+  }
   return a < 0.0f ? -w : w;
 }
 

@@ -36,9 +36,27 @@
 //
 // Pass 2 also has a segmented form for the wide batched filter (its pass
 // B, pf_batch_pallas.py:1367-1387, which ran _expand_kernel in slot
-// space): one more grid dimension over firing slots, each slot searching
-// only its own filter's boundaries.  The single-filter launch is
-// unchanged.
+// space): each firing slot expands its own filter's boundaries.  A slot's
+// row is cut into windows of kSegWindow boundaries, one block a window
+// and slot; the window's particles own the output slots
+// [t[w0 - 1], t[w1 - 1]), which two loads give, so no window searches
+// global memory:
+//   * the block stages its window of t once, with coalesced 16-byte loads
+//     where the row is 16-byte aligned (n % 4 == 0 and an aligned base),
+//     into shared memory;
+//   * each thread owns runs of four consecutive output slots; the run's
+//     first source comes from a binary search of the staged window, and
+//     since sources do not decrease each following slot probes the
+//     previous source and the next one, and searches only past them;
+//   * a run's three planes are stored as float4s where the row is aligned
+//     and the run whole, so a warp writes 512 contiguous bytes a plane;
+//   * an idle slot's blocks, and windows with no output slot (every
+//     weight zero), exit after one or three loads.  The grid is
+//     (ceil(n / kSegWindow), b): at 1024 x 10,000, 5 blocks a slot, so
+//     the idle slots' blocks cost a few microseconds a launch.
+// A row of any length runs: a longer row has more windows.  The
+// single-filter launch (expand_kernel) keeps one thread a slot and its
+// search of the whole row.
 //
 // The merge's pass2="compressed" form runs pass 2 through a survivor stack,
 // which two more kernels build and read; each serves the single filter as one
@@ -76,12 +94,15 @@
 #include <cstdint>
 
 #include "occupancy.cuh"
+#include "pf_math.cuh"  // aligned16
 
 namespace {
 
 constexpr int kScanBlock = 1024;  // lanes per boundary block (ops: BLOCK)
 constexpr int kScanWarps = kScanBlock / 32;
 constexpr int kExpandBlock = 256;
+constexpr int kSegBlock = 256;     // the segmented expand's threads
+constexpr int kSegWindow = 2048;   // its boundaries a block, 8 KB staged
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ int warp_inclusive_scan(int v, int lane) {
@@ -154,26 +175,92 @@ expand_kernel(const float* __restrict__ p, const int* __restrict__ t_hi,
   out[2 * n_pad + i] = __ldg(p + 2 * n_pad + lo);
 }
 
-// The segmented form (the wide filter's pass B): blockIdx.y is a firing
-// slot s, which expands the boundaries t_hi[s] of its filter fids[s] into
-// its own output rows; an idle slot exits at once.  p and out are
-// (3, b, n) with no padding; t_hi is (b, n) in slot order.
-__global__ void __launch_bounds__(kExpandBlock)
+// The first j in [lo, hi) with t[j] > i, or hi; t sorted.
+__device__ __forceinline__ int first_above(const int* t, int lo, int hi,
+                                           int i) {
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (t[mid] > i) {
+      hi = mid;
+    } else {
+      lo = mid + 1;
+    }
+  }
+  return lo;
+}
+
+// The segmented form (the wide filter's pass B): block (c, s) expands the
+// particles [w0, w1) = [c, c + 1) * kSegWindow of slot s's filter fids[s]
+// by the boundaries t_hi[s] into its output slots; an idle slot exits at
+// once.  p and out are (3, b, n) with no padding; t_hi is (b, n) in slot
+// order.
+__global__ void __launch_bounds__(kSegBlock)
 expand_seg_kernel(const float* __restrict__ p, const int* __restrict__ t_hi,
                   const int* __restrict__ fids,
                   const unsigned char* __restrict__ valid,
                   float* __restrict__ out, int n, int b) {
+  __shared__ __align__(16) int ts[kSegWindow];
   const int s = blockIdx.y;
   if (!valid[s]) return;
-  const int i = blockIdx.x * kExpandBlock + threadIdx.x;
-  if (i >= n) return;
+  const int w0 = blockIdx.x * kSegWindow;
+  const int len = min(kSegWindow, n - w0);
+  const int* t = t_hi + static_cast<long long>(s) * n + w0;
+  // The window's output slots [a, e): a slot's source is the first j with
+  // t[j] > i, and t[n - 1] = n.
+  const int a = w0 == 0 ? 0 : __ldg(t - 1);
+  const int e = __ldg(t + len - 1);
+  if (a == e) return;
+  // Rows and windows 16-byte aligned: n % 4 == 0 and both bases aligned
+  // (a contiguous view may start at any 4-byte offset).
+  const bool aligned = (n & 3) == 0 && tpuslam::aligned16(t_hi) &&
+                       tpuslam::aligned16(out);
+  if (aligned) {
+    const int4* t4 = reinterpret_cast<const int4*>(t);
+    for (int q = threadIdx.x; q < (len >> 2); q += kSegBlock) {
+      reinterpret_cast<int4*>(ts)[q] = __ldg(t4 + q);
+    }
+  } else {
+    for (int q = threadIdx.x; q < len; q += kSegBlock) ts[q] = __ldg(t + q);
+  }
+  __syncthreads();
   const long long plane = static_cast<long long>(b) * n;
-  const long long dst = static_cast<long long>(s) * n + i;
-  const long long src = static_cast<long long>(fids[s]) * n +
-                        source_of(t_hi + static_cast<long long>(s) * n, n, i);
-  out[dst] = __ldg(p + src);
-  out[plane + dst] = __ldg(p + plane + src);
-  out[2 * plane + dst] = __ldg(p + 2 * plane + src);
+  const float* src = p + static_cast<long long>(fids[s]) * n + w0;
+  float* dst = out + static_cast<long long>(s) * n;
+  for (int r = (a >> 2) + threadIdx.x; 4 * r < e; r += kSegBlock) {
+    const int i0 = 4 * r;
+    int j = first_above(ts, 0, len, max(i0, a));
+    float x[4], y[4], z[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = i0 + u;
+      if (i >= a && i < e) {
+        if (ts[j] <= i) {  // past the previous source: the next, or search
+          ++j;
+          if (ts[j] <= i) j = first_above(ts, j + 1, len, i);
+        }
+        x[u] = __ldg(src + j);
+        y[u] = __ldg(src + plane + j);
+        z[u] = __ldg(src + 2 * plane + j);
+      }
+    }
+    if (aligned && i0 >= a && i0 + 4 <= e) {
+      reinterpret_cast<float4*>(dst + i0)[0] = make_float4(x[0], x[1], x[2], x[3]);
+      reinterpret_cast<float4*>(dst + plane + i0)[0] =
+          make_float4(y[0], y[1], y[2], y[3]);
+      reinterpret_cast<float4*>(dst + 2 * plane + i0)[0] =
+          make_float4(z[0], z[1], z[2], z[3]);
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = i0 + u;
+        if (i >= a && i < e) {
+          dst[i] = x[u];
+          dst[plane + i] = y[u];
+          dst[2 * plane + i] = z[u];
+        }
+      }
+    }
+  }
 }
 
 // K3c: block blockIdx.x of slot s = blockIdx.y, which compacts the
@@ -305,9 +392,8 @@ extern "C" int tpuslam_resample_expand_seg(const float* p, const int* t_hi,
   if (n < 1 || b < 1 || b > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((n + kExpandBlock - 1) / kExpandBlock, b);
-  expand_seg_kernel<<<grid, kExpandBlock, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((n + kSegWindow - 1) / kSegWindow, b);
+  expand_seg_kernel<<<grid, kSegBlock, 0, static_cast<cudaStream_t>(stream)>>>(
       p, t_hi, fids, valid, out, n, b);
   return static_cast<int>(cudaGetLastError());
 }
@@ -363,7 +449,7 @@ extern "C" int tpuslam_occupancy_resample(int which, int n, int* blocks,
       return occupancy(expand_kernel, "K3b expand", kExpandBlock, 0, blocks,
                        name);
     case 2:
-      return occupancy(expand_seg_kernel, "K3b expand_seg", kExpandBlock, 0,
+      return occupancy(expand_seg_kernel, "K3b expand_seg", kSegBlock, 0,
                        blocks, name);
     case 3:
       return occupancy(compact_kernel, "K3c compact", kScanBlock, 0, blocks,

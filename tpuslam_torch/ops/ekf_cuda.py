@@ -14,12 +14,23 @@ Dispatch is by device: a CPU device runs the plain version; a CUDA device
 launches the kernel or raises.  There is no fallback from one to the
 other.
 
-Noise: with ``noise_on`` and no ``normals``, each step draws five normals
-by Box-Muller from Philox4x32-10 keyed by ``seed``, with the counter
-``(rollout index, step, draw, 0)``.  ``normals`` of shape
-``(n_steps, 5, batch)`` replaces that stream (row order: two observation,
-three dead-reckoning normals), so the kernel and the plain version can be
-compared with noise on.
+Noise: with ``noise_on`` and no ``normals``, the normals come by
+Box-Muller from Philox4x32-10 keyed by ``seed``, with the counter
+``(rollout index, step, draw, 0)``.  A step's five normals are, in order,
+the observation's x and y (``n0``, ``n1``) and the dead reckoning's x, y
+and yaw (``n2``, ``n3``, ``n4``):
+
+* draw 0 of step k gives two Box-Muller pairs, ``n0, n1`` and
+  ``n2, n3``;
+* draw 1 runs at even steps only.  Its first two words give one pair:
+  the first normal is step k's ``n4``, the second is step k+1's ``n4``.
+  Its last two words are not used.  With an odd ``n_steps`` the last
+  pair's second normal goes unused.
+
+So two steps take three Philox calls and five transforms
+(:func:`philox_normals` gives the stream).  ``normals`` of shape ``(n_steps, 5, batch)`` replaces that stream (the
+same row order), so the kernel and the plain version can be compared with
+noise on.
 """
 
 from __future__ import annotations
@@ -32,13 +43,14 @@ from tpuslam_torch.core.angles import wrap_angle
 from tpuslam_torch.filters.ekf import EkfConfig, EkfState
 from tpuslam_torch.ops import _build
 from tpuslam_torch.ops.fastmath import (normals_from_bits, philox4x32,
-                                        sincos_rad)
+                                        philox_round_keys, sincos_rad)
 
 #: Launches of the CUDA kernel since this count was last set to 0.
 launch_count = 0
 
 _MODE_OFF, _MODE_PHILOX, _MODE_NORMALS = 0, 1, 2
 _MASK32 = 0xFFFFFFFF
+_ROUNDS = 10  # Philox4x32-10's rounds, a round key each
 
 # Truth tables by (cfg, n_steps, device): one small tensor per
 # configuration, built once on the device.
@@ -49,7 +61,8 @@ class _EkfParams(ctypes.Structure):
     """Mirror of ``EkfParams`` in ``csrc/ekf_rollout.cu``."""
 
     _fields_ = [("batch", ctypes.c_longlong), ("n_steps", ctypes.c_int),
-                ("key0", ctypes.c_uint32), ("key1", ctypes.c_uint32)] + [
+                ("rk0", ctypes.c_uint32 * _ROUNDS),
+                ("rk1", ctypes.c_uint32 * _ROUNDS)] + [
         (name, ctypes.c_float) for name in (
             "vdt", "wdt", "q0", "q1", "q2", "r0sq", "r1sq", "qa0", "qa1",
             "qa2", "ra0", "ra1", "x0", "x1", "x2", "p00", "p11", "p22")]
@@ -144,6 +157,35 @@ def _finish(state: torch.Tensor, cov: torch.Tensor, err: torch.Tensor,
     return final, err[0]
 
 
+def _philox_steps(seed: int, batch: int, n_steps: int,
+                  device: torch.device):
+    """Yield each step's five normals ``(n0, ..., n4)`` of the Philox
+    stream, ``(batch,)`` float32 each, in the layout of the module's
+    docstring."""
+    idx = torch.arange(batch, dtype=torch.int64, device=device)
+    k0, k1 = seed & _MASK32, (seed >> 32) & _MASK32
+    for k in range(n_steps):
+        a = philox4x32(idx, k, 0, 0, k0, k1)
+        n0, n1 = normals_from_bits(a[0], a[1])
+        n2, n3 = normals_from_bits(a[2], a[3])
+        if k % 2 == 0:
+            b = philox4x32(idx, k, 1, 0, k0, k1)
+            n4, n4_next = normals_from_bits(b[0], b[1])
+        else:
+            n4 = n4_next
+        yield n0, n1, n2, n3, n4
+
+
+def philox_normals(seed: int, batch: int, n_steps: int, *,
+                   device: torch.device | str) -> torch.Tensor:
+    """The ``(n_steps, 5, batch)`` float32 normals that a noise-on
+    rollout under ``seed`` draws, in the row order of ``normals``:
+    passing them as ``normals`` gives the Philox rollout's result."""
+    device = _build.resolve_device(device)
+    return torch.stack([torch.stack(step) for step in
+                        _philox_steps(int(seed), batch, n_steps, device)])
+
+
 def ekf_fused_rollout_plain(cfg: EkfConfig, seed: int, batch: int,
                             n_steps: int, noise_on: bool = True,
                             with_nees: bool = False,
@@ -173,16 +215,11 @@ def ekf_fused_rollout_plain(cfg: EkfConfig, seed: int, batch: int,
     acc = acc_n = zero
     n0 = n1 = n2 = n3 = n4 = zero
     if mode == _MODE_PHILOX:
-        idx = torch.arange(batch, dtype=torch.int64, device=device)
-        k0, k1 = seed & _MASK32, (seed >> 32) & _MASK32
+        stream = _philox_steps(seed, batch, n_steps, device)
 
     for k in range(n_steps):
         if mode == _MODE_PHILOX:
-            a = philox4x32(idx, k, 0, 0, k0, k1)
-            b = philox4x32(idx, k, 1, 0, k0, k1)
-            n0, n1 = normals_from_bits(a[0], a[1])
-            n2, n3 = normals_from_bits(a[2], a[3])
-            n4, _ = normals_from_bits(b[0], b[1])
+            n0, n1, n2, n3, n4 = next(stream)
         elif mode == _MODE_NORMALS:
             n0, n1, n2, n3, n4 = normals[k].unbind()
         xt0, xt1, _, c_t, s_t = tbl[k].unbind()
@@ -281,9 +318,11 @@ def _launch(cfg: EkfConfig, seed: int, batch: int, n_steps: int, mode: int,
         state = torch.empty((9, batch), **f32)
         cov = torch.empty((9, batch), **f32)
         err = torch.empty((2, batch), **f32)
+        rk0, rk1 = philox_round_keys(seed & _MASK32,
+                                     (seed >> 32) & _MASK32)
         params = _EkfParams(batch=batch, n_steps=n_steps,
-                            key0=seed & _MASK32,
-                            key1=(seed >> 32) & _MASK32,
+                            rk0=(ctypes.c_uint32 * _ROUNDS)(*rk0),
+                            rk1=(ctypes.c_uint32 * _ROUNDS)(*rk1),
                             **_constants(cfg))
         rc = lib.tpuslam_ekf_rollout(
             tbl.data_ptr(), None if normals is None else normals.data_ptr(),

@@ -12,7 +12,8 @@ functions in ``csrc/fastmath.cuh``, which the EKF kernel inlines:
 * :func:`philox4x32` - the Philox4x32-10 counter-based generator
   (Salmon et al., SC'11) on int64 tensors holding 32-bit words.  It gives
   the kernel's random bits bit for bit, so the plain EKF rollout draws
-  the kernel's noise stream.
+  the kernel's noise stream; :func:`philox_round_keys` is its key
+  schedule, which the EKF kernel takes folded.
 """
 
 from __future__ import annotations
@@ -96,6 +97,15 @@ def _mulhilo(a, m: int):
     hi = (p_hi + (p_lo >> 16)) >> 16
     lo = (((p_hi & 0xFFFF) << 16) + p_lo) & _MASK32
     return hi, lo
+
+
+def philox_round_keys(k0: int, k1: int) -> tuple[list[int], list[int]]:
+    """The round keys of each key word, ``k0 + r * W0`` and
+    ``k1 + r * W1`` modulo ``2**32`` for the ten rounds: the schedule
+    :func:`philox4x32` computes round by round, as a kernel whose key is
+    the same for every thread takes it, folded once."""
+    return ([(k0 + r * _PHILOX_W0) & _MASK32 for r in range(_PHILOX_ROUNDS)],
+            [(k1 + r * _PHILOX_W1) & _MASK32 for r in range(_PHILOX_ROUNDS)])
 
 
 def philox4x32(c0, c1, c2, c3, k0: int, k1: int):

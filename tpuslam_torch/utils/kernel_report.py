@@ -1,8 +1,10 @@
 """What the compiler and the occupancy calculator say about the built
 kernels: each kernel's registers, stack frame and spills (``ptxas -v``,
 kept beside the library by :mod:`tpuslam_torch.ops._build`), the SASS
-opcode counts of the particle-filter kernels (``cuobjdump -sass`` of the
-library) and each PF kernel's resident blocks per SM
+opcode counts of K1, K2b, K4, K5b and the segmented K3b (``cuobjdump
+-sass`` of the library), those of each such kernel's largest loop (the
+instructions from a backward branch's target to the branch: K1's step
+loop), and each PF kernel's resident blocks per SM
 (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, through one
 ``tpuslam_occupancy_<source>`` entry point a source).
 
@@ -18,26 +20,48 @@ opcode counts are static (instructions in the binary, not executed ones).
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import pathlib
 import re
 import shutil
 import subprocess
 
-#: Kernels whose opcodes are counted (demangled-name prefixes): K2b, K4
-#: and the fused K5b, each in Philox mode.
-SASS_KERNELS = ("pf_step_kernel<1, true>", "pf_batch_kernel<1",
-                "wide_stats_kernel<1, true")
+#: Kernels whose opcodes are counted (demangled-name prefixes): K1 in the
+#: flagship's mode (Philox, no NEES), K2b, K4 and the fused K5b in Philox
+#: mode, and the segmented K3b.
+SASS_KERNELS = ("ekf_rollout_kernel<1, false", "pf_step_kernel<1, true>",
+                "pf_batch_kernel<1", "wide_stats_kernel<1, true",
+                "expand_seg_kernel")
 #: Opcode groups of the count, by the opcode's first dotted part.
 OPCODE_GROUPS = (("LDL/STL", ("LDL", "STL")), ("LDC", ("LDC",)),
                  ("LDG/STG", ("LDG", "STG")), ("LDS/STS", ("LDS", "STS")),
                  ("MUFU", ("MUFU",)), ("BAR", ("BAR",)),
                  ("SHFL", ("SHFL",)), ("IMAD*", ("IMAD",)),
+                 ("LOP3", ("LOP3",)), ("IADD3", ("IADD3",)),
+                 ("SHF", ("SHF",)),
+                 ("I2F/F2I", ("I2F", "F2I", "I2FP", "F2IP")),
+                 ("FSETP/ISETP", ("FSETP", "ISETP")),
+                 ("FSEL/SEL", ("FSEL", "SEL")),
                  ("FFMA/FMUL/FADD", ("FFMA", "FMUL", "FADD")),
                  ("CALL", ("CALL",)))
+#: The groups of each issue pipe's floor and the pipe's results a clock
+#: an SM on sm_90 (CUDA C++ Programming Guide, arithmetic instruction
+#: throughput, compute capability 9.0): float32 add, multiply and
+#: multiply-add at 128; 32-bit integer multiply, add, logic and shift at
+#: 64; the special functions (MUFU) at 16.
+PIPES = (("fp32", ("FFMA/FMUL/FADD",), 128),
+         ("int", ("IMAD*", "LOP3", "IADD3", "SHF"), 64),
+         ("mufu", ("MUFU",), 16))
+#: Warp instructions an SM issues a clock (four schedulers), and the
+#: H100 SXM's SMs.
+ISSUE_PER_CLOCK = 4
+SMS = 132
 
-_INSTR = re.compile(r"^\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;")
+_INSTR = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 _PRED = re.compile(r"^@!?U?P[T0-9]+\s+")
+_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+_TARGET = re.compile(r"`\((\.L_x_\d+)\)|\b(0x[0-9a-f]+)\b")
 
 
 def _cuda_tool(name: str) -> str | None:
@@ -117,6 +141,7 @@ def ptxas_table(log: str) -> dict[str, dict]:
     return table
 
 
+@functools.lru_cache(maxsize=4)
 def sass_counts(library: pathlib.Path) -> dict[str, dict] | None:
     """Static opcode counts of every kernel in ``library`` by mangled
     name (:func:`parse_sass`); None where no ``cuobjdump`` is found."""
@@ -128,25 +153,110 @@ def sass_counts(library: pathlib.Path) -> dict[str, dict] | None:
                                      check=True, timeout=300).stdout)
 
 
+def counts_of(prefix: str) -> tuple[str, dict] | None:
+    """``(short name, opcode counts)`` of the loaded library's first
+    kernel, by short name, that starts with ``prefix``; None where no
+    ``cuobjdump`` is found or no kernel matches."""
+    from tpuslam_torch.ops import _build
+
+    _build.load_library()
+    counts = sass_counts(_build.library_path)
+    if counts is None:
+        return None
+    names = short_names(sorted(counts))
+    for m in sorted(counts, key=names.get):
+        if names[m].startswith(prefix):
+            return names[m], counts[m]
+    return None
+
+
+def _group_counts(ops: list[str]) -> dict:
+    """``total`` and the :data:`OPCODE_GROUPS` counts of some opcodes."""
+    counts = {"total": len(ops)}
+    for op in ops:
+        for group, bases in OPCODE_GROUPS:
+            if op in bases:
+                counts[group] = counts.get(group, 0) + 1
+    return counts
+
+
+def _largest_loop(instrs: list[tuple[int, str, str]],
+                  labels: dict[str, int]) -> dict | None:
+    """The opcode counts of the instructions from the target of the
+    backward branch that spans the most addresses to that branch, both
+    included; None where no branch goes backward."""
+    best = None
+    for addr, op, text in instrs:
+        if op != "BRA":
+            continue
+        m = _TARGET.search(text)
+        if m is None:
+            continue
+        target = labels.get(m.group(1)) if m.group(1) else int(m.group(2),
+                                                                16)
+        if target is not None and target < addr and (
+                best is None or addr - target > best[1] - best[0]):
+            best = (target, addr)
+    if best is None:
+        return None
+    return _group_counts([op for addr, op, _ in instrs
+                          if best[0] <= addr <= best[1]])
+
+
 def parse_sass(text: str) -> dict[str, dict]:
     """Opcode counts (:data:`OPCODE_GROUPS` and ``total``) of each
     ``Function :`` section of ``cuobjdump -sass`` output, by mangled
-    name; a predicate (``@!P0``) is not part of the opcode."""
-    counts, current = {}, None
+    name; a predicate (``@!P0``) is not part of the opcode.  Where a
+    branch goes backward, ``loop`` holds the same counts for the largest
+    loop (:func:`_largest_loop`): a label (``.L_x_3:``) stands for the
+    address of the instruction after it."""
+    functions: dict[str, tuple[list, dict]] = {}
+    current = None
+    pending: list[str] = []
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            current = counts.setdefault(m.group(1), {"total": 0})
+            current = functions.setdefault(m.group(1), ([], {}))
+            pending = []
+            continue
+        if current is None:
+            continue
+        m = _LABEL.match(line)
+        if m:
+            pending.append(m.group(1))
             continue
         m = _INSTR.match(line)
-        if m is None or current is None:
+        if m is None:
             continue
-        op = _PRED.sub("", m.group(1)).split()[0].split(".")[0]
-        current["total"] += 1
-        for group, bases in OPCODE_GROUPS:
-            if op in bases:
-                current[group] = current.get(group, 0) + 1
+        addr = int(m.group(1), 16)
+        for label in pending:
+            current[1][label] = addr
+        pending = []
+        text_ = _PRED.sub("", m.group(2))
+        current[0].append((addr, text_.split()[0].split(".")[0], text_))
+    counts = {}
+    for name, (instrs, labels) in functions.items():
+        counts[name] = _group_counts([op for _, op, _ in instrs])
+        loop = _largest_loop(instrs, labels)
+        if loop is not None:
+            counts[name]["loop"] = loop
     return counts
+
+
+def floors_ms(counts: dict, executions: float, clock_hz: float) -> dict:
+    """The least milliseconds in which the card's SMs issue ``counts``
+    (opcode counts of a code path, as :func:`parse_sass` gives them)
+    ``executions`` times, once a thread: ``issue`` at
+    :data:`ISSUE_PER_CLOCK` warp instructions a clock an SM, and each of
+    :data:`PIPES` at its results a clock an SM, at ``clock_hz`` on
+    :data:`SMS` SMs."""
+    per_s = SMS * clock_hz
+    out = {"issue": 1e3 * counts["total"] * executions
+           / (32 * ISSUE_PER_CLOCK * per_s)}
+    for pipe, groups, rate in PIPES:
+        n = sum(counts.get(g, 0) for g in groups)
+        out[pipe] = 1e3 * n * executions / (rate * per_s)
+    return out
 
 
 def resident_blocks(lib: ctypes.CDLL, n_batch: int) -> list[tuple[str, int]]:
@@ -193,10 +303,12 @@ def report_lines(n_batch: int = 1000) -> list[str]:
         lines.append("sass opcodes: not measured (no cuobjdump)")
     for m in wanted:
         if counts is not None and m in counts:
-            c = counts[m]
-            lines.append(f"sass {names[m]}: " + ", ".join(
-                f"{g} {c.get(g, 0)}" for g, _ in OPCODE_GROUPS)
-                + f", total {c['total']}")
+            for label, c in ((names[m], counts[m]),
+                             (f"{names[m]} loop", counts[m].get("loop"))):
+                if c is not None:
+                    lines.append(f"sass {label}: " + ", ".join(
+                        f"{g} {c.get(g, 0)}" for g, _ in OPCODE_GROUPS)
+                        + f", total {c['total']}")
     lines += [f"resident blocks {name}: {blocks} a SM"
               for name, blocks in resident_blocks(lib, n_batch)]
     return lines

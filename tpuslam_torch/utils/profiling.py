@@ -3,8 +3,11 @@ synchronisations.
 
 :func:`timed` records an event pair on the device's current stream
 around each call, so it measures the device's time from the first
-enqueued operation to the last, including any gap the host leaves.  It
-refuses to run without a CUDA device: a CPU time is not a device time.
+enqueued operation to the last, including any gap the host leaves.
+:func:`device_ms` queues many calls behind a sleep kernel, so it
+measures a short kernel's device time without the host's launch gaps.
+Both refuse to run without a CUDA device: a CPU time is not a device
+time.
 
 :func:`count_host_syncs` counts the operations inside a block that make
 the host wait for the card (``.item()``, ``.tolist()``, a blocking copy
@@ -40,6 +43,25 @@ def timed(fn, *args, reps: int = 5, warmup: int = 1,
         end.synchronize()
         times.append(start.elapsed_time(end) / 1e3)
     return sorted(times)[len(times) // 2]
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device milliseconds a call of ``fn``, from CUDA events around
+    ``reps`` back-to-back calls.  A sleep kernel holds the card while
+    the calls are queued, so host launch overhead does not show."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("device_ms() needs a CUDA device")
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def steps_per_second(fn, *args, work_items: int, reps: int = 5,
