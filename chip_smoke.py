@@ -54,9 +54,14 @@ PF_SIZES = (2_097_152, 1_000_000, 100_000)
 PF_STEPS = 400
 PF_BAND = (0.02, 0.40)
 PF_BAND_SHAPE = (100_000, 100)
-# Particle counts of the step-kernel parity phase: noise off and Philox at
-# the first, injected normals at the second.
-PF_STEP_CHECK = (1_000_000, 65_536)
+# The step-kernel parity phase: (particles, noise on, injected normals).
+# The flagship count and 100,000 (196 blocks of 512 particles), injected
+# normals at 65,536, and a ragged count (not a multiple of 4: scalar rows,
+# a partial last thread) in every mode.
+PF_STEP_CHECK = ((2_097_152, False, False), (2_097_152, True, False),
+                 (100_000, True, False), (65_536, True, True),
+                 (99_999, False, False), (99_999, True, False),
+                 (99_999, True, True))
 
 # The batched and wide paths at bench.py's sizes (filters x particles, 400
 # steps: bench_pf_batch, bench.py:128-144, :576-587; bench_pf_batch_wide,
@@ -79,6 +84,12 @@ WIDE_RAGGED = ((64, 10_001), (128, 10_000))
 EXPAND_FIRING = (0, 240, 1024)
 EXPAND_EDGES = ((1024, 10_000, True), (64, 10_001, False),
                 (64, 10_001, True), (8, 100_000, False), (8, 100_000, True))
+# K5a's firing counts at WIDE_MAIN (the same three, timed) and its edge
+# shapes (filters, particles, firing, one survivor a filter): ragged rows,
+# 16 x 100,000 (PERF.md section 7), every filter firing with one particle
+# holding all of a filter's weight.
+BOUNDARY_EDGES = ((64, 10_001, 13, False), (16, 100_000, 16, False),
+                  (1024, 10_000, 1024, True), (64, 10_001, 64, True))
 BATCH_BAND = (0.02, 0.50)
 BATCH_BAND_SHAPE = (256, 1000, 100)
 WIDE_BAND_SHAPE = (32, 10_000, 100)
@@ -110,6 +121,10 @@ EKF_OPS_PER_STEP = 224 + 2.5 * 32
 EKF_INT_OPS_PER_STEP = 1.5 * 39 + 2.5 * 2
 PF_STEP_OPS = 240
 BOUNDARY_OPS = 6
+# K5a's float work a lane of a firing filter beside the boundary law:
+# subtract, exp, the row sum's add, the scale's multiply, round, and the
+# prefix's add.
+K5A_OPS = BOUNDARY_OPS + 6
 
 # The single-filter rollout's keywords for its compressed path, and the
 # gate of the one-step wide comparison (phase 24: about a fifth of
@@ -219,21 +234,25 @@ def _step_gap(kernel, plain, what: str = "pf_step"):
     return pose, float(d.max())
 
 
-def _stats_agree(pf_cuda, kernel, plain) -> None:
-    """The combined reductions: lse and lse2 (rtol 1e-5), and the MAP
-    particle is the kernel's own highest-index maximum, whose plain log
-    weight is within 1e-4 + 1e-5 |lw| of the plain maximum."""
+def _stats_agree(kernel, plain) -> None:
+    """The statistics K2b's last block writes against the twin's: lse and
+    lse2 (rtol 1e-5); the MAP particle is the kernel's own highest-index
+    maximum, with its log weight and index, and the plain log weight there
+    is within 1e-4 + 1e-5 |lw| of the plain maximum; the estimate is the
+    MAP particle (lse is finite here)."""
     import torch
 
-    (kp, klw, kparts), (_, plw, pparts) = kernel, plain
-    ks, kbest = pf_cuda._combine_stats(kparts)
-    ps, _ = pf_cuda._combine_stats(pparts)
+    (kp, klw, ks), (_, plw, ps) = kernel, plain
+    _require(ks.shape == ps.shape == (10,), "stats shape")
     _require(torch.allclose(ks[:2], ps[:2], rtol=1e-5, atol=1e-4),
              f"lse/lse2 kernel {ks[:2].tolist()} plain {ps[:2].tolist()}")
-    i = int(kbest)
+    i = int(ks[6])
     _require(i == int(torch.nonzero(klw == klw.max()).max()),
              "MAP is not the kernel's highest-index maximum")
-    _require(torch.equal(ks[2:5], kp[:, i]), "MAP coordinates")
+    _require(torch.equal(ks[2:5], kp[:, i]) and ks[5] == klw[i],
+             "MAP coordinates or log weight")
+    _require(bool(torch.isfinite(ks[0])) and torch.equal(ks[7:10], ks[2:5]),
+             "estimate")
     top = plw.max()
     _require(float(top - plw[i]) <= 1e-4 + 1e-5 * float(top.abs()),
              "MAP log weight off the plain maximum")
@@ -273,9 +292,9 @@ def _rmse(x_true, x_est) -> float:
 
 
 def _pf_step_parity(dev) -> float:
-    """8. The step kernel against its plain version: noise off and Philox
-    at the first count of PF_STEP_CHECK, injected normals at the second;
-    K2b (with and without the reset flag) and K2a.  Returns the largest
+    """8. The step kernel against its plain version at
+    :data:`PF_STEP_CHECK`: K2b (with and without the reset flag, its
+    statistics written by its last block) and K2a.  Returns the largest
     difference."""
     import torch
 
@@ -285,10 +304,7 @@ def _pf_step_parity(dev) -> float:
     x0, z_true = _truth_view(dev)
     spread = torch.tensor([0.5, 0.5, 0.2], **f32)[:, None]
     err_pose = err_lw = 0.0
-    big, small = PF_STEP_CHECK
-    for n, noise_on, with_normals in ((big, False, False),
-                                      (big, True, False),
-                                      (small, True, True)):
+    for n, noise_on, with_normals in PF_STEP_CHECK:
         g = _gen(dev, n)
         p_rows = (x0[:, None] + torch.randn((3, n), generator=g, **f32)
                   * spread).contiguous()
@@ -304,12 +320,16 @@ def _pf_step_parity(dev) -> float:
             pose, lw_gap = _step_gap(kern, plain)
             err_pose, err_lw = max(err_pose, pose), max(err_lw, lw_gap)
             if with_stats:
-                _stats_agree(pf_cuda, kern, plain)
+                _stats_agree(kern, plain)
     torch.cuda.synchronize()
-    print(f"pf_step parity (noise off and Philox at {big:,}, injected "
-          f"normals at {small:,}; stats, reset flag, no stats): "
+    _require(pf_cuda.ticket_count(dev) == 0, "K2b's ticket is not 0")
+    shapes = ", ".join(f"{n:,} " + ("normals" if nrm else "Philox" if on
+                                    else "noise off")
+                       for n, on, nrm in PF_STEP_CHECK)
+    print(f"pf_step parity ({shapes}; stats, reset flag, no stats): "
           f"max|kernel-plain| poses {err_pose:.3e} (atol 1e-4), log "
-          f"weights {err_lw:.3e} (1e-4 + 1e-5|lw|)", flush=True)
+          f"weights {err_lw:.3e} (1e-4 + 1e-5|lw|); lse/lse2 rtol 1e-5, MAP "
+          f"and estimate by the kernel's rule; ticket 0 after", flush=True)
     return max(err_pose, err_lw)
 
 
@@ -407,7 +427,10 @@ def _pf_main_path(dev) -> dict:
                 "resample_boundary": resample_cuda.boundary_launch_count,
                 "resample_expand": resample_cuda.expand_launch_count}
     syncs = pf_cuda.sync_count
+    ticket = pf_cuda.ticket_count(dev)
     _require(launches["pf_step"] == PF_STEPS, f"pf_step launches {launches}")
+    _require(syncs == PF_STEPS, f"PF main path: {syncs} host syncs")
+    _require(ticket == 0, f"K2b's ticket reads {ticket} after the rollout")
     _require(launches["resample_boundary"] >= 1
              and launches["resample_expand"]
              == launches["resample_boundary"],
@@ -420,8 +443,9 @@ def _pf_main_path(dev) -> dict:
     _require(PF_BAND[0] < rmse < PF_BAND[1],
              f"PF main-path RMSE {rmse} off-band")
     print(f"pf_fused_rollout(device='cuda') {n:,}x{PF_STEPS}: rmse "
-          f"{rmse:.4f}, launches {launches}, host syncs {syncs}, first "
-          f"call {wall * 1e3:.1f} ms (truth table built)", flush=True)
+          f"{rmse:.4f}, launches {launches}, host syncs {syncs}, K2b "
+          f"ticket {ticket} after, first call {wall * 1e3:.1f} ms (truth "
+          f"table built)", flush=True)
     return launches
 
 
@@ -481,40 +505,18 @@ def _pf_timings(dev, smi):
 
 def _profile(label: str, call, top_n: int = 4,
              steps: int | None = None) -> None:
-    """Where one call's time goes (torch.profiler): device busy time over
-    host wall time, and the largest device-time entries.  Busy time sums
-    the device's own events (kernels, copies) only: a torch op's entry
-    repeats the time of the kernels it launched.  With ``steps``, also the
-    torch operations a step (``aten::`` events that no other encloses)."""
-    import torch
+    """Where one call's time goes (``utils.profile_window``): device busy
+    time over host wall time, the largest device-time entries and, with
+    ``steps``, the torch operations a step."""
+    from tpuslam_torch.utils import profile_window
 
-    activities = [torch.profiler.ProfilerActivity.CPU,
-                  torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        t0 = time.perf_counter()
-        call()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = {}
-    busy_us = 0.0
-    for evt in prof.key_averages():
-        us = getattr(evt, "self_device_time_total", 0.0)
-        if us > 0:
-            by_name[evt.key] = by_name.get(evt.key, 0.0) + us
-            if evt.device_type != torch.autograd.DeviceType.CPU:
-                busy_us += us
-    busy_ms = busy_us / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:top_n]
-    ops = ""
-    if steps:
-        n_ops = sum(1 for evt in prof.events()
-                    if evt.name.startswith("aten::")
-                    and (evt.cpu_parent is None
-                         or not evt.cpu_parent.name.startswith("aten::")))
-        ops = f", {n_ops / steps:.1f} torch ops a step"
+    got = profile_window(call, steps)
+    wall_ms, busy_ms = got["wall_ms"], got["busy_ms"]
+    ops = ("" if steps is None
+           else f", {got['ops_per_step']:.1f} torch ops a step")
     print(f"profile {label}: wall {wall_ms:.3f} ms, device busy "
           f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%){ops}; "
-          + "; ".join(f"{k[:40]} {v / 1e3:.3f} ms" for k, v in top),
+          + "; ".join(f"{k[:40]} {v:.3f} ms" for k, v in got["top"][:top_n]),
           flush=True)
 
 
@@ -524,7 +526,7 @@ def _pf_profile(dev) -> None:
 
     n = PF_SIZES[0]
     _profile(f"pf {n:,}x{PF_STEPS}", lambda: pf_fused_rollout(
-        _pf_cfg(n), _gen(dev, 0), PF_STEPS, device=dev))
+        _pf_cfg(n), _gen(dev, 0), PF_STEPS, device=dev), steps=PF_STEPS)
 
 
 def _pf_kernel_times(dev, smi, final, launches: dict, err: float,
@@ -549,13 +551,12 @@ def _pf_kernel_times(dev, smi, final, launches: dict, err: float,
     t_hi = rs.resample_boundary(wq, base, inv, offs, n)
     counts = torch.diff(t_hi, prepend=t_hi.new_zeros(1)).to(torch.int64)
     step_args = (cfg, 1, 0.0, p_rows, lw, _truth_view(dev)[1])
-    partial_bytes = 32 * -(-n // pf_cuda._BLOCK)
     kernels = [
         ("pf_step", "tpuslam_torch/csrc/pf_step.cu",
          "tpuslam/ops/pf_pallas.py:144",
          lambda: pf_cuda.pf_step_rows(*step_args),
          lambda: pf_cuda.pf_step_rows_plain(*step_args), None,
-         _bound(32 * n + partial_bytes + 40, PF_STEP_OPS * n), err),
+         _bound(32 * n + 40 + 4 * pf_cuda._STATS_LEN, PF_STEP_OPS * n), err),
         ("resample_boundary", "tpuslam_torch/csrc/resample.cu",
          "tpuslam/ops/resample_pallas.py:883",
          lambda: rs.resample_boundary(wq, base, inv, offs, n),
@@ -743,36 +744,80 @@ def _wide_inputs(dev, b: int, n: int, seed: int):
     return particles, log_w, lse, lse2, z, fire, bad, offs
 
 
-def _wide_resample_parity(dev):
-    """16. K5a and the segmented K3b bit-equal to their twins at
-    1024 x 10,000 with a fifth of the filters firing.  Returns the largest
-    differences."""
+def _boundary_held(pb, args, what: str) -> float:
+    """K5a against its twin on ``args`` (log weights, normalizers, gate,
+    offsets): the slots bit for bit, the valid slots' boundaries bit for
+    bit.  Returns the largest boundary difference (0)."""
+    import torch
+
+    k = pb.wide_boundary(*args)
+    p = pb.wide_boundary_plain(*args)
+    for name in ("fids", "valid", "src"):
+        _require(torch.equal(getattr(k, name), getattr(p, name)),
+                 f"K5a {what}: {name} differs from the twin")
+    v = p.valid
+    err = float((k.t_hi[v] - p.t_hi[v]).abs().max()) if bool(v.any()) \
+        else 0.0
+    _require(torch.equal(k.t_hi[v], p.t_hi[v]),
+             f"K5a {what}: boundaries differ from the twin (max {err})")
+    return err
+
+
+def _wide_resample_parity(dev, smi):
+    """16. K5a bit-equal to its twin (slots and boundaries) at
+    1024 x 10,000 with :data:`EXPAND_FIRING` filters firing, each timed
+    (its fixed cost against its cost a firing filter), and at
+    :data:`BOUNDARY_EDGES`; then K5a and the segmented K3b on phase 16's
+    wide inputs (a fifth firing), the expanded rows bit-equal to the
+    twin's.  Returns the largest differences."""
     import torch
 
     from tpuslam_torch.ops import pf_batch_cuda as pb
     from tpuslam_torch.ops import resample_cuda as rs
+    from tpuslam_torch.utils import device_ms
+    from tpuslam_torch.utils.turns import seg_inputs
 
     b, n = WIDE_MAIN
+    err_t = 0.0
+    times = []
+    for n_fire in EXPAND_FIRING:
+        args = seg_inputs(dev, b, n, n_fire)[1:]
+        err_t = max(err_t, _boundary_held(pb, args, f"{b}x{n}, {n_fire} "
+                                          "firing"))
+        times.append(device_ms(lambda: pb.wide_boundary(*args), 20))
+    per_fire = (times[-1] - times[0]) / EXPAND_FIRING[-1]
+    print(f"K5a at {b:,}x{n:,}: " + ", ".join(
+        f"{f} firing {t:.4f} ms" for f, t in zip(EXPAND_FIRING, times))
+        + f" a launch ({times[0]:.4f} ms fixed, {1e3 * per_fire:.4f} us a "
+        f"firing filter); slots and boundaries bit-equal to plain at each; "
+        f"on {smi}", flush=True)
+    for eb, en, n_fire, one in BOUNDARY_EDGES:
+        args = seg_inputs(dev, eb, en, n_fire, 17, one)[1:]
+        err_t = max(err_t, _boundary_held(
+            pb, args, f"{eb}x{en}, {n_fire} firing, one survivor {one}"))
+
     particles, log_w, lse, _, _, fire, _, offs = _wide_inputs(dev, b, n, 16)
-    slots = pb.wide_slots(log_w, lse, fire, offs)
-    sl = (slots.cum, slots.fids, slots.valid, slots.inv_tot, slots.offs)
-    t_k = pb.wide_boundary(*sl)
-    t_p = pb.wide_boundary_plain(*sl)
-    v = slots.valid
-    err_t = float((t_k[v] - t_p[v]).abs().max())
-    _require(torch.equal(t_k[v], t_p[v]), "K5a boundaries differ")
-    ex_k = rs.resample_expand_seg(particles, t_k, slots.fids, v)
-    ex_p = rs.resample_expand_seg_plain(particles, t_p, slots.fids, v)
+    args = (log_w, lse, fire, offs)
+    err_t = max(err_t, _boundary_held(pb, args, f"{b}x{n}, a fifth"))
+    sl = pb.wide_boundary(*args)
+    v = sl.valid
+    ex_k = rs.resample_expand_seg(particles, sl.t_hi, sl.fids, v)
+    ex_p = rs.resample_expand_seg_plain(particles, sl.t_hi, sl.fids, v)
     err_rows = float((ex_k[:, v] - ex_p[:, v]).abs().max())
     _require(torch.equal(ex_k[:, v], ex_p[:, v]), "expanded rows differ")
     n_fire = int(v.sum())
-    t_lo = torch.cat([t_p[v][:, :1] * 0, t_p[v][:, :-1]], dim=1)
-    srv = int((t_p[v] > t_lo).sum())
+    t_v = sl.t_hi[v]
+    t_lo = torch.cat([t_v[:, :1] * 0, t_v[:, :-1]], dim=1)
+    srv = int((t_v > t_lo).sum())
     torch.cuda.synchronize()
-    print(f"wide resample (K5a + segmented K3b) parity at {b:,}x{n:,}: "
-          f"{n_fire} of {b} filters firing, {srv:,} survivors; boundaries "
-          f"and expanded rows bit-equal to plain (max|kernel-plain| "
-          f"{err_t}, {err_rows})", flush=True)
+    print("K5a bit-equal to plain at " + ", ".join(
+        f"{eb:,}x{en:,} ({n_fire_e} firing"
+        + (", one particle holding each filter's weight)" if one else ")")
+        for eb, en, n_fire_e, one in BOUNDARY_EDGES)
+        + f"; wide resample (K5a + segmented K3b) at {b:,}x{n:,}: "
+        f"{n_fire} of {b} filters firing, {srv:,} survivors; boundaries "
+        f"and expanded rows bit-equal to plain (max|kernel-plain| {err_t}, "
+        f"{err_rows})", flush=True)
     return err_t, err_rows
 
 
@@ -851,12 +896,10 @@ def _wide_stats_parity(dev):
         lines = []
         for gate, fire in (("closed", ids < 0), ("forced", ids >= 0),
                            ("natural", natural)):
-            slots = pb.wide_slots(log_w, lse, fire, offs)
-            t_hi = pb.wide_boundary(slots.cum, slots.fids, slots.valid,
-                                    slots.inv_tot, slots.offs)
+            slots = pb.wide_boundary(log_w, lse, fire, offs)
             fused = (slots.src,
-                     rs.resample_expand_seg(particles, t_hi, slots.fids,
-                                            slots.valid))
+                     rs.resample_expand_seg(particles, slots.t_hi,
+                                            slots.fids, slots.valid))
             runs = [("fused normals", fused, True, normals),
                     ("fused Philox", fused, True, None)]
             if gate == "natural":
@@ -968,9 +1011,8 @@ def _batch_main_paths(dev) -> dict:
             "resample_expand_seg": resample_cuda.expand_seg_launch_count,
             "wide_stats": pb.wide_stats_launch_count}
     launches.update(wide)
-    _require(wide["wide_stats"] == PF_STEPS, f"K5b launches {wide}")
-    _require(wide["wide_boundary"] > 0 and wide["resample_expand_seg"] > 0,
-             f"the wide resample kernels did not run: {wide}")
+    _require(wide["wide_boundary"] == wide["resample_expand_seg"]
+             == wide["wide_stats"] == PF_STEPS, f"wide launches {wide}")
     _require(syncs.count == 0, f"wide path: {syncs.count} host syncs")
     _require(final.particles.shape == (3, b, n)
              and bool(final.particles.isfinite().all())
@@ -1065,9 +1107,9 @@ def _batch_kernel_times(dev, smi, finals, launches, errs) -> list:
     cfg_w = _batch_cfg(n_w)
     bad, _, fire = pb._gate(cfg_w, sw.lse, sw.lse2)
     offs = torch.rand(b_w, generator=g, **f32)
-    slots = pb.wide_slots(sw.log_w, sw.lse, fire, offs)
-    sl = (slots.cum, slots.fids, slots.valid, slots.inv_tot, slots.offs)
-    t_hi = pb.wide_boundary(*sl)
+    k5a_args = (sw.log_w, sw.lse, fire, offs)
+    slots = pb.wide_boundary(*k5a_args)
+    t_hi = slots.t_hi
     expanded = rs.resample_expand_seg(sw.particles, t_hi, slots.fids,
                                       slots.valid)
     zw = (z_true + 0.3 * torch.randn((b_w, 5, 2), generator=g, **f32))
@@ -1080,8 +1122,8 @@ def _batch_kernel_times(dev, smi, finals, launches, errs) -> list:
                         prepend=t_hi.new_zeros((n_fire, 1))).reshape(-1)
     counts = counts.to(torch.int64)
     lanes_fire = n_fire * n_w
-    # A firing filter's float work a particle: exp, shift, scale, round,
-    # the boundary law's two multiplies, subtract, ceil and clip.
+    # K4's float work a particle of a firing filter: exp, shift, scale,
+    # round, the boundary law's two multiplies, subtract, ceil and clip.
     ops_fire = 10
 
     kernels = [
@@ -1094,8 +1136,9 @@ def _batch_kernel_times(dev, smi, finals, launches, errs) -> list:
          errs["pf_batch_step"], f"{b:,}x{n:,}, {k4_fire} firing"),
         ("wide_boundary", "tpuslam_torch/csrc/pf_wide.cu",
          "tpuslam/ops/pf_batch_pallas.py:762",
-         lambda: pb.wide_boundary(*sl), lambda: pb.wide_boundary_plain(*sl),
-         None, _bound(8 * lanes_fire + 13 * b_w, BOUNDARY_OPS * lanes_fire),
+         lambda: pb.wide_boundary(*k5a_args),
+         lambda: pb.wide_boundary_plain(*k5a_args), None,
+         _bound(8 * lanes_fire + 8 * n_fire + 10 * b_w, K5A_OPS * lanes_fire),
          errs["wide_boundary"], f"{b_w:,}x{n_w:,}, {n_fire} firing"),
         ("resample_expand_seg", "tpuslam_torch/csrc/resample.cu",
          "tpuslam/ops/resample_pallas.py:235",
@@ -1141,7 +1184,7 @@ def _batch_phases(dev, smi):
     kernels' entries."""
     errs = {"pf_batch_step": _batch_parity(dev)}
     errs["wide_boundary"], errs["resample_expand_seg"] = \
-        _wide_resample_parity(dev)
+        _wide_resample_parity(dev, smi)
     _expand_seg_checks(dev, smi)
     errs["wide_stats"] = _wide_stats_parity(dev)
     _batch_bands(dev)
@@ -1216,11 +1259,9 @@ def _wide_compressed_parity(dev) -> tuple[float, float]:
     f32 = dict(dtype=torch.float32, device=dev)
     particles, log_w, lse, lse2, _, fire, _, offs = _wide_inputs(dev, b, n,
                                                                  16)
-    slots = pb.wide_slots(log_w, lse, fire, offs)
-    t_hi = pb.wide_boundary(slots.cum, slots.fids, slots.valid,
-                            slots.inv_tot, slots.offs)
+    slots = pb.wide_boundary(log_w, lse, fire, offs)
     v = slots.valid
-    args = (particles, t_hi, slots.fids, v)
+    args = (particles, slots.t_hi, slots.fids, v)
     (vals, iv, cnt) = rs.compact_particles_seg(*args)
     (vals_p, iv_p, cnt_p) = rs.compact_particles_seg_plain(*args)
     pairs = [(vals[:, v], vals_p[:, v]), (iv[:, v], iv_p[:, v]),
@@ -1424,10 +1465,9 @@ def _merge_kernel_times(dev, smi, finals, launches, errs) -> list:
     b, n_w = WIDE_MAIN
     sw = finals[1]
     _, _, fire = pb._gate(_batch_cfg(n_w), sw.lse, sw.lse2)
-    slots = pb.wide_slots(sw.log_w, sw.lse, fire,
-                          torch.rand(b, generator=_gen(dev, 27), **f32))
-    t_w = pb.wide_boundary(slots.cum, slots.fids, slots.valid,
-                           slots.inv_tot, slots.offs)
+    slots = pb.wide_boundary(sw.log_w, sw.lse, fire,
+                             torch.rand(b, generator=_gen(dev, 27), **f32))
+    t_w = slots.t_hi
     v = slots.valid
     seg_args = (sw.particles, t_w, slots.fids, v)
     vals_w, iv_w, cnt_w = rs.compact_particles_seg(*seg_args)

@@ -82,7 +82,7 @@ def test_report_needs_a_card():
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA; the report is chip_smoke's")
     with pytest.raises(RuntimeError, match="CUDA"):
-        kr.main()
+        kr.main([])
 
 
 # A step loop in both of cuobjdump's spellings of a branch target: a label
@@ -141,6 +141,18 @@ def test_parse_sass_without_a_loop_has_none():
     assert "loop" not in kr.parse_sass(SASS)["_Z4stepPf"]
 
 
+@pytest.mark.parametrize("text", [SASS_LABELS, SASS_HEX],
+                         ids=["labels", "addresses"])
+def test_parse_sass_counts_the_body(text):
+    """The body runs to the branch to itself after the last ``EXIT``, that
+    branch left out: the 18 instructions before it; a kernel without one
+    has no body."""
+    counts = kr.parse_sass(text)["_Z4loopPf"]
+    assert counts["body"]["total"] == 18
+    assert counts["body"]["LDG/STG"] == 2
+    assert "body" not in kr.parse_sass(SASS)["_Z4stepPf"]
+
+
 def test_floors_of_a_loop():
     """Issue at 4 warp instructions a clock an SM; fp32 at 128 results,
     int at 64, MUFU at 16, each on 132 SMs."""
@@ -159,9 +171,12 @@ def test_floors_of_a_loop():
      "::EkfParams)", "ekf_rollout_kernel<1, false"),
     ("void <unnamed>::expand_seg_kernel(const float *, const int *, const "
      "int *, const unsigned char *, float *, int, int)", "expand_seg_kernel"),
+    ("void <unnamed>::wide_boundary_kernel(const float *, const float *, "
+     "const unsigned char *, const float *, int *, int *, unsigned char *, "
+     "int *, int, int)", "wide_boundary_kernel"),
 ])
 def test_report_counts_k1_and_the_segmented_expand(demangled, prefix):
-    """K1 in the flagship's mode and the segmented K3b are among the
+    """K1 in the flagship's mode, the segmented K3b and K5a are among the
     kernels whose opcodes (and loops) the report prints."""
     assert prefix in kr.SASS_KERNELS
     assert kr._short(demangled).startswith(prefix)

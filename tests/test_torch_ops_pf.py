@@ -118,6 +118,54 @@ def test_map_tie_takes_the_highest_index():
     assert float(best) == 700.0 and out[2:5].tolist() == [2.0, 2.0, 2.0]
 
 
+@pytest.mark.parametrize("case", ["spread", "tied maxima", "NaN log weight",
+                                  "all NaN"])
+def test_step_stats_layout(rng, case):
+    """K2b's ``(10,)`` statistics from the twin, as the kernel writes them:
+    ``lse`` and ``lse2`` a float64 logsumexp of the returned log weights
+    (rtol 1e-6), the MAP particle the highest index among the non-NaN
+    maxima with its log weight and index, and the estimate the MAP
+    particle where ``lse`` is finite, else particle 0; a NaN poisons the
+    sums but never wins."""
+    n = 300
+    cfg = tpf.PfConfig(num_particles=n, weight_mode="log")
+    p = torch.from_numpy(_cloud(rng, n).T.copy())
+    lw = torch.from_numpy(rng.normal(size=n).astype(np.float32))
+    if case == "tied maxima":  # a copy of particle 5 at 7 and 250
+        p[:, [7, 250]] = p[:, [5]]
+        lw[[5, 7, 250]] = 1e5
+    elif case == "NaN log weight":
+        lw[9] = float("nan")
+    elif case == "all NaN":
+        lw[:] = float("nan")
+    z = torch.from_numpy(_obs(rng))
+    p2, lw2, stats = pf_cuda.pf_step_rows(cfg, 0, 0.0, p, lw, z,
+                                          noise_on=False)
+    assert stats.shape == (10,) and stats.dtype == torch.float32
+    lw64 = lw2.double().numpy()
+    key = np.where(np.isnan(lw64), -np.inf, lw64)
+    best = np.flatnonzero(key == key.max()).max()
+    if case in ("NaN log weight", "all NaN"):
+        assert torch.isnan(stats[:2]).all()
+    else:
+        m = lw64.max()
+        np.testing.assert_allclose(
+            stats[:2].numpy(),
+            [m + np.log(np.exp(lw64 - m).sum()),
+             2 * m + np.log(np.exp(2 * (lw64 - m)).sum())], rtol=1e-6)
+    if case == "all NaN":
+        assert torch.equal(stats[7:10], p2[:, 0])
+        return
+    assert int(stats[6]) == best and stats[5] == lw2[best]
+    assert torch.equal(stats[2:5], p2[:, best])
+    if case == "tied maxima":
+        assert best == 250
+    if case == "NaN log weight":
+        assert torch.equal(stats[7:10], p2[:, 0])
+    else:
+        assert torch.equal(stats[7:10], p2[:, best])
+
+
 def test_step_merge_equals_hist(rng):
     """The fused step with resample_method="merge" selects as "hist" does,
     bit for bit, on the resample branch (noise off)."""
@@ -329,7 +377,9 @@ def test_params_struct_mirrors_cuda_source():
     names = re.findall(r"(\w+)\s*(?:\[[^\]]*\])?\s*[,;]", body)
     assert names == [f[0] for f in pf_cuda._PfParams._fields_]
     assert ctypes.sizeof(pf_cuda._PfParams) == 8 + 3 * 4 + 9 * 4 + 16 * 4
-    assert re.search(r"kBlock = (\d+)", src).group(1) == str(pf_cuda._BLOCK)
+    # The statistics the kernel writes, as many as the wrapper allocates.
+    assert re.search(r"kStatsOut = (\d+)", src).group(1) == str(
+        pf_cuda._STATS_LEN)
     # The landmark bound lives with the shared math, which unrolls to it.
     math_src = (_build.CSRC_DIR / "pf_math.cuh").read_text()
     assert re.search(r"kMaxLandmarks = (\d+)", math_src).group(1) == str(

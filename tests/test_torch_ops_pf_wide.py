@@ -6,7 +6,8 @@ these twins there, boundaries and copies bit for bit); here the twins are
 held to the JAX package's ``pf_batch_wide_step`` with its Pallas kernels
 in interpret mode and ``noise_on=False``, on the same comb offsets and
 observation noise, and the selection to its ``slot_boundaries_from_wq``
-and ``decode_indices`` on the same quantized integers.  Every JAX step
+and ``decode_indices`` on the same quantized integers; K5a's twin's
+fixed-order row sum to a numpy loop of the kernel's order.  Every JAX step
 here shares one configuration and one shape, so the module compiles it
 once.  Tolerances are stated per test.
 """
@@ -129,15 +130,15 @@ def test_selection_equals_slot_boundaries_decode(rng):
     jst = _mixed_state(rng, (1, 4, 5))
     st = _port(jst)
     offs = torch.rand(B, generator=torch.Generator().manual_seed(1))
-    slots = pb.wide_slots(st.log_w, st.lse, fire, offs)
+    slots = pb.wide_boundary(st.log_w, st.lse, fire, offs)
     assert slots.fids.tolist() == [1, 4, 5, 0, 0, 0]
     assert slots.valid.tolist() == [True] * 3 + [False] * 3
     assert slots.src.tolist() == [0, 0, 1, 1, 1, 2]
-    sl = (slots.cum, slots.fids, slots.valid, slots.inv_tot, slots.offs)
-    t = pb.wide_boundary(*sl)
+    t = slots.t_hi
     expanded = resample_cuda.resample_expand_seg(st.particles, t, slots.fids,
                                                  slots.valid)
-    wq = torch.diff(slots.cum, dim=1, prepend=torch.zeros(B, 1))
+    cum, _ = pb.wide_prefix_plain(st.log_w, st.lse)
+    wq = torch.diff(cum, dim=1, prepend=torch.zeros(B, 1))
     for s, f in enumerate((1, 4, 5)):
         want_t = jrs.slot_boundaries_from_wq(jnp.asarray(wq[f][None]), N,
                                              jnp.float32(offs[f]))
@@ -153,21 +154,72 @@ def test_selection_equals_slot_boundaries_decode(rng):
 
 
 def test_quantized_weights_follow_the_law(rng):
-    """The slots' prerequisites quantize each filter's weights
-    ``exp(lw - lse)`` with ``quantize_weights_law`` of their float32 row
-    sum, as the JAX step does, and the prefix is exact."""
+    """K5a's twin quantizes each firing filter's weights ``exp(lw - lse)``
+    with ``quantize_weights_law`` of their float32 row sum, as the JAX
+    step does (the sums' orders differ, so a weight may move by one), and
+    the prefix is exact."""
     jst = _mixed_state(rng, (0, 3))
     st = _port(jst)
     fire = torch.tensor([True, False, False, True, False, False])
-    slots = pb.wide_slots(st.log_w, st.lse, fire, torch.zeros(B))
+    slots = pb.wide_boundary(st.log_w, st.lse, fire, torch.zeros(B))
+    assert slots.fids.tolist()[:2] == [0, 3]
+    sel = slots.fids[:2].long()
+    cum, inv_tot = pb.wide_prefix_plain(st.log_w[sel], st.lse[sel])
     w = np.exp(st.log_w.numpy() - st.lse.numpy()[:, None])
-    for f in (0, 3):
+    for s, f in enumerate((0, 3)):
         wq = np.asarray(jpf.quantize_weights_law(
             jnp.asarray(w[f]), jnp.sum(jnp.asarray(w[f]))))
-        got = torch.diff(slots.cum[f], prepend=torch.zeros(1)).numpy()
+        got = torch.diff(cum[s], prepend=torch.zeros(1)).numpy()
         assert (np.abs(got - wq) <= 1).all() and (got != wq).mean() < 0.01
-        assert slots.cum[f, -1] == got.sum()
-    assert slots.inv_tot[0] == 1.0 / slots.cum[0, -1]
+        assert cum[s, -1] == got.sum()
+    assert inv_tot[0] == 1.0 / cum[0, -1]
+
+
+@pytest.mark.parametrize("n", [1, 3, 1023, 1024, 1025, 10_000])
+def test_row_total_is_the_kernels_order(n):
+    """K5a's twin sums a row in the kernel's documented order: thread
+    ``(j mod 4T) // 4`` takes lane j, each thread adds its lanes in
+    sequence from 0, then a tree of halving adds over the T threads; a
+    numpy float32 loop of that order gives the same bits."""
+    g = np.random.default_rng(n)
+    w = np.exp(g.normal(size=(2, n)) * 3.0).astype(np.float32)
+    t = pb._BOUND_THREADS
+    want = []
+    for row in w:
+        acc = np.zeros(t, np.float32)
+        for base in range(0, n, 4 * t):
+            for k in range(4):  # a thread's four lanes of the tile, in order
+                lanes = base + 4 * np.arange(t) + k
+                ok = lanes < n
+                acc[ok] = acc[ok] + row[lanes[ok]]
+        while acc.size > 1:
+            acc = acc[:acc.size // 2] + acc[acc.size // 2:]
+        want.append(acc[0])
+    got = pb.wide_row_total_plain(torch.from_numpy(w))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), np.array(want, np.float32))
+
+
+def test_boundaries_match_jax_quantize_and_decode(rng):
+    """K5a's twin against the JAX package's quantization (row sum by
+    ``jnp.sum``) and ``slot_boundaries_from_wq`` on the same offsets: the
+    two row sums' orders differ, so a weight, and the boundaries after
+    it, may move by one; at most 1% of a filter's lanes differ (the
+    allowance of the step tests, ``_assert_close``)."""
+    jst = _mixed_state(rng, (0, 2, 5))
+    st = _port(jst)
+    fire = torch.tensor([True, False, True, False, False, True])
+    offs = torch.rand(B, generator=torch.Generator().manual_seed(2))
+    slots = pb.wide_boundary(st.log_w, st.lse, fire, offs)
+    w = np.exp(st.log_w.numpy() - st.lse.numpy()[:, None])
+    for s, f in enumerate((0, 2, 5)):
+        wq = jpf.quantize_weights_law(jnp.asarray(w[f]),
+                                      jnp.sum(jnp.asarray(w[f])))
+        want = np.asarray(jrs.slot_boundaries_from_wq(
+            wq[None], N, jnp.float32(offs[f])))[0]
+        got = slots.t_hi[s].numpy()
+        assert (got != want).mean() <= 0.01
+        assert got[-1] == want[-1] == N
 
 
 def test_bad_filter_resets_to_uniform(rng):
@@ -360,14 +412,14 @@ def test_cuda_request_never_falls_back_to_cpu():
 
 def test_rejects_bad_arguments():
     b, n = 3, 8
-    cum = torch.zeros(b, n)
-    ok = (cum, torch.zeros(b, dtype=torch.int32),
+    log_w = torch.zeros(b, n)
+    ok = (log_w, torch.zeros(b, dtype=torch.int32),
           torch.zeros(b, dtype=torch.bool), torch.ones(b), torch.zeros(b))
-    with pytest.raises(ValueError, match="fids dtype"):
-        pb.wide_boundary(cum, torch.zeros(b), *ok[2:])
-    with pytest.raises(ValueError, match="valid shape"):
-        pb.wide_boundary(*ok[:2], torch.zeros(b + 1, dtype=torch.bool),
-                         *ok[3:])
+    with pytest.raises(ValueError, match="lse dtype"):
+        pb.wide_boundary(log_w, ok[1], *ok[2:4])
+    with pytest.raises(ValueError, match="fire shape"):
+        pb.wide_boundary(log_w, torch.zeros(b),
+                         torch.zeros(b + 1, dtype=torch.bool), ok[3])
     cfg = tpf.PfConfig(num_particles=n, weight_mode="log")
     rows = (cfg, 0, torch.zeros(3, b, n), torch.zeros(b, n),
             torch.zeros(b, N_LM, 2), torch.zeros(b, dtype=torch.bool),
@@ -393,6 +445,9 @@ def test_structs_mirror_cuda_source():
         assert names == [f[0] for f in mirror._fields_], name
     assert ctypes.sizeof(pb._WideParams) == 5 * 4 + 8 * 4 + 16 * 4
     assert ctypes.sizeof(pb._WideBuffers) == 13 * 8
-    # A filter is one block, within the card's 1024 threads a block.
+    # A filter is one block, within the card's 1024 threads a block; K5a's
+    # row-sum order is set by its threads a block.
     assert int(re.search(r"kStatsThreads = (\d+)", src).group(1)) <= 1024
+    assert int(re.search(r"kBoundThreads = (\d+)", src).group(1)) \
+        == pb._BOUND_THREADS <= 1024
     assert math.isclose(pb._WideParams(sx=0.3).sx, 0.3, rel_tol=1e-6)

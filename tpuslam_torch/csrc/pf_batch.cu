@@ -73,10 +73,12 @@
 
 #include "occupancy.cuh"
 #include "pf_math.cuh"
+#include "rows.cuh"
 
 namespace {
 
 using tpuslam::aligned16;
+using tpuslam::block_exclusive_scan;
 using tpuslam::block_stats_row;
 using tpuslam::kMaxLandmarks;
 using tpuslam::kNoiseNormals;
@@ -168,36 +170,6 @@ __device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   }
-}
-
-__device__ __forceinline__ int warp_inclusive_scan(int v, int lane) {
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int up = __shfl_up_sync(tpuslam::kFullMask, v, d);
-    if (lane >= d) v += up;
-  }
-  return v;
-}
-
-// Exclusive scan of one int a thread over the block; `total` gets the
-// block's sum.  Every warp scans the warp totals itself, so two barriers
-// (the second frees s_warp for the next call).  Every thread must call it.
-template <int T>
-__device__ __forceinline__ int block_exclusive_scan(int v, int* s_warp,
-                                                    int& total) {
-  constexpr int kW = T / 32;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int incl = warp_inclusive_scan(v, lane);
-  if (lane == 31) s_warp[warp] = incl;
-  __syncthreads();
-  int w = lane < kW ? s_warp[lane] : 0;
-  w = warp_inclusive_scan(w, lane);
-  total = __shfl_sync(tpuslam::kFullMask, w, kW - 1);
-  const int before = __shfl_sync(tpuslam::kFullMask, w, warp > 0 ? warp - 1
-                                                                 : 0);
-  __syncthreads();
-  return (warp > 0 ? before : 0) + incl - v;
 }
 
 // The first j in [lo, hi] with t[j] > i (t non-decreasing, t[hi] > i).

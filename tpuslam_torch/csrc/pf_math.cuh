@@ -4,8 +4,8 @@
 // Device twins of ops/pf_cuda.py::_predict_loglik and of the reductions
 // of ops/pf_cuda.py::_partial_plain and ops/pf_batch_cuda.py::_map_plain:
 // the circular predict with Q noise, the landmark log-likelihood, the
-// Philox/Box-Muller draw of a particle's three normals, the partial rows
-// of K2 and the running statistics K4 and K5b reduce inside a block.  A
+// Philox/Box-Muller draw of a particle's three normals, and the running
+// statistics K2b, K4 and K5b reduce inside a block.  A
 // particle's operations and their operand order are the plain twin's,
 // whatever the number of particles a thread carries.
 //
@@ -27,7 +27,7 @@
 namespace tpuslam {
 
 constexpr unsigned kFullMask = 0xffffffffu;
-constexpr int kPartStride = 8;  // floats a partial row (and a stats row)
+constexpr int kPartStride = 8;  // floats a statistics row
 constexpr int kMaxLandmarks = 8;
 
 // Noise modes of every PF kernel: off (builtin sinf/cosf, for parity with
@@ -157,73 +157,6 @@ __device__ __forceinline__ float predict_loglik(float& x, float& y,
   return acc[0];
 }
 
-// One block's partial row
-//   [max lw, sum exp(lw - max), sum exp(2 (lw - max)), x, y, yaw of its
-//    best particle, that particle's index, 0]
-// over the block's particles (thread t holds particle `idx`, `valid`
-// false past the end).  The best particle is the highest index among the
-// maxima; a NaN log weight never wins but poisons the sums, so the
-// logsumexp of the combined rows goes NaN as in the reference.  An
-// all -inf block keeps the shift finite: exp(-inf - m) = 0, no NaN.
-// Every thread of the block must call it.
-template <int BLOCK>
-__device__ __forceinline__ void block_partial_row(bool valid, float lw,
-                                                  float x, float y, float yaw,
-                                                  int idx, float* row) {
-  constexpr int kWarps = BLOCK / 32;
-  __shared__ float s_key[kWarps];
-  __shared__ int s_idx[kWarps];
-  __shared__ float s_sum[kWarps], s_sum2[kWarps];
-  __shared__ float s_max;
-  __shared__ int s_best;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  float key = (valid && lw == lw) ? lw : -INFINITY;  // lw != lw: NaN
-  int k_idx = valid ? idx : -1;
-  warp_arg_max(key, k_idx);
-  if (lane == 0) {
-    s_key[warp] = key;
-    s_idx[warp] = k_idx;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    key = lane < kWarps ? s_key[lane] : -INFINITY;
-    k_idx = lane < kWarps ? s_idx[lane] : -1;
-    warp_arg_max(key, k_idx);
-    if (lane == 0) {
-      s_max = key;
-      s_best = k_idx;
-    }
-  }
-  __syncthreads();
-  const float m = s_max;
-  const int best = s_best;
-  const float e = valid ? expf(lw - fmaxf(m, -1.0e30f)) : 0.0f;
-  float sum = warp_sum(e);
-  float sum2 = warp_sum(e * e);
-  if (lane == 0) {
-    s_sum[warp] = sum;
-    s_sum2[warp] = sum2;
-  }
-  __syncthreads();
-  if (valid && idx == best) {
-    row[3] = x;
-    row[4] = y;
-    row[5] = yaw;
-  }
-  if (warp == 0) {
-    sum = warp_sum(lane < kWarps ? s_sum[lane] : 0.0f);
-    sum2 = warp_sum(lane < kWarps ? s_sum2[lane] : 0.0f);
-    if (lane == 0) {
-      row[0] = m;
-      row[1] = sum;
-      row[2] = sum2;
-      row[6] = static_cast<float>(best);
-      row[7] = 0.0f;
-    }
-  }
-}
-
 // The shift of an exp sum: the maximum clamped to +-1e30, so an all -inf
 // set sums exp(-inf) = 0 and a rescale never forms inf - inf, while a
 // +inf maximum still sums to +inf as the plain twin's does.
@@ -231,8 +164,8 @@ __device__ __forceinline__ float stat_shift(float m) {
   return fminf(fmaxf(m, -1.0e30f), 1.0e30f);
 }
 
-// A thread's running statistics over the particles it has seen (K4,
-// K5b): the MAP particle by arg_max (the highest index among the maxima;
+// A thread's running statistics over the particles it has seen (K2b,
+// K4, K5b): the MAP particle by arg_max (the highest index among the maxima;
 // a NaN log weight never wins) and the sums of exp(lw - shift) and of its
 // square with shift = stat_shift(key), rescaled whenever the key rises.
 // A NaN log weight poisons the sums, so the logsumexp goes NaN as in the

@@ -1,43 +1,62 @@
 // K2: the fused particle-filter step (predict + log-likelihood weight +
-// the step's reductions), one launch a step.
+// the step's statistics), one launch a step.
 //
 // Replaces tpuslam/ops/pf_pallas.py::_pf_stats_kernel (K2b, with the
-// reductions) and ::_pf_kernel (K2a, without them; the STATS template
+// statistics) and ::_pf_kernel (K2a, without them; the STATS template
 // flag).  Each particle takes the circular step with Q noise, the five
 // landmarks are moved into its frame and compared with the observation,
 // and the summed log-likelihood is added to its log weight
 // (particle_filter.py:156-198).  With STATS, a flag resets the incoming
 // log weights to uniform (the reference's NaN->uniform reset, applied in
-// the pass) and every block writes one partial row
-//   [max lw, sum exp(lw - max), sum exp(2 (lw - max)), x, y, yaw of its
-//    best particle, that particle's index, 0]
-// that ops/pf_cuda.py::_combine_stats reduces to logsumexp(lw),
-// logsumexp(2 lw) and the MAP particle.
+// the pass) and the launch ends with the step's statistics written by
+// the kernel itself:
+//   stats[0:10] = [lse, lse2, x_map, y_map, yaw_map, best_lw, best index,
+//                  x_est, y_est, yaw_est]
+// with lse = logsumexp(lw'), lse2 = logsumexp(2 lw'), the MAP particle the
+// highest flat index among the maxima (a NaN log weight never wins but
+// makes the sums NaN), and x_est the MAP particle where lse is finite,
+// else particle 0 (ops/pf_cuda.py::_step's rule).  The JAX package writes
+// per-tile partial rows and combines them in XLA; the plain twin here does
+// the same (ops/pf_cuda.py::_partial_plain, ::_combine_stats).
 //
-// What bounds it on an H100: bytes.  A particle reads 12 bytes of pose and
-// 4 of log weight and writes as many, 32 bytes a step; its arithmetic is a
-// few hundred operations (one Philox4x32-10 call, two Box-Muller
-// transforms, two polynomial sincos, five landmark terms with two
-// divides each, one exp), which the card's float rate covers in less time
-// than the bytes take.  So the design is one pass over the particles with
-// coalesced structure-of-arrays loads and stores:
-//   * one thread per particle, rows (3, N) and (N,) read and written once;
+// What bounds it on an H100: the particle math.  A particle moves 32 bytes
+// (12 of pose and 4 of log weight each way: 0.020 ms at 2,097,152), but
+// runs a few hundred instructions (one Philox4x32-10 call, two Box-Muller
+// transforms, two polynomial sincos, five landmark terms with two IEEE
+// divides each, one exp), the same math that sets K4's and K5b's pace.
+// So the design spends as little as it can beside that math:
+//   * 256 threads a block, held to 64 registers (four blocks a SM),
+//     four particles a thread (pf_math.cuh::predict_loglik_n<MODE, 4>),
+//     their Philox, sincos and divide chains independent, so the
+//     scheduler interleaves them; rows read and written as float4 where
+//     n % 4 == 0 and every row is 16-byte aligned, as masked scalars
+//     otherwise;
 //   * counter-based noise (Philox keyed by the step's seed, counter =
 //     (particle index, 0, 0, 0)), so the stream does not depend on the
-//     block size and no generator state is loaded or stored;
-//   * the TPU kernel carried nothing across its sequential grid but wrote
-//     per-tile partials; here blocks run in parallel, and each reduces its
-//     256 particles with warp shuffles to one partial row.  The MAP pick
-//     is the highest flat index among the maxima, whatever the block size.
-// No sub-row packing and no padding: those filled TPU sublanes.  The
-// ragged last block is masked.
+//     layout and no generator state is loaded or stored;
+//   * running statistics a thread (stats_add), one row a block
+//     (block_stats_row), and the last block to finish reduces every
+//     block's row: each block writes its row to g_rows, fences and takes
+//     a ticket from g_ticket; the block that takes the last ticket reads
+//     the rows in index order (thread t rows t, t + T, ...; then the
+//     block's fixed tree), so the result does not depend on which block
+//     came last, writes stats and sets g_ticket back to 0 for the next
+//     launch.  No partial rows leave the kernel and no torch op combines
+//     them.
+// On an H100 80GB HBM3 at 700 W, 256 threads a block beat 64, 128 and
+// 512 at 2,097,152 particles (0.0557 against 0.0848, 0.0646 and 0.0738
+// ms), and the 64-register hold gained 4% more (PERF.md).
+// g_rows, g_first and g_ticket are one of each a device, in this
+// library: two launches of K2b must not run at once on one device
+// (concurrent streams would share them).  A launch on one stream after
+// another always finds the ticket at 0, and so does a CUDA graph of the
+// loop.
 //
 // Modes: 0 = noise off (builtin sinf/cosf, for parity with the plain
 // path), 1 = Philox noise, 2 = caller-supplied standard normals of shape
-// (3, N).  Modes 1 and 2 use the polynomial sincos.  The per-particle math
-// and the partial-row reduction live in pf_math.cuh, shared with K4 and
-// K5b.  The parameter struct is a __grid_constant__, so predict_loglik's
-// reference to it reads the parameter space and nvcc makes no local copy.
+// (3, N).  Modes 1 and 2 use the polynomial sincos.  The parameter struct
+// is a __grid_constant__, so predict_loglik_n's reference to it reads the
+// parameter space and nvcc makes no local copy.
 
 #include <cuda_runtime.h>
 
@@ -46,16 +65,30 @@
 
 #include "occupancy.cuh"
 #include "pf_math.cuh"
+#include "rows.cuh"
 
 namespace {
 
-using tpuslam::block_partial_row;
+using tpuslam::aligned16;
+using tpuslam::block_stats_row;
 using tpuslam::kMaxLandmarks;
+using tpuslam::kNoiseNormals;
+using tpuslam::kNoisePhilox;
 using tpuslam::kPartStride;
+using tpuslam::load4;
 using tpuslam::philox_normals3;
-using tpuslam::predict_loglik;
+using tpuslam::predict_loglik_n;
+using tpuslam::stat_shift;
+using tpuslam::Stats;
+using tpuslam::stats_add;
+using tpuslam::store4;
 
-constexpr int kBlock = 256;
+constexpr int kThreads = 256;
+constexpr int kMinBlocks = 4;               // held to 64 registers
+constexpr int kPer = 4;                     // particles a thread
+constexpr int kSpan = kThreads * kPer;      // particles a block
+constexpr int kMaxBlocks = (1 << 24) / kSpan;
+constexpr int kStatsOut = 10;               // floats of the stats output
 
 // Host-folded constants; the layout matches ops/pf_cuda.py::_PfParams.
 struct PfParams {
@@ -70,56 +103,175 @@ struct PfParams {
   float lm[2 * kMaxLandmarks];  // landmark (x, y) pairs
 };
 
+// Each block's statistics row of the running launch, particle 0's pose,
+// and the ticket of the blocks that have written theirs.
+__device__ __align__(16) float g_rows[kMaxBlocks * kPartStride];
+__device__ float g_first[3];  // particle 0 of the launch (x, y, yaw)
+__device__ unsigned int g_ticket = 0;
+
+// The last block's reduction of the `g` rows: thread t takes rows t,
+// t + T, ..., kTailBatch rows a pass, their loads issued together and
+// read past L1 (other blocks wrote them); a pass merges its rows into the
+// thread's running Stats as stats_add merges particles (the rows' sums
+// are taken at stat_shift(their max), so a row's sums scale by
+// exp(stat_shift(m_row) - shift) and its square).
+constexpr int kTailBatch = 8;
+
+__device__ __forceinline__ Stats rows_stats(int g) {
+  Stats st;
+  for (int r0 = threadIdx.x; r0 < g; r0 += kThreads * kTailBatch) {
+    // A row as (m, sum, sum2, x) and (y, yaw, index, 0); none past g.
+    float4 a[kTailBatch], c[kTailBatch];
+#pragma unroll
+    for (int k = 0; k < kTailBatch; ++k) {
+      const int r = r0 + k * kThreads;
+      const float4* row = reinterpret_cast<const float4*>(g_rows) + 2 * r;
+      a[k] = r < g ? __ldcg(row) : make_float4(-INFINITY, 0.0f, 0.0f, 0.0f);
+      c[k] = r < g ? __ldcg(row + 1) : make_float4(0.0f, 0.0f, -1.0f, 0.0f);
+    }
+    const float old_shift = stat_shift(st.key);
+#pragma unroll
+    for (int k = 0; k < kTailBatch; ++k) {
+      const int idx = static_cast<int>(c[k].z);
+      if (a[k].x > st.key || (a[k].x == st.key && idx > st.idx)) {
+        st.key = a[k].x;
+        st.idx = idx;
+        st.x = a[k].w;
+        st.y = c[k].x;
+        st.yaw = c[k].y;
+      }
+    }
+    const float shift = stat_shift(st.key);
+    const float rs = expf(old_shift - shift);
+    float sum = st.sum * rs, sum2 = st.sum2 * (rs * rs);
+#pragma unroll
+    for (int k = 0; k < kTailBatch; ++k) {
+      const float e = expf(stat_shift(a[k].x) - shift);
+      sum += a[k].y * e;
+      sum2 += a[k].z * (e * e);
+    }
+    st.sum = sum;
+    st.sum2 = sum2;
+  }
+  return st;
+}
+
 template <int MODE, bool STATS>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 pf_step_kernel(const float* __restrict__ p_in,
                const float* __restrict__ lw_in, const float* __restrict__ z,
                const float* __restrict__ normals, float* __restrict__ p_out,
-               float* __restrict__ lw_out, float* __restrict__ parts,
+               float* __restrict__ lw_out, float* __restrict__ stats,
                const __grid_constant__ PfParams prm) {
-  const long long n = prm.n;
-  const long long i = static_cast<long long>(blockIdx.x) * kBlock +
-                      threadIdx.x;
-  const bool valid = i < n;
-  float x = 0.0f, y = 0.0f, yaw = 0.0f, lw = -INFINITY;
-  if (valid) {
-    x = p_in[i];
-    y = p_in[n + i];
-    yaw = p_in[2 * n + i];
-    float n0 = 0.0f, n1 = 0.0f, n2 = 0.0f;
-    if (MODE == tpuslam::kNoisePhilox) {
-      philox_normals3(static_cast<uint32_t>(i), 0u, prm.key0, prm.key1, n0,
-                      n1, n2);
-    } else if (MODE == tpuslam::kNoiseNormals) {
-      n0 = normals[i];
-      n1 = normals[n + i];
-      n2 = normals[2 * n + i];
+  constexpr int P = kPer;
+  __shared__ float s_row[kPartStride];
+  __shared__ bool s_last;
+  const int n = static_cast<int>(prm.n);
+  const int t = threadIdx.x;
+  const int j = blockIdx.x * kSpan + P * t;
+  const bool vec = (n & 3) == 0 && aligned16(p_in) && aligned16(lw_in) &&
+                   aligned16(p_out) && aligned16(lw_out) &&
+                   (MODE != kNoiseNormals || aligned16(normals));
+  const bool reset = STATS && prm.flag > 0.0f;
+
+  float x[P], y[P], yaw[P], lw[P], n0[P], n1[P], n2[P], acc[P];
+  int idx[P];
+  bool valid[P];
+  {
+    const float4 a = load4(p_in, j, n, vec);
+    const float4 b = load4(p_in + n, j, n, vec);
+    const float4 c = load4(p_in + 2 * n, j, n, vec);
+    const float4 d = reset ? make_float4(0.0f, 0.0f, 0.0f, 0.0f)
+                           : load4(lw_in, j, n, vec);
+    x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+    y[0] = b.x; y[1] = b.y; y[2] = b.z; y[3] = b.w;
+    yaw[0] = c.x; yaw[1] = c.y; yaw[2] = c.z; yaw[3] = c.w;
+    lw[0] = d.x; lw[1] = d.y; lw[2] = d.z; lw[3] = d.w;
+    if (MODE == kNoiseNormals) {
+      const float4 g = load4(normals, j, n, vec);
+      const float4 h = load4(normals + n, j, n, vec);
+      const float4 q = load4(normals + 2 * n, j, n, vec);
+      n0[0] = g.x; n0[1] = g.y; n0[2] = g.z; n0[3] = g.w;
+      n1[0] = h.x; n1[1] = h.y; n1[2] = h.z; n1[3] = h.w;
+      n2[0] = q.x; n2[1] = q.y; n2[2] = q.z; n2[3] = q.w;
     }
-    const float acc = predict_loglik<MODE>(x, y, yaw, n0, n1, n2, prm, z);
-    const float lw0 = (STATS && prm.flag > 0.0f) ? 0.0f : lw_in[i];
-    lw = lw0 + acc;
-    p_out[i] = x;
-    p_out[n + i] = y;
-    p_out[2 * n + i] = yaw;
-    lw_out[i] = lw;
   }
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    idx[k] = j + k;
+    valid[k] = j + k < n;
+    if (MODE == kNoisePhilox) {
+      philox_normals3(static_cast<uint32_t>(j + k), 0u, prm.key0, prm.key1,
+                      n0[k], n1[k], n2[k]);
+    } else if (MODE != kNoiseNormals) {
+      n0[k] = n1[k] = n2[k] = 0.0f;
+    }
+  }
+  predict_loglik_n<MODE, P>(x, y, yaw, n0, n1, n2, prm, z, acc);
+#pragma unroll
+  for (int k = 0; k < P; ++k) lw[k] = lw[k] + acc[k];
+  store4(p_out, j, n, vec, make_float4(x[0], x[1], x[2], x[3]));
+  store4(p_out + n, j, n, vec, make_float4(y[0], y[1], y[2], y[3]));
+  store4(p_out + 2 * n, j, n, vec, make_float4(yaw[0], yaw[1], yaw[2],
+                                               yaw[3]));
+  store4(lw_out, j, n, vec, make_float4(lw[0], lw[1], lw[2], lw[3]));
   if (!STATS) return;
-  block_partial_row<kBlock>(
-      valid, lw, x, y, yaw, static_cast<int>(i),
-      parts + static_cast<long long>(blockIdx.x) * kPartStride);
+
+  Stats st;
+  stats_add(st, lw, x, y, yaw, idx, valid);
+  block_stats_row<kThreads>(st, s_row);
+  if (t < kPartStride) {
+    g_rows[blockIdx.x * kPartStride + t] = s_row[t];
+    if (blockIdx.x == 0 && t == 0) {  // particle 0, the estimate's fallback
+      g_first[0] = x[0];
+      g_first[1] = y[0];
+      g_first[2] = yaw[0];
+    }
+    // The row (and particle 0) reach the device before the ticket is
+    // taken, so the last block sees every row.  Only these threads fence:
+    // the last block reads nothing else that this block wrote.
+    __threadfence();
+  }
+  __syncthreads();
+  if (t == 0) s_last = atomicAdd(&g_ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!s_last) return;
+
+  __threadfence();
+  block_stats_row<kThreads>(rows_stats(static_cast<int>(gridDim.x)),
+                            s_row);
+  if (t == 0) {
+    // The row's sums are taken at stat_shift(max), which is the max
+    // wherever the max is finite.
+    const float m = s_row[0];
+    const float lse = m + logf(s_row[1]);
+    stats[0] = lse;
+    stats[1] = 2.0f * m + logf(s_row[2]);
+    stats[2] = s_row[3];
+    stats[3] = s_row[4];
+    stats[4] = s_row[5];
+    stats[5] = m;
+    stats[6] = s_row[6];
+    // All-NaN weights reset to uniform, whose argmax is particle 0.
+    const bool finite = isfinite(lse);
+    stats[7] = finite ? s_row[3] : __ldcg(g_first);
+    stats[8] = finite ? s_row[4] : __ldcg(g_first + 1);
+    stats[9] = finite ? s_row[5] : __ldcg(g_first + 2);
+    g_ticket = 0;  // every block has taken its ticket
+  }
 }
 
 template <int MODE>
 void launch(bool with_stats, unsigned grid, cudaStream_t stream,
             const float* p_in, const float* lw_in, const float* z,
-            const float* normals, float* p_out, float* lw_out, float* parts,
+            const float* normals, float* p_out, float* lw_out, float* stats,
             const PfParams& prm) {
   if (with_stats) {
-    pf_step_kernel<MODE, true><<<grid, kBlock, 0, stream>>>(
-        p_in, lw_in, z, normals, p_out, lw_out, parts, prm);
+    pf_step_kernel<MODE, true><<<grid, kThreads, 0, stream>>>(
+        p_in, lw_in, z, normals, p_out, lw_out, stats, prm);
   } else {
-    pf_step_kernel<MODE, false><<<grid, kBlock, 0, stream>>>(
-        p_in, lw_in, z, normals, p_out, lw_out, parts, prm);
+    pf_step_kernel<MODE, false><<<grid, kThreads, 0, stream>>>(
+        p_in, lw_in, z, normals, p_out, lw_out, stats, prm);
   }
 }
 
@@ -127,28 +279,37 @@ void launch(bool with_stats, unsigned grid, cudaStream_t stream,
 
 // C entry point for ctypes.  p_in/p_out: (3, n) rows; lw_in/lw_out: (n,);
 // z: (n_lm, 2) observation on the device; normals: (3, n) in mode 2, else
-// unused; parts: (ceil(n / 256), 8) when with_stats.  Launches on `stream`
-// and returns cudaGetLastError() (0 when the launch was accepted); never
-// synchronises.
+// unused; stats: (10,) when with_stats (the layout above).  Launches on
+// `stream` and returns cudaGetLastError() (0 when the launch was
+// accepted); never synchronises.
 extern "C" int tpuslam_pf_step(const float* p_in, const float* lw_in,
                                const float* z, const float* normals,
-                               float* p_out, float* lw_out, float* parts,
+                               float* p_out, float* lw_out, float* stats,
                                const void* params, int mode, int with_stats,
                                void* stream) {
   const PfParams& p = *static_cast<const PfParams*>(params);
   if (p.n < 1 || p.n >= (1LL << 24) || p.n_lm < 0 ||
-      p.n_lm > kMaxLandmarks || mode < 0 || mode > 2) {
+      p.n_lm > kMaxLandmarks || mode < 0 || mode > 2 ||
+      (mode == 2 && normals == nullptr) ||
+      (with_stats && stats == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const unsigned grid = static_cast<unsigned>((p.n + kBlock - 1) / kBlock);
+  const unsigned grid = static_cast<unsigned>((p.n + kSpan - 1) / kSpan);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool st = with_stats != 0;
   switch (mode) {
-    case 0: launch<0>(st, grid, s, p_in, lw_in, z, normals, p_out, lw_out, parts, p); break;
-    case 1: launch<1>(st, grid, s, p_in, lw_in, z, normals, p_out, lw_out, parts, p); break;
-    default: launch<2>(st, grid, s, p_in, lw_in, z, normals, p_out, lw_out, parts, p); break;
+    case 0: launch<0>(st, grid, s, p_in, lw_in, z, normals, p_out, lw_out, stats, p); break;
+    case 1: launch<1>(st, grid, s, p_in, lw_in, z, normals, p_out, lw_out, stats, p); break;
+    default: launch<2>(st, grid, s, p_in, lw_in, z, normals, p_out, lw_out, stats, p); break;
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The ticket counter of the current device into *value (0 between
+// launches).  Synchronises with the device: a check, not for the loop.
+extern "C" int tpuslam_pf_step_ticket(unsigned int* value) {
+  return static_cast<int>(
+      cudaMemcpyFromSymbol(value, g_ticket, sizeof(unsigned int)));
 }
 
 // Resident blocks per SM of kernel `which` (0: K2b, 1: K2a, Philox mode),
@@ -159,10 +320,10 @@ extern "C" int tpuslam_occupancy_pf_step(int which, int n, int* blocks,
   switch (which) {
     case 0:
       return tpuslam::occupancy(pf_step_kernel<1, true>, "K2b pf_step",
-                                kBlock, 0, blocks, name);
+                                kThreads, 0, blocks, name);
     case 1:
       return tpuslam::occupancy(pf_step_kernel<1, false>, "K2a pf_step",
-                                kBlock, 0, blocks, name);
+                                kThreads, 0, blocks, name);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

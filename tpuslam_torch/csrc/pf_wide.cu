@@ -12,16 +12,16 @@
 // in the JAX package's wide benchmark).  Layouts: particles (3, B, n) rows
 // x, y, yaw with filter f's particles contiguous, log weights (B, n), no
 // padding lanes.  A step (ops/pf_batch_cuda.py::pf_batch_wide_step) is:
-//   torch:  the ESS gate from the carried (B,) normalizers; the firing
-//           filters compacted into slots (fids, valid); the quantized
-//           weights of every filter and their exact inclusive prefix cum
-//           (torch.cumsum of integers below 2^24, exact in any order);
-//           inv_tot = 1 / q_tot and the comb offset of each slot.  The JAX
-//           package computes these in XLA outside its kernels.
-//   K5a:    per (slot, 256 lanes): the boundary law and forcing of
-//           tile_boundary_compact (resample_pallas.py:709-728) on the
-//           slot's filter's prefix, t_hi written per lane in slot order.
-//           Idle slots exit at once.
+//   torch:  the ESS gate from the carried (B,) normalizers: (B,) ops only.
+//   K5a:    one block a filter.  Every block counts the firing filters
+//           before it (its slot) and in all, and writes the slot
+//           compaction: src[f] (filter -> slot), fids[s] (slot -> filter)
+//           and valid[s] (s < n_fire).  A filter that does not fire then
+//           exits.  A firing filter quantizes its weights, takes their
+//           exact prefix and writes its boundaries t_hi in slot order
+//           (below).  The JAX package gathers the firing rows first and
+//           quantizes them in XLA (pf_batch_pallas.py:1181-1207); here no
+//           (B, n) torch op runs and no work is spent on idle filters.
 //   K3b:    per (slot, 256 output lanes): each slot's output particle i
 //           copies the first particle j of its filter with t_hi[j] > i.
 //   K5b:    per filter, one 1024-thread block: on
@@ -40,8 +40,31 @@
 // compaction, no survivor cap, no _SLOT_MOD slot keys, no skip table and
 // no XLA fallback.
 //
-// What bounds them on an H100.  K5a: bytes (4 of prefix read and 4 of
-// boundary written a lane of a firing filter; one thread a lane).  K5b:
+// K5a's quantization and boundaries, per firing filter f in slot s, in
+// three passes over the row (the second and third from L2), each thread
+// taking four consecutive lanes of every tile of 4 x kBoundThreads:
+//   1. w_j = expf(lw_j - lse_f) (IEEE subtract) and the row sum total in
+//      a fixed order: each thread adds its lanes in sequence, tile by
+//      tile, from 0.0f; then a tree of halving IEEE adds over the threads
+//      (level h: v[i] += v[i + h]).  ops/pf_batch_cuda.py::
+//      wide_row_total_plain takes the same sum, so twin and kernel agree
+//      bit for bit;
+//   2. scale = 2^20 / total (IEEE divide), wq_j = rintf(w_j * scale)
+//      (half to even, as quantize_weights_law), their exact int32
+//      inclusive prefix written into t_hi's row;
+//   3. inv_tot = __frcp_rn(q_tot) (the twin's IEEE 1 / x) and, in place,
+//      the boundary law and forcing of tile_boundary_compact
+//      (resample_pallas.py:709-728): t_j = clip(ceil(n * (cum_j *
+//      inv_tot) - offs_f), 0, n) by __fmul_rn and __fsub_rn, t_{n-1} = n.
+// Each thread reads back only the lanes it wrote.  Rows of any length
+// run.  Counting the firing filters costs every block a read of the B
+// gate flags, which is small beside a row at the sizes the filter runs.
+// On an H100 80GB HBM3 at 700 W, 512 threads a block beat 256 and 1024
+// at 240 and 1024 of 1024 x 10,000 filters firing (PERF.md).
+//
+// What bounds them on an H100.  K5a: bytes (4 of log weight read and 4 of
+// boundary written a lane of a firing filter) and, with few firing
+// filters, the latency of the passes over one row.  K5b:
 // instruction issue.  It moves 16-20 bytes a particle (0.096 ms at
 // 1024 x 10,000) but runs K2's several hundred instructions of math a
 // particle.  So K5b spends as little as it can beside that math:
@@ -76,22 +99,30 @@
 
 #include "occupancy.cuh"
 #include "pf_math.cuh"
+#include "rows.cuh"
 
 namespace {
 
 using tpuslam::aligned16;
+using tpuslam::block_exclusive_scan;
 using tpuslam::block_stats_row;
 using tpuslam::kMaxLandmarks;
 using tpuslam::kNoiseNormals;
 using tpuslam::kNoisePhilox;
+using tpuslam::kFullMask;
 using tpuslam::kPartStride;
+using tpuslam::load4;
+using tpuslam::load4_of;
 using tpuslam::philox_normals3;
 using tpuslam::predict_loglik_n;
 using tpuslam::stat_shift;
 using tpuslam::Stats;
 using tpuslam::stats_add;
+using tpuslam::store4;
+using tpuslam::store4_of;
 
-constexpr int kBlock = 256;           // K5a's lanes a block
+constexpr int kBoundThreads = 512;    // K5a's threads a block (a filter)
+constexpr int kBoundSpan = 4 * kBoundThreads;  // K5a's lanes a tile
 constexpr int kStatsThreads = 1024;   // K5b's threads a block
 constexpr int kStatsVec = 1;          // K5b's float4 vectors a thread a pass
 
@@ -127,49 +158,125 @@ struct WideBuffers {
   float* est_out;               // (B, 3) MAP particle
 };
 
-__global__ void __launch_bounds__(kBlock)
-wide_boundary_kernel(const float* __restrict__ cum,
-                     const int* __restrict__ fids,
-                     const unsigned char* __restrict__ valid,
-                     const float* __restrict__ inv_tot,
-                     const float* __restrict__ offs, int* __restrict__ t_hi,
-                     int n) {
-  const int s = blockIdx.y;
-  if (!valid[s]) return;  // an idle slot
-  const int j = blockIdx.x * kBlock + threadIdx.x;
-  if (j >= n) return;
-  const float c = cum[static_cast<long long>(fids[s]) * n + j];
+// w_j of four lanes from j on: expf(lw - lse) on the lanes before n, 0
+// past it.
+__device__ __forceinline__ float4 weights4(const float* lw, int j, int n,
+                                           bool vec, float lse) {
+  const float4 v = load4(lw, j, n, vec);
+  return make_float4(j < n ? expf(__fsub_rn(v.x, lse)) : 0.0f,
+                     j + 1 < n ? expf(__fsub_rn(v.y, lse)) : 0.0f,
+                     j + 2 < n ? expf(__fsub_rn(v.z, lse)) : 0.0f,
+                     j + 3 < n ? expf(__fsub_rn(v.w, lse)) : 0.0f);
+}
+
+__device__ __forceinline__ int quantize(float w, float scale) {
+  return static_cast<int>(rintf(__fmul_rn(w, scale)));
+}
+
+// K5a, one block a filter (see the file's head).
+__global__ void __launch_bounds__(kBoundThreads)
+wide_boundary_kernel(const float* __restrict__ log_w,
+                     const float* __restrict__ lse_in,
+                     const unsigned char* __restrict__ fire,
+                     const float* __restrict__ offs_in,
+                     int* __restrict__ t_hi, int* __restrict__ fids,
+                     unsigned char* __restrict__ valid,
+                     int* __restrict__ src, int n, int b) {
+  constexpr int T = kBoundThreads;
+  __shared__ float s_sum[T];
+  __shared__ int s_warp[T / 32];
+  const int f = blockIdx.x;
+  const int t = threadIdx.x;
+
+  // The slot compaction: filter f's slot is the count of firing filters
+  // before it; slots from n_fire on are idle.
+  int before = 0, n_fire = 0;
+  for (int base = 0; base < b; base += T) {
+    const int i = base + t;
+    const bool on = i < b && fire[i] != 0;
+    before += __syncthreads_count(on && i < f);
+    n_fire += __syncthreads_count(on);
+  }
+  if (t == 0) {
+    src[f] = min(before, b - 1);
+    if (f >= n_fire) {
+      fids[f] = 0;
+      valid[f] = 0;
+    }
+  }
+  if (!fire[f]) return;  // the whole block: an idle filter
+  const int s = before;
+  if (t == 0) {
+    fids[s] = f;
+    valid[s] = 1;
+  }
+
+  const float* lw = log_w + static_cast<long long>(f) * n;
+  int* row = t_hi + static_cast<long long>(s) * n;
+  const float lse = lse_in[f];
+  const bool vec = (n & 3) == 0 && aligned16(log_w) && aligned16(t_hi);
+
+  // 1. The row sum in the fixed order.
+  float acc = 0.0f;
+  for (int base = 0; base < n; base += kBoundSpan) {
+    const float4 w = weights4(lw, base + 4 * t, n, vec, lse);
+    acc = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(acc, w.x), w.y), w.z),
+                    w.w);
+  }
+  s_sum[t] = acc;
+  __syncthreads();
+#pragma unroll
+  for (int h = T / 2; h >= 32; h >>= 1) {
+    if (t < h) s_sum[t] = __fadd_rn(s_sum[t], s_sum[t + h]);
+    __syncthreads();
+  }
+  if (t < 32) {
+    float v = s_sum[t];
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) {
+      v = __fadd_rn(v, __shfl_down_sync(kFullMask, v, d));
+    }
+    if (t == 0) s_sum[0] = v;
+  }
+  __syncthreads();
+  const float scale = __fdiv_rn(1048576.0f, s_sum[0]);
+
+  // 2. The quantized weights' exact inclusive prefix, into t_hi's row.
+  int carry = 0;
+  for (int base = 0; base < n; base += kBoundSpan) {
+    const int j = base + 4 * t;
+    const float4 w = weights4(lw, j, n, vec, lse);
+    int4 cum;
+    cum.x = quantize(w.x, scale);
+    cum.y = cum.x + quantize(w.y, scale);
+    cum.z = cum.y + quantize(w.z, scale);
+    cum.w = cum.z + quantize(w.w, scale);
+    int total;
+    const int pre = carry + block_exclusive_scan<T>(cum.w, s_warp, total);
+    store4_of(row, j, n, vec,
+              make_int4(pre + cum.x, pre + cum.y, pre + cum.z, pre + cum.w));
+    carry += total;
+  }
+
+  // 3. The boundaries, in place; each thread reads its own lanes back.
+  const float inv_tot = __frcp_rn(static_cast<float>(carry));
   const float nf = static_cast<float>(n);
-  const float scaled = __fmul_rn(nf, __fmul_rn(c, inv_tot[s]));
-  float t = ceilf(__fsub_rn(scaled, offs[s]));
-  t = fminf(fmaxf(t, 0.0f), nf);
-  if (j >= n - 1) t = nf;  // the last particle takes every remaining slot
-  t_hi[static_cast<long long>(s) * n + j] = static_cast<int>(t);
-}
-
-// Four consecutive floats from j on (zeros past n): one float4 where
-// `vec` (n % 4 == 0 and the row 16-byte aligned), else four scalars.
-__device__ __forceinline__ float4 load4(const float* p, int j, int n,
-                                        bool vec) {
-  if (vec) {
-    return j < n ? *reinterpret_cast<const float4*>(p + j)
-                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const float offs = offs_in[f];
+  for (int base = 0; base < n; base += kBoundSpan) {
+    const int j = base + 4 * t;
+    const int4 c = load4_of<int4>(row, j, n, vec);
+    int tb[4] = {c.x, c.y, c.z, c.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float scaled =
+          __fmul_rn(nf, __fmul_rn(static_cast<float>(tb[k]), inv_tot));
+      float v = ceilf(__fsub_rn(scaled, offs));
+      v = fminf(fmaxf(v, 0.0f), nf);
+      if (j + k >= n - 1) v = nf;  // the last particle takes the rest
+      tb[k] = static_cast<int>(v);
+    }
+    store4_of(row, j, n, vec, make_int4(tb[0], tb[1], tb[2], tb[3]));
   }
-  return make_float4(j < n ? p[j] : 0.0f, j + 1 < n ? p[j + 1] : 0.0f,
-                     j + 2 < n ? p[j + 2] : 0.0f,
-                     j + 3 < n ? p[j + 3] : 0.0f);
-}
-
-__device__ __forceinline__ void store4(float* p, int j, int n, bool vec,
-                                       float4 v) {
-  if (vec) {
-    if (j < n) *reinterpret_cast<float4*>(p + j) = v;
-    return;
-  }
-  if (j < n) p[j] = v.x;
-  if (j + 1 < n) p[j + 1] = v.y;
-  if (j + 2 < n) p[j + 2] = v.z;
-  if (j + 3 < n) p[j + 3] = v.w;
 }
 
 // K5b, one block a filter.
@@ -308,20 +415,21 @@ int launch_stats(bool fused, cudaStream_t stream, const WideBuffers& buf,
 // C entry points for ctypes.  Each launches on `stream` and returns
 // cudaGetLastError() (0 when the launch was accepted); never synchronises.
 
-// cum: (B, n) inclusive prefixes of the quantized weights, filter order;
-// fids, valid, inv_tot, offs: (B,) per slot.  Writes t_hi: (B, n) int32 in
-// slot order, at the valid slots only.
-extern "C" int tpuslam_wide_boundary(const float* cum, const int* fids,
-                                     const unsigned char* valid,
-                                     const float* inv_tot, const float* offs,
-                                     int* t_hi, int n, int b, void* stream) {
+// log_w: (B, n) log weights; lse, offs: (B,) float; fire: (B,) bool, all
+// in filter order.  Writes src: (B,) int32 filter -> slot; fids: (B,)
+// int32 slot -> filter (0 at idle slots); valid: (B,) bool; t_hi: (B, n)
+// int32 boundaries in slot order, at the valid slots only.
+extern "C" int tpuslam_wide_boundary(const float* log_w, const float* lse,
+                                     const unsigned char* fire,
+                                     const float* offs, int* t_hi, int* fids,
+                                     unsigned char* valid, int* src, int n,
+                                     int b, void* stream) {
   if (n < 1 || n >= (1 << 24) || b < 1 || b > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((n + kBlock - 1) / kBlock, b);
-  wide_boundary_kernel<<<grid, kBlock, 0,
+  wide_boundary_kernel<<<b, kBoundThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
-      cum, fids, valid, inv_tot, offs, t_hi, n);
+      log_w, lse, fire, offs, t_hi, fids, valid, src, n, b);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -354,8 +462,8 @@ extern "C" int tpuslam_occupancy_pf_wide(int which, int n, int* blocks,
   using tpuslam::occupancy;
   switch (which) {
     case 0:
-      return occupancy(wide_boundary_kernel, "K5a wide_boundary", kBlock, 0,
-                       blocks, name);
+      return occupancy(wide_boundary_kernel, "K5a wide_boundary",
+                       kBoundThreads, 0, blocks, name);
     case 1:
       return occupancy(wide_stats_kernel<1, true>, "K5b wide_stats",
                        kStatsThreads, 0, blocks, name);

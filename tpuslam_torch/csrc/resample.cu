@@ -95,24 +95,17 @@
 
 #include "occupancy.cuh"
 #include "pf_math.cuh"  // aligned16
+#include "rows.cuh"      // warp_inclusive_scan
 
 namespace {
+
+using tpuslam::warp_inclusive_scan;
 
 constexpr int kScanBlock = 1024;  // lanes per boundary block (ops: BLOCK)
 constexpr int kScanWarps = kScanBlock / 32;
 constexpr int kExpandBlock = 256;
 constexpr int kSegBlock = 256;     // the segmented expand's threads
 constexpr int kSegWindow = 2048;   // its boundaries a block, 8 KB staged
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ int warp_inclusive_scan(int v, int lane) {
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int up = __shfl_up_sync(kFull, v, d);
-    if (lane >= d) v += up;
-  }
-  return v;
-}
 
 __global__ void __launch_bounds__(kScanBlock)
 boundary_kernel(const float* __restrict__ wq, const float* __restrict__ base,

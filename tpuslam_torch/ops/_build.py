@@ -89,8 +89,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         "tpuslam_resample_expand_compressed": [ptr, ptr, ptr, ptr, c_int,
                                                c_int, c_int, ptr],
         "tpuslam_pf_batch_step": [ptr, ptr, c_int, c_int, ptr],
-        "tpuslam_wide_boundary": [ptr, ptr, ptr, ptr, ptr, ptr, c_int, c_int,
-                                  ptr],
+        "tpuslam_pf_step_ticket": [ctypes.POINTER(ctypes.c_uint)],
+        "tpuslam_wide_boundary": [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+                                  c_int, c_int, ptr],
         "tpuslam_wide_stats": [ptr, ptr, c_int, c_int, ptr],
     }
     signatures.update({f"tpuslam_occupancy_{src}": [

@@ -12,9 +12,10 @@ reference's scale advance in lockstep, the Monte-Carlo sweep shape.
   filter's new normalizers and MAP particle.  Up to 8192 particles a
   filter.
 * **Wide** (:func:`pf_batch_wide_rollout`): filters of any size up to
-  ``2**24`` particles.  A step is the gate, the slot compaction of the
-  firing filters and their quantized prefixes in torch, then K5a (the
-  boundaries, ``csrc/pf_wide.cu``), the segmented K3b (the copies,
+  ``2**24`` particles.  A step is the gate in torch (``(B,)`` ops only),
+  then K5a (the slot compaction of the firing filters, their quantized
+  weights, prefixes and boundaries, one block a filter,
+  ``csrc/pf_wide.cu``), the segmented K3b (the copies,
   ``csrc/resample.cu``) and K5b (predict, weight and each filter's
   normalizers and MAP particle, reduced inside the kernel: one
   1024-thread block a filter; ``csrc/pf_wide.cu``).  With ``pass2="compressed"`` the
@@ -85,6 +86,9 @@ _MAX_BATCH_N = 8192  # K4's kMaxN: shared memory holds 20 bytes a particle
 _MAX_N = 1 << 24  # boundaries and integer prefixes exact in float32
 _MAX_GRID_Y = 65535  # filters (wide) or slots a launch
 _QUANTUM = float(1 << 20)
+#: K5a's kBoundThreads: threads a block, each taking four consecutive
+#: lanes of every tile of ``4 * _BOUND_THREADS``; sets its row-sum order.
+_BOUND_THREADS = 512
 
 _F32 = [("vdt", ctypes.c_float), ("wdt", ctypes.c_float),
         ("q0", ctypes.c_float), ("q1", ctypes.c_float),
@@ -179,14 +183,13 @@ class PfBatchWideState(typing.NamedTuple):
 
 
 class WideSlots(typing.NamedTuple):
-    """The wide resample's torch-side prerequisites for one step."""
+    """What K5a writes for one step: the slot compaction of the firing
+    filters and their boundaries."""
 
     fids: torch.Tensor  # (B,) int32: slot s's filter (0 past the firing)
     valid: torch.Tensor  # (B,) bool: slot s serves a firing filter
     src: torch.Tensor  # (B,) int32: filter f's slot (clipped)
-    cum: torch.Tensor  # (B, n) inclusive quantized prefix, filter order
-    inv_tot: torch.Tensor  # (B,) 1 / q_tot of slot s's filter
-    offs: torch.Tensor  # (B,) comb offset of slot s's filter
+    t_hi: torch.Tensor  # (B, n) int32 boundaries, slot order (valid rows)
 
 
 # ---------------------------------------------------------------------------
@@ -597,96 +600,127 @@ def pf_batch_wide_init(cfg: PfConfig, batch: int, *,
         x_est=st.x_true.expand(batch, 3).contiguous())
 
 
-def wide_slots(log_w: torch.Tensor, lse: torch.Tensor, fire: torch.Tensor,
-               offs: torch.Tensor) -> WideSlots:
-    """The wide resample's prerequisites in torch, on the device and
-    without a host read (``pf_batch_pallas.py:1187-1207``).
-
-    The firing filters are compacted into slots in filter order (slot
-    ``s < n_fire`` serves the s-th firing filter).  Every filter's
-    weights ``exp(lw - lse)`` are quantized with
-    :func:`~tpuslam_torch.filters.pf.quantize_weights_law` of their float32
-    row sum, and their inclusive prefix is a ``torch.cumsum`` of integers
-    below ``2**24``, exact in any order.  Filters that do not fire are
-    quantized too (their rows are never read): the work does not depend
-    on a count the host would have to read.
-    """
-    b = log_w.shape[0]
-    device = log_w.device
+def _slots_plain(fire: torch.Tensor):
+    """``(fids, valid, src)`` of the firing filters compacted into slots
+    in filter order (slot ``s < n_fire`` serves the s-th firing filter),
+    on the device and without a host read."""
+    b = fire.shape[0]
     fire_i = fire.to(torch.int32)
     pos = torch.cumsum(fire_i, dim=0, dtype=torch.int32) - fire_i
     tgt = torch.where(fire, pos, b).to(torch.int64)  # b: dropped
-    ids = torch.arange(b, dtype=torch.int32, device=device)
-    fids = torch.zeros(b + 1, dtype=torch.int32, device=device)
+    ids = torch.arange(b, dtype=torch.int32, device=fire.device)
+    fids = torch.zeros(b + 1, dtype=torch.int32, device=fire.device)
     fids = fids.scatter_(0, tgt, ids)[:b]
+    return fids, ids < fire_i.sum(), pos.clamp(0, b - 1)
+
+
+def wide_row_total_plain(w: torch.Tensor) -> torch.Tensor:
+    """Each row's sum of ``(R, n)`` float32 weights in K5a's order: lane j
+    goes to thread ``(j mod 4T) // 4`` of ``T = _BOUND_THREADS``, each
+    thread adds its lanes in sequence from 0 (tile by tile, four lanes a
+    tile), then a tree of halving adds over the threads (level h:
+    ``v[i] + v[i + h]``).  Every add is one IEEE float32 add, as the
+    kernel's ``__fadd_rn``."""
+    r, n = w.shape
+    span = 4 * _BOUND_THREADS
+    k = -(-n // span)
+    lanes = torch.nn.functional.pad(w, (0, k * span - n)).view(
+        r, k, _BOUND_THREADS, 4).transpose(1, 2).reshape(
+        r, _BOUND_THREADS, 4 * k)
+    acc = torch.zeros((r, _BOUND_THREADS), dtype=w.dtype, device=w.device)
+    for i in range(4 * k):
+        acc = acc + lanes[..., i]
+    while acc.shape[-1] > 1:
+        h = acc.shape[-1] // 2
+        acc = acc[:, :h] + acc[:, h:]
+    return acc[:, 0]
+
+
+def wide_prefix_plain(log_w: torch.Tensor, lse: torch.Tensor):
+    """K5a's quantized prefix of ``(R, n)`` log weights with their
+    ``(R,)`` normalizers: ``w = exp(lw - lse)`` quantized by
+    :func:`~tpuslam_torch.filters.pf.quantize_weights_law` of its
+    :func:`wide_row_total_plain` row sum, the inclusive prefix (exact
+    integers below ``2**24``) and ``inv_tot = 1 / q_tot``.  Returns
+    ``(cum, inv_tot)``."""
     w = torch.exp(log_w - lse[:, None])
-    cum = torch.cumsum(quantize_weights_law(w, w.sum(dim=-1, keepdim=True)),
-                       dim=-1)
-    inv_tot = 1.0 / cum[:, -1]
-    sel = fids.to(torch.int64)
-    return WideSlots(fids=fids, valid=ids < fire_i.sum(),
-                     src=pos.clamp(0, b - 1), cum=cum,
-                     inv_tot=inv_tot[sel], offs=offs[sel])
+    wq = quantize_weights_law(w, wide_row_total_plain(w)[:, None])
+    cum = torch.cumsum(wq, dim=-1)
+    return cum, 1.0 / cum[:, -1]
 
 
-def _check_slots(cum, fids, valid, inv_tot, offs) -> tuple[int, int]:
-    device = cum.device
-    if cum.dim() != 2:
-        raise ValueError(f"cum must be (B, n), got {tuple(cum.shape)}")
-    b, n = cum.shape
+def _check_boundary(log_w, lse, fire, offs) -> tuple[int, int]:
+    device = log_w.device
+    if log_w.dim() != 2:
+        raise ValueError(f"log_w must be (B, n), got {tuple(log_w.shape)}")
+    b, n = log_w.shape
     if not 1 <= n < _MAX_N or not 1 <= b <= _MAX_GRID_Y:
         raise ValueError(f"(B, n) = {(b, n)} out of range")
-    _build.check_tensor("cum", cum, (b, n), torch.float32, device)
-    _build.check_tensor("fids", fids, (b,), torch.int32, device)
-    _build.check_tensor("valid", valid, (b,), torch.bool, device)
-    _build.check_tensor("inv_tot", inv_tot, (b,), torch.float32, device)
+    _build.check_tensor("log_w", log_w, (b, n), torch.float32, device)
+    _build.check_tensor("lse", lse, (b,), torch.float32, device)
+    _build.check_tensor("fire", fire, (b,), torch.bool, device)
     _build.check_tensor("offs", offs, (b,), torch.float32, device)
     return b, n
 
 
-def wide_boundary_plain(cum: torch.Tensor, fids: torch.Tensor,
-                        valid: torch.Tensor, inv_tot: torch.Tensor,
-                        offs: torch.Tensor) -> torch.Tensor:
-    """Plain twin of :func:`wide_boundary`; idle slots' rows are 0."""
-    b, n = _check_slots(cum, fids, valid, inv_tot, offs)
-    c = cum[fids.to(torch.int64)]
-    t = torch.clamp(boundary_law(c, inv_tot[:, None], n, offs[:, None]), 0, n)
-    t = t.to(torch.int32)
+def wide_boundary_plain(log_w: torch.Tensor, lse: torch.Tensor,
+                        fire: torch.Tensor, offs: torch.Tensor) -> WideSlots:
+    """Plain twin of :func:`wide_boundary`, on any device: the rows are
+    gathered in slot order, quantized as K5a does (:func:`wide_prefix_plain`)
+    and decoded by :func:`~tpuslam_torch.filters.pf.boundary_law`; idle
+    slots' rows are 0."""
+    b, n = _check_boundary(log_w, lse, fire, offs)
+    fids, valid, src = _slots_plain(fire)
+    sel = fids.to(torch.int64)
+    cum, inv_tot = wide_prefix_plain(log_w[sel], lse[sel])
+    t = torch.clamp(boundary_law(cum, inv_tot[:, None], n,
+                                 offs[sel][:, None]), 0, n).to(torch.int32)
     t[:, n - 1:] = n
-    return torch.where(valid[:, None], t, 0)
+    return WideSlots(fids, valid, src, torch.where(valid[:, None], t, 0))
 
 
-def wide_boundary(cum: torch.Tensor, fids: torch.Tensor, valid: torch.Tensor,
-                  inv_tot: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
-    """K5a: each firing slot's slot boundaries, one launch.
+def wide_boundary(log_w: torch.Tensor, lse: torch.Tensor, fire: torch.Tensor,
+                  offs: torch.Tensor) -> WideSlots:
+    """K5a: the wide resample's prerequisites, one launch: the slot
+    compaction of the firing filters, and each firing filter's weights
+    ``exp(lw - lse)`` quantized (``quantize_weights_law`` of their row sum
+    in the kernel's fixed order), prefixed and decoded into its slot
+    boundaries.  Filters that do not fire cost a read of the gate.
 
     Args:
-        cum, fids, valid, inv_tot, offs: from :func:`wide_slots`.
+        log_w: ``(B, n)`` log weights; lse: ``(B,)`` their normalizers;
+            fire: ``(B,)`` bool, the filters that resample; offs: ``(B,)``
+            comb offsets in [0, 1); all in filter order.
 
     Returns:
-        ``(B, n)`` int32 boundaries in slot order
-        (:func:`~tpuslam_torch.ops.resample_cuda.slot_boundaries`' law
-        and forcing); only the valid slots' rows are written.
+        :class:`WideSlots`: ``t_hi`` ``(B, n)`` int32 in slot order
+        (:func:`~tpuslam_torch.ops.resample_cuda.slot_boundaries`' law and
+        forcing; only the valid slots' rows are written).  A CPU tensor
+        runs :func:`wide_boundary_plain`.
     """
     global wide_boundary_launch_count
-    device = cum.device
+    device = log_w.device
     if device.type == "cpu":
-        return wide_boundary_plain(cum, fids, valid, inv_tot, offs)
+        return wide_boundary_plain(log_w, lse, fire, offs)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
-    b, n = _check_slots(cum, fids, valid, inv_tot, offs)
+    b, n = _check_boundary(log_w, lse, fire, offs)
     lib = _build.cuda_library(device)
     with torch.cuda.device(device):
-        t_hi = torch.empty((b, n), dtype=torch.int32, device=device)
+        i32 = dict(dtype=torch.int32, device=device)
+        out = WideSlots(fids=torch.empty(b, **i32),
+                        valid=torch.empty(b, dtype=torch.bool, device=device),
+                        src=torch.empty(b, **i32),
+                        t_hi=torch.empty((b, n), **i32))
         rc = lib.tpuslam_wide_boundary(
-            cum.data_ptr(), fids.data_ptr(), valid.data_ptr(),
-            inv_tot.data_ptr(), offs.data_ptr(), t_hi.data_ptr(), n, b,
-            _stream(device))
+            log_w.data_ptr(), lse.data_ptr(), fire.data_ptr(),
+            offs.data_ptr(), out.t_hi.data_ptr(), out.fids.data_ptr(),
+            out.valid.data_ptr(), out.src.data_ptr(), n, b, _stream(device))
     if rc != 0:
         raise RuntimeError(f"wide_boundary kernel launch failed: CUDA error "
                            f"{rc}")
     wide_boundary_launch_count += 1
-    return t_hi
+    return out
 
 
 def _check_stats(cfg, particles, log_w, z, bad, fire, src, expanded,
@@ -791,11 +825,9 @@ def _wide_step_core(cfg, state, x_true, z, seed, offs, noise_on, normals,
                     pass2):
     """One wide step from the step's truth and observation."""
     bad, ess, fire = _gate(cfg, state.lse, state.lse2)
-    slots = wide_slots(state.log_w, state.lse, fire, offs)
-    t_hi = wide_boundary(slots.cum, slots.fids, slots.valid, slots.inv_tot,
-                         slots.offs)
-    expanded = resample_cuda.expand_seg(state.particles, t_hi, slots.fids,
-                                        slots.valid, pass2)
+    slots = wide_boundary(state.log_w, state.lse, fire, offs)
+    expanded = resample_cuda.expand_seg(state.particles, slots.t_hi,
+                                        slots.fids, slots.valid, pass2)
     p, lw, lse, lse2, x_est = wide_stats_rows(
         cfg, seed, state.particles, state.log_w, z, bad, fire, slots.src,
         expanded, noise_on, normals)

@@ -4,13 +4,14 @@ and the fused PF path built on it.
 Port of ``tpuslam/ops/pf_pallas.py``.  One launch of ``csrc/pf_step.cu``
 (see that file for the design) moves every particle one step, adds the
 landmark log-likelihood to its log weight and, on the stats path,
-reduces the step's logsumexp, the logsumexp of twice the log weights and
-the MAP particle in the same pass.  The plain twins compute the same in
-plain torch, with the kernel's arithmetic (the polynomial sincos with
-noise on, builtin trig with noise off, the same wrap and operation
-order) and, with Philox noise, the kernel's random bits; the two differ
-only by rounding (the kernel's compiler contracts ``a*b + c`` into FMAs)
-and the order of the sums.
+reduces the step's logsumexp, the logsumexp of twice the log weights, the
+MAP particle and the point estimate in the same launch (its last block
+finishes them, so no torch op combines partial rows).  The plain twins
+compute the same in plain torch, with the kernel's arithmetic (the
+polynomial sincos with noise on, builtin trig with noise off, the same
+wrap and operation order) and, with Philox noise, the kernel's random
+bits; the two differ only by rounding (the kernel's compiler contracts
+``a*b + c`` into FMAs) and the order of the sums.
 
 State: the carried particles are plain ``(3, N)`` float32 rows and the
 log weights ``(N,)``; the TPU package's sublane packing and padding are
@@ -63,9 +64,11 @@ SEED_STEP = 7919
 
 _MODE_OFF, _MODE_PHILOX, _MODE_NORMALS = 0, 1, 2
 _MASK32 = 0xFFFFFFFF
-_BLOCK = 256  # the kernel's kBlock: particles per partial row
+#: The kernel's kStatsOut: ``[lse, lse2, x_map, y_map, yaw_map, best_lw,
+#: best index, x_est, y_est, yaw_est]``.
+_STATS_LEN = 10
 _MAX_LANDMARKS = 8
-_MAX_N = 1 << 24  # partial-row indices exact in float32
+_MAX_N = 1 << 24  # particle indices exact in float32
 _NEG_INF = float("-inf")
 
 # Truth and noise-free observation tables from cfg.x0 by (cfg, n_steps,
@@ -174,9 +177,9 @@ def _predict_loglik(cfg: PfConfig, z: torch.Tensor, x, y, yaw, mode: int,
 
 
 def _partial_plain(p_rows: torch.Tensor, lw: torch.Tensor) -> torch.Tensor:
-    """The kernel's partial row over all particles at once: ``(1, 8)``
-    for rows ``(3, N)``, ``(N,)``; ``(..., 1, 8)`` for ``(3, ..., N)``,
-    ``(..., N)``."""
+    """A statistics row, as a K2b block writes one, over all particles at
+    once: ``(1, 8)`` for rows ``(3, N)``, ``(N,)``; ``(..., 1, 8)`` for
+    ``(3, ..., N)``, ``(..., N)``."""
     key = torch.where(torch.isnan(lw), _NEG_INF, lw)
     m = key.max(dim=-1).values
     e = torch.exp(lw - torch.clamp(m, min=-1e30)[..., None])
@@ -223,13 +226,23 @@ def _constants(cfg: PfConfig) -> dict:
                 lm=(ctypes.c_float * (2 * _MAX_LANDMARKS))(*lm))
 
 
+def _stats_plain(p_rows: torch.Tensor, lw: torch.Tensor) -> torch.Tensor:
+    """The kernel's ``(10,)`` statistics of ``(3, N)`` rows and ``(N,)``
+    log weights, by :func:`_partial_plain` and :func:`_combine_stats`
+    (the JAX package's partial rows and combine), then the estimate: the
+    MAP particle where ``lse`` is finite, else particle 0 (all-NaN
+    weights reset to uniform, whose argmax is particle 0)."""
+    stats, best = _combine_stats(_partial_plain(p_rows, lw))
+    x_est = torch.where(torch.isfinite(stats[0]), stats[2:5], p_rows[:, 0])
+    return torch.cat([stats, best[None], x_est])
+
+
 def pf_step_rows_plain(cfg: PfConfig, seed: int, flag: float,
                        p_rows: torch.Tensor, lw: torch.Tensor,
                        z: torch.Tensor, noise_on: bool = True,
                        normals: torch.Tensor | None = None,
                        with_stats: bool = True):
-    """Plain twin of :func:`pf_step_rows`, on any device; its partial
-    rows are one row over all particles."""
+    """Plain twin of :func:`pf_step_rows`, on any device."""
     mode = _mode(noise_on, normals)
     _check(cfg, p_rows, lw, z, normals)
     x, y, yaw, acc = _predict_loglik(cfg, z, p_rows[0], p_rows[1], p_rows[2],
@@ -237,7 +250,7 @@ def pf_step_rows_plain(cfg: PfConfig, seed: int, flag: float,
     if with_stats and flag > 0:
         lw = torch.zeros_like(lw)
     p_rows, lw = torch.stack([x, y, yaw]), lw + acc
-    return p_rows, lw, _partial_plain(p_rows, lw) if with_stats else None
+    return p_rows, lw, _stats_plain(p_rows, lw) if with_stats else None
 
 
 def pf_step_rows(cfg: PfConfig, seed: int, flag: float,
@@ -246,13 +259,19 @@ def pf_step_rows(cfg: PfConfig, seed: int, flag: float,
                  with_stats: bool = True):
     """K2: one launch of the step kernel over ``(3, N)`` rows.
 
-    ``with_stats`` is K2b (the reset ``flag`` and the partial rows), else
-    K2a.  A CPU tensor runs :func:`pf_step_rows_plain`.
+    ``with_stats`` is K2b (the reset ``flag`` and the statistics), else
+    K2a.  A CPU tensor runs :func:`pf_step_rows_plain`.  K2b's statistics
+    go through one device counter (``csrc/pf_step.cu``), so two K2b
+    launches must not run at once on one device.
 
     Returns:
-        ``(p_rows', lw', parts)``: fresh ``(3, N)`` and ``(N,)`` tensors
-        and the ``(ceil(N / 256), 8)`` partial rows for
-        :func:`_combine_stats` (``None`` without stats).
+        ``(p_rows', lw', stats)``: fresh ``(3, N)`` and ``(N,)`` tensors
+        and the ``(10,)`` statistics ``[lse, lse2, x_map, y_map, yaw_map,
+        best_lw, best index, x_est, y_est, yaw_est]`` (``None`` without
+        stats): the logsumexp of ``lw'`` and of ``2 lw'``, the MAP
+        particle (the highest index among the maxima; a NaN log weight
+        never wins), its log weight and index, and the point estimate
+        (the MAP particle where ``lse`` is finite, else particle 0).
     """
     global launch_count
     device = lw.device
@@ -268,8 +287,8 @@ def pf_step_rows(cfg: PfConfig, seed: int, flag: float,
     with torch.cuda.device(device):
         p_out = torch.empty_like(p_rows)
         lw_out = torch.empty_like(lw)
-        parts = (torch.empty((-(-n // _BLOCK), 8), dtype=torch.float32,
-                             device=device) if with_stats else None)
+        stats = (torch.empty(_STATS_LEN, dtype=torch.float32, device=device)
+                 if with_stats else None)
         params = _PfParams(n=n, key0=seed & _MASK32,
                            key1=(seed >> 32) & _MASK32,
                            n_lm=len(cfg.landmarks), flag=float(flag),
@@ -278,27 +297,39 @@ def pf_step_rows(cfg: PfConfig, seed: int, flag: float,
             p_rows.data_ptr(), lw.data_ptr(), z.data_ptr(),
             None if normals is None else normals.data_ptr(),
             p_out.data_ptr(), lw_out.data_ptr(),
-            None if parts is None else parts.data_ptr(),
+            None if stats is None else stats.data_ptr(),
             ctypes.addressof(params), mode, int(with_stats),
             torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"pf_step kernel launch failed: CUDA error {rc}")
     launch_count += 1
-    return p_out, lw_out, parts
+    return p_out, lw_out, stats
+
+
+def ticket_count(device: torch.device | str) -> int:
+    """K2b's ticket counter on ``device`` (0 between launches; a launch
+    that ends leaves it at 0).  Reads the device: for checks only."""
+    device = _build.resolve_device(device)
+    lib = _build.cuda_library(device)
+    value = ctypes.c_uint(0)
+    with torch.cuda.device(device):
+        rc = lib.tpuslam_pf_step_ticket(ctypes.byref(value))
+    if rc != 0:
+        raise RuntimeError(f"reading the pf_step ticket failed: CUDA error "
+                           f"{rc}")
+    return value.value
 
 
 def _step_rows(cfg: PfConfig, seed: int, flag: float, p_rows: torch.Tensor,
                lw: torch.Tensor, z: torch.Tensor, noise_on: bool,
                normals: torch.Tensor | None, with_stats: bool, plain: bool):
-    """:func:`pf_step_rows` (or its plain twin) with the partial rows
-    combined: returns ``(p_rows', lw')`` and, ``with_stats``, also
-    ``(stats, best)`` from :func:`_combine_stats`."""
+    """:func:`pf_step_rows` or, with ``plain``, its twin: returns
+    ``(p_rows', lw')`` and, ``with_stats``, also the ``(10,)``
+    statistics."""
     step = pf_step_rows_plain if plain else pf_step_rows
-    p_rows, lw, parts = step(cfg, seed, flag, p_rows, lw, z, noise_on,
-                             normals, with_stats)
-    if with_stats:
-        return (p_rows, lw) + _combine_stats(parts)
-    return p_rows, lw
+    out = step(cfg, seed, flag, p_rows, lw, z, noise_on, normals,
+               with_stats)
+    return out if with_stats else out[:2]
 
 
 def _as_rows(particles: torch.Tensor) -> torch.Tensor:
@@ -346,10 +377,10 @@ def pf_fused_predict_weight_plain(cfg: PfConfig, seed: int,
 
 def _predict_weight_stats(cfg, seed, uniform_flag, particles, log_w, z,
                           noise_on, normals, plain):
-    p_rows, lw, stats, _ = _step_rows(
+    p_rows, lw, stats = _step_rows(
         cfg, seed, float(uniform_flag), _as_rows(particles),
         log_w.to(torch.float32), z, noise_on, normals, True, plain)
-    return p_rows.T, lw, stats
+    return p_rows.T, lw, stats[:6]
 
 
 def pf_fused_predict_weight_stats(cfg: PfConfig, seed: int, uniform_flag,
@@ -441,7 +472,7 @@ def _step(cfg: PfConfig, fs: PfFusedState, x_true: torch.Tensor,
         log_w = torch.zeros_like(log_w)
     # The lazy NaN->uniform reset rides the kernel's read of log_w.
     flag = 1.0 if is_bad and not do_rs else 0.0
-    particles, log_w, stats, _ = _step_rows(
+    particles, log_w, stats = _step_rows(
         cfg, seed, flag, particles, log_w, z, noise_on, normals, True, plain)
     lse = stats[0]
 
@@ -453,9 +484,7 @@ def _step(cfg: PfConfig, fs: PfFusedState, x_true: torch.Tensor,
             torch.atan2(torch.sum(weights * torch.sin(yaw)),
                         torch.sum(weights * torch.cos(yaw)))])
     else:
-        # All-NaN weights reset to uniform, whose argmax is particle 0.
-        x_est = torch.where(torch.isfinite(lse), stats[2:5],
-                            particles[:, 0])
+        x_est = stats[7:10]
     return PfFusedState(x_true=x_true, particles=particles, log_w=log_w,
                         lse=lse, lse2=stats[1], x_est=x_est), ess
 

@@ -1,8 +1,8 @@
-"""Utilities: timing on the card, host synchronisations."""
+"""Utilities: timing and profiling on the card, host synchronisations."""
 
 from tpuslam_torch.utils.profiling import (HostSyncs, count_host_syncs,
-                                           device_ms, steps_per_second,
-                                           timed)
+                                           device_ms, profile_window,
+                                           steps_per_second, timed)
 
-__all__ = ["HostSyncs", "count_host_syncs", "device_ms", "steps_per_second",
-           "timed"]
+__all__ = ["HostSyncs", "count_host_syncs", "device_ms", "profile_window",
+           "steps_per_second", "timed"]

@@ -1,10 +1,13 @@
 """What the compiler and the occupancy calculator say about the built
 kernels: each kernel's registers, stack frame and spills (``ptxas -v``,
 kept beside the library by :mod:`tpuslam_torch.ops._build`), the SASS
-opcode counts of K1, K2b, K4, K5b and the segmented K3b (``cuobjdump
+opcode counts of K1, K2b, K4, K5a, K5b and the segmented K3b (``cuobjdump
 -sass`` of the library), those of each such kernel's largest loop (the
 instructions from a backward branch's target to the branch: K1's step
-loop), and each PF kernel's resident blocks per SM
+loop) and of its body (the instructions before the branch to itself that
+follows the kernel's last ``EXIT``: the subroutines after it, such as the
+IEEE divide's slow path, left out), and each PF kernel's resident blocks
+per SM
 (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, through one
 ``tpuslam_occupancy_<source>`` entry point a source).
 
@@ -13,8 +16,10 @@ On a CUDA host, from the repository root::
     python -m tpuslam_torch.utils.kernel_report
 
 builds the library if needed and prints one line a kernel of each
-report; ``chip_smoke.py`` prints the same lines after its build.  The
-opcode counts are static (instructions in the binary, not executed ones).
+report; ``chip_smoke.py`` prints the same lines after its build.  With
+the path of a built library (another checkout's ``build/*.so``) it prints
+only that library's opcode counts.  The opcode counts are static
+(instructions in the binary, not executed ones).
 """
 
 from __future__ import annotations
@@ -29,10 +34,10 @@ import subprocess
 
 #: Kernels whose opcodes are counted (demangled-name prefixes): K1 in the
 #: flagship's mode (Philox, no NEES), K2b, K4 and the fused K5b in Philox
-#: mode, and the segmented K3b.
+#: mode, K5a and the segmented K3b.
 SASS_KERNELS = ("ekf_rollout_kernel<1, false", "pf_step_kernel<1, true>",
-                "pf_batch_kernel<1", "wide_stats_kernel<1, true",
-                "expand_seg_kernel")
+                "pf_batch_kernel<1", "wide_boundary_kernel",
+                "wide_stats_kernel<1, true", "expand_seg_kernel")
 #: Opcode groups of the count, by the opcode's first dotted part.
 OPCODE_GROUPS = (("LDL/STL", ("LDL", "STL")), ("LDC", ("LDC",)),
                  ("LDG/STG", ("LDG", "STG")), ("LDS/STS", ("LDS", "STS")),
@@ -203,13 +208,32 @@ def _largest_loop(instrs: list[tuple[int, str, str]],
                           if best[0] <= addr <= best[1]])
 
 
+def _body(instrs: list[tuple[int, str, str]],
+          labels: dict[str, int]) -> dict | None:
+    """The opcode counts of the instructions before the first branch to
+    its own address (the trap after the kernel's last ``EXIT``); None
+    where there is none."""
+    for i, (addr, op, text) in enumerate(instrs):
+        if op != "BRA":
+            continue
+        m = _TARGET.search(text)
+        if m is None:
+            continue
+        target = labels.get(m.group(1)) if m.group(1) else int(m.group(2),
+                                                                16)
+        if target == addr:
+            return _group_counts([o for _, o, _ in instrs[:i]])
+    return None
+
+
 def parse_sass(text: str) -> dict[str, dict]:
     """Opcode counts (:data:`OPCODE_GROUPS` and ``total``) of each
     ``Function :`` section of ``cuobjdump -sass`` output, by mangled
     name; a predicate (``@!P0``) is not part of the opcode.  Where a
     branch goes backward, ``loop`` holds the same counts for the largest
     loop (:func:`_largest_loop`): a label (``.L_x_3:``) stands for the
-    address of the instruction after it."""
+    address of the instruction after it.  ``body`` holds them for the
+    instructions before the kernel's branch to itself (:func:`_body`)."""
     functions: dict[str, tuple[list, dict]] = {}
     current = None
     pending: list[str] = []
@@ -237,9 +261,10 @@ def parse_sass(text: str) -> dict[str, dict]:
     counts = {}
     for name, (instrs, labels) in functions.items():
         counts[name] = _group_counts([op for _, op, _ in instrs])
-        loop = _largest_loop(instrs, labels)
-        if loop is not None:
-            counts[name]["loop"] = loop
+        for key, part in (("loop", _largest_loop(instrs, labels)),
+                          ("body", _body(instrs, labels))):
+            if part is not None:
+                counts[name][key] = part
     return counts
 
 
@@ -281,6 +306,25 @@ def resident_blocks(lib: ctypes.CDLL, n_batch: int) -> list[tuple[str, int]]:
     return rows
 
 
+def sass_lines(counts: dict | None, names: dict[str, str]) -> list[str]:
+    """One line a counted part (whole, largest loop, body) of each of
+    :data:`SASS_KERNELS` in ``counts`` (:func:`sass_counts`)."""
+    if counts is None:
+        return ["sass opcodes: not measured (no cuobjdump)"]
+    lines = []
+    for m in sorted(names, key=names.get):
+        if m not in counts or not names[m].startswith(SASS_KERNELS):
+            continue
+        for label, c in ((names[m], counts[m]),
+                         (f"{names[m]} loop", counts[m].get("loop")),
+                         (f"{names[m]} body", counts[m].get("body"))):
+            if c is not None:
+                lines.append(f"sass {label}: " + ", ".join(
+                    f"{g} {c.get(g, 0)}" for g, _ in OPCODE_GROUPS)
+                    + f", total {c['total']}")
+    return lines
+
+
 def report_lines(n_batch: int = 1000) -> list[str]:
     """The three reports, one line a kernel, for the loaded library
     (built first if needed)."""
@@ -297,32 +341,28 @@ def report_lines(n_batch: int = 1000) -> list[str]:
     if not table:
         lines.append("ptxas: no report (library built by another process "
                      "without its log)")
-    wanted = [m for m in sorted(names, key=names.get)
-              if names[m].startswith(SASS_KERNELS)]
-    if counts is None:
-        lines.append("sass opcodes: not measured (no cuobjdump)")
-    for m in wanted:
-        if counts is not None and m in counts:
-            for label, c in ((names[m], counts[m]),
-                             (f"{names[m]} loop", counts[m].get("loop"))):
-                if c is not None:
-                    lines.append(f"sass {label}: " + ", ".join(
-                        f"{g} {c.get(g, 0)}" for g, _ in OPCODE_GROUPS)
-                        + f", total {c['total']}")
+    lines += sass_lines(counts, names)
     lines += [f"resident blocks {name}: {blocks} a SM"
               for name, blocks in resident_blocks(lib, n_batch)]
     return lines
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
     import torch
 
-    if not torch.cuda.is_available():
-        raise RuntimeError("the kernel report needs a CUDA device")
-    for line in report_lines():
+    if argv:  # another build's library: its opcode counts only
+        counts = sass_counts(pathlib.Path(argv[0]).resolve())
+        lines = sass_lines(counts, short_names(sorted(counts or {})))
+    else:
+        if not torch.cuda.is_available():
+            raise RuntimeError("the kernel report needs a CUDA device")
+        lines = report_lines()
+    for line in lines:
         print(line, flush=True)
     return 0
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    import sys
+
+    raise SystemExit(main(sys.argv[1:]))

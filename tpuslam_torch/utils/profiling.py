@@ -9,6 +9,10 @@ measures a short kernel's device time without the host's launch gaps.
 Both refuse to run without a CUDA device: a CPU time is not a device
 time.
 
+:func:`profile_window` reads one call through ``torch.profiler``: the
+device's busy time against the host's wall time, the largest device-time
+entries, and the torch operations a step.
+
 :func:`count_host_syncs` counts the operations inside a block that make
 the host wait for the card (``.item()``, ``.tolist()``, a blocking copy
 to or from the device), as torch's own sync debug mode reports them.
@@ -17,6 +21,7 @@ to or from the device), as torch's own sync debug mode reports them.
 from __future__ import annotations
 
 import contextlib
+import time
 import warnings
 
 import torch
@@ -70,6 +75,45 @@ def steps_per_second(fn, *args, work_items: int, reps: int = 5,
     """``work_items`` over the median time of ``fn(*args)``."""
     return work_items / timed(fn, *args, reps=reps, warmup=warmup,
                               device=device)
+
+
+def profile_window(call, steps: int | None = None) -> dict:
+    """Where one call's time goes (``torch.profiler``, CPU and CUDA).
+
+    Returns ``wall_ms`` (host clock around the call, synchronised),
+    ``busy_ms`` (the device's own events: kernels and copies; a torch
+    op's entry repeats the time of the kernels it launched, so ops are not
+    summed), ``top`` (``(name, ms)`` of every entry with device time,
+    largest first) and, with ``steps``, ``ops_per_step``: the ``aten::``
+    events that no other ``aten::`` event encloses, over ``steps``.
+    """
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_window() needs a CUDA device")
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    busy_us = 0.0
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", 0.0)
+        if us > 0:
+            by_name[evt.key] = by_name.get(evt.key, 0.0) + us
+            if evt.device_type != torch.autograd.DeviceType.CPU:
+                busy_us += us
+    out = {"wall_ms": wall_ms, "busy_ms": busy_us / 1e3,
+           "top": [(k, v / 1e3) for k, v in
+                   sorted(by_name.items(), key=lambda kv: -kv[1])]}
+    if steps:
+        n_ops = sum(1 for evt in prof.events()
+                    if evt.name.startswith("aten::")
+                    and (evt.cpu_parent is None
+                         or not evt.cpu_parent.name.startswith("aten::")))
+        out["ops_per_step"] = n_ops / steps
+    return out
 
 
 class HostSyncs:

@@ -1,5 +1,5 @@
-"""Time K1, the segmented K3b and the PF kernels that share K1's device
-math of several checkouts of the port on one card, in turns.
+"""Time K1, the segmented K3b, K5a and the PF kernels that share K1's
+device math of several checkouts of the port on one card, in turns.
 
 From the repository root, on a CUDA host::
 
@@ -19,15 +19,33 @@ card's clocks falls on every side.  Each prints one JSON line with:
 * K1's largest kernel-minus-plain difference with noise off (1024 x 50)
   and with injected normals (4096 x 64), ``chip_smoke.py``'s phase 3 and
   4 shapes, and a digest of the kernel's outputs there;
-* the segmented K3b's device time a launch at 1024 x 10,000 with 0, 240
-  and 1024 filters firing (20 launches behind a sleep kernel), and a
-  digest of its valid rows;
-* the device time a launch and a digest of the outputs of K2b at
-  2,097,152 particles, K4 at 8192 x 1000 and K5b at 1024 x 10,000 (Philox
-  noise, a mixed gate), which share ``csrc/fastmath.cuh`` with K1.
+* the wide resample's prerequisites at 1024 x 10,000 with 0, 240 and
+  1024 filters firing: K5a with the torch work it needs before it (the
+  slot compaction and, before K5a took them in, the quantized prefixes
+  of every filter), 20 calls behind a sleep kernel;
+  K5a's launch alone, and each operation's device time at 240 firing
+  (torch.profiler);
+* the segmented K3b's device time a launch at the same three firing
+  counts, and a digest of its valid rows;
+* K2b at 2,097,152, 1,000,000 and 100,000 particles (Philox noise): the
+  device time of ``_step_rows`` (the kernel with, where the checkout has
+  one, its torch combine of partial rows) and of the public
+  ``pf_fused_predict_weight_stats`` (which also transposes the
+  particles), and a digest of the particles and log weights; the same
+  digest at 100,000 with noise off and with injected normals;
+* the device time a launch and a digest of the outputs of K4 at
+  8192 x 1000 and K5b at 1024 x 10,000 (Philox noise, a mixed gate),
+  which share ``csrc/fastmath.cuh`` with K1;
+* the single-filter (2,097,152) and wide (1024 x 10,000) rollouts'
+  torch ops, device busy time and host wall time a step, from a profiled
+  50-step rollout after a warm-up one.
 
-Equal digests mean equal outputs, bit for bit, across checkouts.  Needs
-a CUDA device.
+K3b and K5b read boundaries: every turn takes those of the first turn
+(saved under this tree's ``build/turns/``), so their digests compare the
+kernels on equal inputs.  Each checkout's own K5a boundaries are saved
+there too, and the run ends by counting the lanes where each checkout's
+differ from the first checkout's.  Equal digests mean equal outputs, bit
+for bit, across checkouts.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -38,6 +56,7 @@ import json
 import math
 import os
 import pathlib
+import shutil
 import subprocess
 import sys
 
@@ -45,8 +64,10 @@ FLAGSHIP = (8_388_608, 1600)
 BASELINE = (8192, 400)
 K3B_SHAPE = (1024, 10_000)
 K3B_FIRING = (0, 240, 1024)
-K2_N = 2_097_152
+K2_SIZES = (2_097_152, 1_000_000, 100_000)
 K4_SHAPE = (8192, 1000)
+LOOP_STEPS = 50
+SHARE_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "turns"
 
 
 def _own_profiling():
@@ -88,16 +109,14 @@ def _ekf_gap(kernel, plain) -> float:
     return worst
 
 
-def seg_args(dev, b: int, n: int, n_fire: int, seed: int = 16,
-             one_survivor: bool = False):
-    """The segmented K3b's arguments at ``b`` filters of ``n`` particles:
-    a spread cloud, log weights whose spread grows with the filter,
-    ``n_fire`` filters spread over the batch firing, their boundaries
-    from K5a.  With ``one_survivor`` one particle a filter holds all the
-    weight and takes every slot."""
+def seg_inputs(dev, b: int, n: int, n_fire: int, seed: int = 16,
+               one_survivor: bool = False):
+    """K5a's inputs at ``b`` filters of ``n`` particles, with the particles
+    they resample: ``(particles, log_w, lse, fire, offs)``.  A spread
+    cloud, log weights whose spread grows with the filter, ``n_fire``
+    filters spread over the batch firing.  With ``one_survivor`` one
+    particle a filter holds all the weight and takes every slot."""
     import torch
-
-    from tpuslam_torch.ops import pf_batch_cuda as pb
 
     f32 = dict(dtype=torch.float32, device=dev)
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -111,22 +130,82 @@ def seg_args(dev, b: int, n: int, n_fire: int, seed: int = 16,
     fire = torch.zeros(b, dtype=torch.bool, device=dev)
     fire[torch.linspace(0, b - 1, n_fire, device=dev).round().long()] = True
     offs = torch.rand(b, generator=g, **f32)
-    slots = pb.wide_slots(log_w, lse, fire, offs)
-    t_hi = pb.wide_boundary(slots.cum, slots.fids, slots.valid,
-                            slots.inv_tot, slots.offs)
-    return particles, t_hi, slots.fids, slots.valid
+    return particles, log_w, lse, fire, offs
+
+
+def seg_args(dev, b: int, n: int, n_fire: int, seed: int = 16,
+             one_survivor: bool = False):
+    """The segmented K3b's arguments ``(particles, t_hi, fids, valid)`` on
+    :func:`seg_inputs`, the boundaries from K5a."""
+    from tpuslam_torch.ops import pf_batch_cuda as pb
+
+    particles, log_w, lse, fire, offs = seg_inputs(dev, b, n, n_fire, seed,
+                                                   one_survivor)
+    slots = pb.wide_boundary(log_w, lse, fire, offs)
+    return particles, slots.t_hi, slots.fids, slots.valid
+
+
+def _k5a(pb, log_w, lse, fire, offs):
+    """``(t_hi, fids, valid, src)`` from a checkout's K5a and the torch
+    work before it: ``wide_slots`` (the quantized prefixes of every
+    filter in torch) and the prefix form of ``wide_boundary`` where the
+    checkout has them, else ``wide_boundary`` of the log weights."""
+    if hasattr(pb, "wide_slots"):
+        sl = pb.wide_slots(log_w, lse, fire, offs)
+        t_hi = pb.wide_boundary(sl.cum, sl.fids, sl.valid, sl.inv_tot,
+                                sl.offs)
+        return t_hi, sl.fids, sl.valid, sl.src
+    sl = pb.wide_boundary(log_w, lse, fire, offs)
+    return sl.t_hi, sl.fids, sl.valid, sl.src
+
+
+def _k5a_launch(pb, k5a_in):
+    """A call of the checkout's K5a launch alone on ``k5a_in`` (log
+    weights, normalizers, gate, offsets), its torch inputs made first."""
+    if hasattr(pb, "wide_slots"):
+        sl = pb.wide_slots(*k5a_in)
+        return lambda: pb.wide_boundary(sl.cum, sl.fids, sl.valid,
+                                        sl.inv_tot, sl.offs)
+    return lambda: pb.wide_boundary(*k5a_in)
+
+
+def _op_times(profile_window, fn) -> str:
+    """The device microseconds of each entry one call of ``fn`` shows in
+    ``profile_window`` (after a warm-up call)."""
+    fn()
+    return "; ".join(f"{k[:48]} {1e3 * ms:.1f}"
+                     for k, ms in profile_window(fn)["top"])
+
+
+def _valid_rows(bounds: dict) -> dict:
+    """The boundaries' valid rows and the slots, on the host."""
+    return {k: (t[v].cpu(), f.cpu(), v.cpu(), s.cpu())
+            for k, (t, f, v, s) in bounds.items()}
+
+
+def _full_rows(saved: dict, dev) -> dict:
+    """:func:`_valid_rows`' entries back as ``(B, n)`` boundaries (0 at the
+    idle slots) on ``dev``."""
+    import torch
+
+    out = {}
+    for k, (rows, f, v, s) in saved.items():
+        t = torch.zeros((v.shape[0], rows.shape[1]), dtype=rows.dtype)
+        t[v] = rows
+        out[k] = tuple(x.to(dev) for x in (t, f, v, s))
+    return out
 
 
 def _pf_args(dev):
-    """K2b's, K4's and K5b's arguments: spread clouds around x0, log
-    weights whose spread grows with the filter (a mixed ESS gate), one
-    noisy observation of the five landmarks a filter."""
+    """K2b's arguments at each of :data:`K2_SIZES`, K4's, and K5b's before
+    its boundaries: spread clouds around x0, log weights whose spread
+    grows with the filter (a mixed ESS gate), one noisy observation of the
+    five landmarks a filter."""
     import torch
 
     from tpuslam_torch.core.se2 import world_to_robot
     from tpuslam_torch.filters import PfConfig
     from tpuslam_torch.ops import pf_batch_cuda as pb
-    from tpuslam_torch.ops import resample_cuda as rs
 
     f32 = dict(dtype=torch.float32, device=dev)
     g = torch.Generator(device=dev).manual_seed(21)
@@ -135,13 +214,15 @@ def _pf_args(dev):
     z_true = world_to_robot(x0, lm)
     spread = torch.tensor([0.5, 0.5, 0.2], **f32)
 
-    p_rows = (x0[:, None] + spread[:, None]
-              * torch.randn((3, K2_N), generator=g, **f32)).contiguous()
-    lw = 2.0 * torch.randn(K2_N, generator=g, **f32)
-    z = (z_true + 0.3 * torch.randn(z_true.shape, generator=g, **f32))
-    k2 = (PfConfig(num_particles=K2_N, weight_mode="log",
-                   resample_method="merge"), 12345, 0.0, p_rows, lw,
-          z.contiguous())
+    k2 = {}
+    for n in K2_SIZES:
+        p_rows = (x0[:, None] + spread[:, None]
+                  * torch.randn((3, n), generator=g, **f32)).contiguous()
+        lw = 2.0 * torch.randn(n, generator=g, **f32)
+        z = (z_true + 0.3 * torch.randn(z_true.shape, generator=g, **f32))
+        k2[n] = (PfConfig(num_particles=n, weight_mode="log",
+                          resample_method="merge"), 12345, 0.0, p_rows, lw,
+                 z.contiguous())
 
     out = {}
     for name, (b, n) in (("k4", K4_SHAPE), ("k5b", K3B_SHAPE)):
@@ -160,20 +241,14 @@ def _pf_args(dev):
             out[name] = (cfg, 1, parts, log_w, st.lse, st.lse2, zb)
             continue
         bad, _, fire = pb._gate(cfg, st.lse, st.lse2)
-        slots = pb.wide_slots(log_w, st.lse, fire,
-                              torch.rand(b, generator=g, **f32))
-        t_hi = pb.wide_boundary(slots.cum, slots.fids, slots.valid,
-                                slots.inv_tot, slots.offs)
-        expanded = rs.resample_expand_seg(parts, t_hi, slots.fids,
-                                          slots.valid)
-        out[name] = (cfg, 1, parts, log_w, zb, bad, fire, slots.src,
-                     expanded)
+        out[name] = (cfg, parts, log_w, st.lse, zb, bad, fire,
+                     torch.rand(b, generator=g, **f32))
     return k2, out["k4"], out["k5b"]
 
 
-def _measure(tree: pathlib.Path) -> dict:
+def _measure(tree: pathlib.Path, share: pathlib.Path, label: str) -> dict:
     """The measurements of the module docstring, for the package of
-    ``tree``."""
+    ``tree``; boundaries are shared through ``share``."""
     sys.path.insert(0, str(tree))
     import torch
 
@@ -184,7 +259,8 @@ def _measure(tree: pathlib.Path) -> dict:
     from tpuslam_torch.ops import resample_cuda as rs
     from tpuslam_torch.utils import timed
 
-    device_ms = _own_profiling().device_ms
+    profiling = _own_profiling()
+    device_ms, profile_window = profiling.device_ms, profiling.profile_window
 
     pkg = pathlib.Path(tpuslam_torch.__file__).resolve().parent
     if pkg.parent != tree:
@@ -223,26 +299,91 @@ def _measure(tree: pathlib.Path) -> dict:
     out["k1_normals_err"] = _ekf_gap(kern, plain)
     out["k1_normals_digest"] = _digest(*kern[0], *kern[1:])
 
+    # K5a: each checkout's own boundaries, timed with the torch work
+    # before them; K3b and K5b then read the first turn's.
+    k2, k4, k5b = _pf_args(dev)
+    seg, bounds = {}, {}
     for n_fire in K3B_FIRING:
-        args = seg_args(dev, *K3B_SHAPE, n_fire)
+        particles, *k5a_in = seg_inputs(dev, *K3B_SHAPE, n_fire)
+        out[f"k5a_{n_fire}_ms"] = device_ms(lambda: _k5a(pb, *k5a_in), 20)
+        out[f"k5a_launch_{n_fire}_ms"] = device_ms(_k5a_launch(pb, k5a_in),
+                                                   20)
+        bounds[f"k3b_{n_fire}"] = _k5a(pb, *k5a_in)
+        seg[n_fire] = particles
+        if n_fire == K3B_FIRING[1]:
+            out[f"k5a_{n_fire}_ops_us"] = _op_times(
+                profile_window, lambda: _k5a(pb, *k5a_in))
+    cfg_w, parts_w, lw_w, lse_w, z_w, bad_w, fire_w, offs_w = k5b
+    bounds["k5b"] = _k5a(pb, lw_w, lse_w, fire_w, offs_w)
+    share.mkdir(parents=True, exist_ok=True)
+    torch.save(_valid_rows(bounds), share / f"{label}.pt")
+    common = share / "inputs.pt"
+    if not common.exists():
+        torch.save(_valid_rows(bounds), common)
+    bounds = _full_rows(torch.load(common), dev)
+
+    for n_fire in K3B_FIRING:
+        t_hi, fids, valid, _ = bounds[f"k3b_{n_fire}"]
+        args = (seg[n_fire], t_hi, fids, valid)
         out[f"k3b_{n_fire}_ms"] = device_ms(
             lambda: rs.resample_expand_seg(*args), 20)
         rows = rs.resample_expand_seg(*args)
-        out[f"k3b_{n_fire}_digest"] = _digest(rows[:, args[3]])
+        out[f"k3b_{n_fire}_digest"] = _digest(rows[:, valid])
 
-    k2, k4, k5b = _pf_args(dev)
-    for name, fn in (("k2b", lambda: pf_cuda.pf_step_rows(*k2)),
-                     ("k4", lambda: pb.pf_batch_step_rows(*k4)),
-                     ("k5b", lambda: pb.wide_stats_rows(*k5b))):
+    for n, args in k2.items():
+        p_nt = args[3].T.contiguous()
+        out[f"k2b_{n}_ms"] = device_ms(
+            lambda: pf_cuda._step_rows(*args, True, None, True, False), 20)
+        out[f"k2b_api_{n}_ms"] = device_ms(
+            lambda: pf_cuda.pf_fused_predict_weight_stats(
+                *args[:3], p_nt, *args[4:]), 20)
+        out[f"k2b_{n}_digest"] = _digest(tuple(pf_cuda._step_rows(
+            *args, True, None, True, False)[:2]))
+    # Modes 0 (noise off) and 2 (injected normals) at the smallest size.
+    args = k2[K2_SIZES[-1]]
+    normals = torch.randn((3, K2_SIZES[-1]), device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(7))
+    for mode, noise in (("off", (False, None)), ("normals", (True, normals))):
+        out[f"k2b_{mode}_digest"] = _digest(tuple(pf_cuda._step_rows(
+            *args, *noise, True, False)[:2]))
+
+    t_hi, fids, valid, src = bounds["k5b"]
+    expanded = rs.resample_expand_seg(parts_w, t_hi, fids, valid)
+    k5b_args = (cfg_w, 1, parts_w, lw_w, z_w, bad_w, fire_w, src, expanded)
+    for name, fn in (("k4", lambda: pb.pf_batch_step_rows(*k4)),
+                     ("k5b", lambda: pb.wide_stats_rows(*k5b_args))):
         out[f"{name}_ms"] = device_ms(fn, 20)
         out[f"{name}_digest"] = _digest(tuple(fn()))
+
+    # The loops: a profiled rollout of each after a warm-up one.
+    from tpuslam_torch.filters import PfConfig
+    from tpuslam_torch.ops import pf_batch_wide_rollout, pf_fused_rollout
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(0)
+
+    single = PfConfig(num_particles=K2_SIZES[0], weight_mode="log",
+                      resample_method="merge")
+    wide = PfConfig(num_particles=K3B_SHAPE[1], weight_mode="log",
+                    ess_threshold_frac=0.01)
+    for name, fn in (
+            ("single", lambda: pf_fused_rollout(single, gen(), LOOP_STEPS,
+                                                device=dev)),
+            ("wide", lambda: pf_batch_wide_rollout(
+                wide, gen(), K3B_SHAPE[0], LOOP_STEPS, device=dev))):
+        fn()
+        got = profile_window(fn, LOOP_STEPS)
+        out[f"{name}_ops_a_step"] = got["ops_per_step"]
+        out[f"{name}_busy_ms_a_step"] = got["busy_ms"] / LOOP_STEPS
+        out[f"{name}_wall_ms_a_step"] = got["wall_ms"] / LOOP_STEPS
     torch.cuda.synchronize()
     return out
 
 
 def main(argv: list[str]) -> int:
     if argv[:1] == ["--child"]:
-        print(json.dumps(_measure(pathlib.Path(argv[1]).resolve())))
+        print(json.dumps(_measure(pathlib.Path(argv[1]).resolve(),
+                                  pathlib.Path(argv[2]), argv[3])))
         return 0
     trees = []
     for arg in argv:
@@ -256,10 +397,12 @@ def main(argv: list[str]) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    shutil.rmtree(SHARE_DIR, ignore_errors=True)
     runs = {label: [] for label, _ in trees}
     for label, root in trees + trees[::-1]:
         proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--child", str(root)],
+            [sys.executable, os.path.abspath(__file__), "--child", str(root),
+             str(SHARE_DIR), label],
             cwd=root, capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             raise RuntimeError(f"{label} ({root}) failed:\n{proc.stderr}")
@@ -271,8 +414,31 @@ def main(argv: list[str]) -> int:
             f"{label} " + ", ".join(
                 f"{r[key]:.4f}" if isinstance(r[key], float) else str(r[key])
                 for r in runs[label]) for label, _ in trees), flush=True)
+    _count_boundaries(trees)
     print(f"on {smi}", flush=True)
     return 0
+
+
+def _count_boundaries(trees) -> None:
+    """Print, for each checkout after the first, the K5a boundaries (valid
+    lanes) that differ from the first checkout's, and where the slots
+    differ."""
+    import torch
+
+    first = trees[0][0]
+    ref = torch.load(SHARE_DIR / f"{first}.pt")
+    for label, _ in trees[1:]:
+        got = torch.load(SHARE_DIR / f"{label}.pt")
+        parts = []
+        for key, (rows, *slots) in ref.items():
+            o_rows, *o_slots = got[key]
+            if not all(torch.equal(a, b) for a, b in zip(slots, o_slots)):
+                parts.append(f"{key} slots differ")
+                continue
+            parts.append(f"{key} {int((rows != o_rows).sum())} of "
+                         f"{rows.numel():,}")
+        print(f"k5a boundaries of {label} differing from {first}'s: "
+              + "; ".join(parts), flush=True)
 
 
 if __name__ == "__main__":
