@@ -17,9 +17,11 @@ and the wide PF at 1024 x 10,000, 400 steps each; the fused PF rollout
 with ``merge_caps_kw=(("pass2", "compressed"),)`` and the wide PF with
 ``pass2="compressed"`` at the same sizes) with the
 kernels' launch counts set to 0 just before and read just after (and, on
-the batched paths, the host synchronisations counted, which must be 0),
-and times the kernels and the plain versions at the main paths' shapes,
-holding the timed outputs to the plain versions' or to their bands.  Each phase prints one line; a failing phase raises, so
+every particle-filter path, the host synchronisations counted, which must
+be 0: the single filter's merge gates on the device), and times the
+kernels and the plain versions at the main paths' shapes, holding the
+timed outputs to the plain versions' or to their bands.  Each phase
+prints one line; a failing phase raises, so
 the script exits non-zero and prints no result.  The second-to-last
 line is a JSON object describing each kernel; the last line is
 ``{"ok": true, "device": {...}}``.  It needs a CUDA device and imports no
@@ -294,8 +296,10 @@ def _rmse(x_true, x_est) -> float:
 def _pf_step_parity(dev) -> float:
     """8. The step kernel against its plain version at
     :data:`PF_STEP_CHECK`: K2b (with and without the reset flag, its
-    statistics written by its last block) and K2a.  Returns the largest
-    difference."""
+    statistics written by its last block), K2b reading its flags from a
+    device gate ``[take, restart]`` (bit-equal to the host flag's launch
+    on the same rows, and with ``take`` stepping the other rows), and K2a.
+    Returns the largest difference."""
     import torch
 
     from tpuslam_torch.ops import pf_cuda
@@ -312,6 +316,7 @@ def _pf_step_parity(dev) -> float:
         z = (z_true + 0.3 * torch.randn((5, 2), generator=g, **f32))
         normals = (torch.randn((3, n), generator=g, **f32)
                    if with_normals else None)
+        by_flag = {}
         for flag, with_stats in ((0.0, True), (1.0, True), (0.0, False)):
             args = (_pf_cfg(n), 12345, flag, p_rows, lw, z.contiguous(),
                     noise_on, normals, with_stats)
@@ -321,21 +326,51 @@ def _pf_step_parity(dev) -> float:
             err_pose, err_lw = max(err_pose, pose), max(err_lw, lw_gap)
             if with_stats:
                 _stats_agree(kern, plain)
+                by_flag[flag] = kern
+        other = torch.zeros_like(p_rows)  # the carried rows where take
+        for take, restart in ((False, False), (False, True), (True, True)):
+            gate = torch.tensor([take, restart], device=dev)
+            rows = (other, p_rows) if take else (p_rows, other)
+            args = (_pf_cfg(n), 12345, 0.0, rows[0], lw, z.contiguous(),
+                    noise_on, normals, True)
+            kern = pf_cuda.pf_step_rows(*args, gate=gate, p_alt=rows[1])
+            plain = pf_cuda.pf_step_rows_plain(*args, gate=gate,
+                                               p_alt=rows[1])
+            pose, lw_gap = _step_gap(kern, plain, "gated pf_step")
+            err_pose, err_lw = max(err_pose, pose), max(err_lw, lw_gap)
+            _stats_agree(kern, plain)
+            _require(all(torch.equal(a, b) for a, b in
+                         zip(kern, by_flag[float(restart)])),
+                     f"gated K2b [{take}, {restart}] differs from its host "
+                     f"flag's launch at {n}")
     torch.cuda.synchronize()
     _require(pf_cuda.ticket_count(dev) == 0, "K2b's ticket is not 0")
     shapes = ", ".join(f"{n:,} " + ("normals" if nrm else "Philox" if on
                                     else "noise off")
                        for n, on, nrm in PF_STEP_CHECK)
-    print(f"pf_step parity ({shapes}; stats, reset flag, no stats): "
+    print(f"pf_step parity ({shapes}; stats, reset flag, no stats, device "
+          f"gate [0,0] [0,1] [1,1] bit-equal to the host flag's): "
           f"max|kernel-plain| poses {err_pose:.3e} (atol 1e-4), log "
           f"weights {err_lw:.3e} (1e-4 + 1e-5|lw|); lse/lse2 rtol 1e-5, MAP "
           f"and estimate by the kernel's rule; ticket 0 after", flush=True)
     return max(err_pose, err_lw)
 
 
+def _sparse_front(u):
+    """Weights ``u`` scaled so that the first 80% hold a tenth of the
+    total (a sum of one)."""
+    k = int(0.8 * u.shape[0])
+    w = u.clone()
+    w[:k] *= 0.1 / w[:k].sum()
+    w[k:] *= 0.9 / w[k:].sum()
+    return w
+
+
 def _resample_profiles(dev):
-    """The flagship count, particle rows and three weight profiles, each
-    with its comb offset: ``(n, p_rows, [(name, w, offs), ...])``."""
+    """The flagship count, particle rows and four weight profiles, each
+    with its comb offset: ``(n, p_rows, [(name, w, offs), ...])``.  In the
+    last the first 80% of the particles share a tenth of the weight, so
+    K3b's slot ranges there span more particles than it stages."""
     import torch
 
     f32 = dict(dtype=torch.float32, device=dev)
@@ -350,46 +385,125 @@ def _resample_profiles(dev):
                                                        **f32), 0)),
         ("near-uniform", torch.softmax(0.1 * torch.randn(n, generator=g,
                                                          **f32), 0)),
-        ("400-in-one-block", block / block.sum()))
+        ("400-in-one-block", block / block.sum()),
+        ("sparse-front", _sparse_front(torch.rand(n, generator=g, **f32))))
     return n, p_rows, [(name, w, torch.rand(1, generator=g, **f32))
                        for name, w in profiles]
 
 
+def _k3_cases(dev):
+    """Phase 9's shapes ``(label, n, n_pad)``: the flagship, 100,000, a
+    ragged count (not a multiple of 4) and ``n_pad > n``."""
+    n = PF_SIZES[0]
+    return (("flagship", n, n), ("100,000", 100_000, 100_000),
+            ("ragged", 100_003, 100_003), ("n_pad > n", 99_999, 100_352))
+
+
+def _log_form(w, n: int):
+    """``(log_w, lse, lse2)`` of weights ``w`` (lanes from ``n`` on set to
+    0, which K3a must ignore): the gated K3a's inputs."""
+    import torch
+
+    lw = torch.log(w)
+    lw[n:] = 0.0
+    return (lw.contiguous(), torch.logsumexp(lw[:n], 0),
+            torch.logsumexp(2.0 * lw[:n], 0))
+
+
+def _gate_cases(lse, lse2, n: int):
+    """``(label, lse, lse2, ess_min, want)``: the gate firing, off, bad
+    normalizers not firing and bad ones firing (a threshold above n)."""
+    import torch
+
+    nan = torch.full_like(lse, float("nan"))
+    return (("firing", lse, lse2, float(n), [True, True]),
+            ("off", lse, lse2, 0.0, [False, False]),
+            ("bad", nan, lse2, float(n), [False, True]),
+            ("bad, threshold 2n", lse, nan, 2.0 * n, [True, True]))
+
+
 def _resample_parity(dev) -> tuple[float, float]:
-    """9. The resample kernels bit-equal to their plain versions at the
-    flagship count on three weight profiles.  Returns the largest
-    |kernel - plain| seen on the boundaries and on the expanded rows
-    (with ``merge_resample_rows``) across the profiles."""
+    """9. K3a in both forms and K3b bit-equal to their plain versions on
+    three weight profiles at the flagship count, at 100,000, at a ragged
+    count and with ``n_pad > n``: the weights form (``resample_boundary``,
+    the public merge's), the gated form on the log weights
+    (``gated_boundary``, the rollout's) with its gate equal to the twin's
+    expression, K3b ungated and gated, ``merge_resample_rows`` and
+    ``merge_resample_gated``.  The gate is held to its twin firing, off
+    and with bad normalizers, and a launch with the gate off leaves K3a's
+    and K3b's outputs untouched.  Returns the largest |kernel - plain|
+    seen on the boundaries and on the rows."""
     import torch
 
     from tpuslam_torch.ops import resample_cuda as rs
 
-    n, p_rows, profiles = _resample_profiles(dev)
+    n_full, p_full, profiles = _resample_profiles(dev)
     seen = []
     err_t = err_rows = 0.0
-    for name, w, offs in profiles:
-        wq, base, q_tot = rs.quantize_weights(w)
-        inv = 1.0 / q_tot
-        t_k = rs.resample_boundary(wq, base, inv, offs, n)
-        t_p = rs.resample_boundary_plain(wq, inv, offs, n)
-        err_t = max(err_t, float((t_k - t_p).abs().max()))
-        _require(torch.equal(t_k, t_p), f"{name}: boundaries differ")
-        out_k = rs.resample_expand(p_rows, t_k, n)
-        out_p = rs.resample_expand_plain(p_rows, t_p, n)
-        merged = rs.merge_resample_rows(p_rows, w, n, offs, device=dev)
-        merged_p = rs.merge_resample_rows_plain(p_rows, w, n, offs,
-                                                device=dev)
-        err_rows = max(err_rows, float((out_k - out_p).abs().max()),
-                       float((merged - merged_p).abs().max()))
-        _require(torch.equal(out_k, out_p), f"{name}: expanded rows differ")
-        _require(torch.equal(merged, out_k) and torch.equal(merged, merged_p),
-                 f"{name}: merge_resample_rows differs")
-        t_lo = torch.cat([t_p.new_zeros(1), t_p[:-1]])
-        seen.append(f"{name} {int((t_p > t_lo).sum())} survivors")
+    for label, n, n_pad in _k3_cases(dev):
+        p_rows = p_full[:, :n_pad].contiguous()
+        for name, w_full, offs in profiles:
+            w = w_full[:n_pad].clone()
+            w[n:] = 0.0
+            w = (w / w.sum()).contiguous()
+            what = f"{label} {name}"
+            t_k = rs.resample_boundary(w, n, offs)
+            t_p = rs.resample_boundary_plain(w, n, offs)
+            err_t = max(err_t, float((t_k - t_p).abs().max()))
+            _require(torch.equal(t_k, t_p), f"{what}: boundaries differ")
+            lw, lse, lse2 = _log_form(w, n)
+            for case, a, b, ess_min, want in _gate_cases(lse, lse2, n):
+                t_g, gate = rs.gated_boundary(lw, a, b, n, offs, ess_min)
+                t_gp, gate_p = rs.gated_boundary_plain(lw, a, b, n, offs,
+                                                       ess_min)
+                _require(torch.equal(gate, gate_p)
+                         and gate.tolist() == want,
+                         f"{what} {case}: gate {gate.tolist()}, twin "
+                         f"{gate_p.tolist()}, want {want}")
+                if want[0] and case == "firing":
+                    err_t = max(err_t, float((t_g - t_gp).abs().max()))
+                    _require(torch.equal(t_g, t_gp),
+                             f"{what}: gated boundaries differ")
+            out_k = rs.resample_expand(p_rows, t_k, n)
+            out_p = rs.resample_expand_plain(p_rows, t_p, n)
+            err_rows = max(err_rows, float((out_k - out_p).abs().max()))
+            _require(torch.equal(out_k, out_p), f"{what}: K3b rows differ")
+            merged = rs.merge_resample_rows(p_rows, w, n, offs, device=dev)
+            merged_p = rs.merge_resample_rows_plain(p_rows, w, n, offs,
+                                                    device=dev)
+            _require(torch.equal(merged, out_k)
+                     and torch.equal(merged_p, out_k),
+                     f"{what}: merge_resample_rows differs")
+            gated, gate = rs.merge_resample_gated(p_rows, lw, lse, lse2, n,
+                                                  offs, float(n))
+            gated_p, _ = rs.merge_resample_gated_plain(p_rows, lw, lse, lse2,
+                                                       n, offs, float(n))
+            err_rows = max(err_rows, float((gated - gated_p).abs().max()))
+            _require(torch.equal(gated, gated_p),
+                     f"{what}: the gated merge differs from its twin")
+            # The gate off: every launch leaves its output untouched.
+            t_out = torch.full_like(t_k, -7)
+            rows_out = torch.full_like(p_rows, 123.0)
+            _, off = rs.gated_boundary(lw, lse, lse2, n, offs, 0.0,
+                                       out=t_out)
+            rs.resample_expand(p_rows, t_k, n, gate=off, out=rows_out)
+            _require(off.tolist() == [False, False]
+                     and bool((t_out == -7).all())
+                     and bool((rows_out == 123.0).all()),
+                     f"{what}: a launch with the gate off wrote its output")
+            if label == "flagship":
+                t_lo = torch.cat([t_p.new_zeros(1), t_p[:-1]])
+                seen.append(f"{name} {int((t_p > t_lo).sum())} survivors")
     torch.cuda.synchronize()
-    print(f"resample parity at {n:,}: boundaries, expanded rows and "
-          f"merge_resample_rows bit-equal to plain ({', '.join(seen)}); "
-          f"max|kernel-plain| boundaries {err_t}, rows {err_rows}",
+    _require(rs.boundary_arrivals(dev) == 0,
+             "K3a's barrier arrivals are not 0")
+    print(f"resample parity at {', '.join(c[0] for c in _k3_cases(dev))} "
+          f"(flagship {n_full:,}): K3a given weights and gated on log "
+          f"weights, K3b ungated and gated, merge_resample_rows and the "
+          f"gated merge bit-equal to plain ({', '.join(seen)}); the gate "
+          f"equal to its twin firing, off and with bad normalizers; the gate "
+          f"off leaves K3a's and K3b's outputs untouched; max|kernel-plain| "
+          f"boundaries {err_t}, rows {err_rows}; K3a's barrier arrivals 0",
           flush=True)
     return err_t, err_rows
 
@@ -407,34 +521,53 @@ def _pf_bands(dev) -> None:
           flush=True)
 
 
-def _pf_main_path(dev) -> dict:
+def _pf_main_path(dev) -> tuple[dict, int, object]:
     """11. The main path as bench_pf_pallas runs it; only these launches
-    are counted.  Returns the launch counts by kernel name."""
+    are counted.  The merge gates on the device: K3a and K3b launch every
+    step, no host sync (``pf_cuda.sync_count`` and torch's sync debug
+    mode, with an ``.item()`` control), K2b's ticket and K3a's barrier
+    arrivals at 0
+    after.  The steps that fired are read once from the device after the
+    rollout (its gates).  Returns the launch counts by kernel name, that
+    firing count and the final state."""
     import torch
 
     from tpuslam_torch.ops import pf_cuda, pf_fused_rollout, resample_cuda
+    from tpuslam_torch.utils import count_host_syncs
 
+    with count_host_syncs() as control:
+        torch.ones(1, device=dev).item()
+    _require(control.count >= 1, "the host-sync counter saw no .item()")
     n = PF_SIZES[0]
+    gates = []
     pf_cuda.launch_count = pf_cuda.sync_count = 0
     resample_cuda.boundary_launch_count = 0
+    resample_cuda.boundary_weights_launch_count = 0
     resample_cuda.expand_launch_count = 0
     t0 = time.perf_counter()
-    final, (x_true, x_est) = pf_fused_rollout(_pf_cfg(n), _gen(dev, 0),
-                                              PF_STEPS, device=dev)
+    with count_host_syncs() as syncs:
+        final, (x_true, x_est) = pf_fused_rollout(
+            _pf_cfg(n), _gen(dev, 0), PF_STEPS, device=dev, gates=gates)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"pf_step": pf_cuda.launch_count,
                 "resample_boundary": resample_cuda.boundary_launch_count,
+                "resample_boundary_weights":
+                    resample_cuda.boundary_weights_launch_count,
                 "resample_expand": resample_cuda.expand_launch_count}
-    syncs = pf_cuda.sync_count
-    ticket = pf_cuda.ticket_count(dev)
-    _require(launches["pf_step"] == PF_STEPS, f"pf_step launches {launches}")
-    _require(syncs == PF_STEPS, f"PF main path: {syncs} host syncs")
-    _require(ticket == 0, f"K2b's ticket reads {ticket} after the rollout")
-    _require(launches["resample_boundary"] >= 1
-             and launches["resample_expand"]
-             == launches["resample_boundary"],
-             f"the resample kernels did not fire: {launches}")
+    fired = int(torch.stack(gates)[:, 0].sum())
+    tickets = (pf_cuda.ticket_count(dev),
+               resample_cuda.boundary_arrivals(dev))
+    # K3a runs on the gate: its weights form (the public merge's) not once.
+    _require(all(v == (0 if k == "resample_boundary_weights" else PF_STEPS)
+                 for k, v in launches.items()),
+             f"PF main-path launches {launches}")
+    _require(pf_cuda.sync_count == 0 and syncs.count == 0,
+             f"PF main path: {pf_cuda.sync_count} gate syncs, "
+             f"{syncs.count} host syncs")
+    _require(tickets == (0, 0),
+             f"K2b ticket, K3a arrivals {tickets} after")
+    _require(0 < fired < PF_STEPS, f"the gate fired {fired} times")
     _require(final.particles.shape == (n, 3)
              and bool(final.particles.isfinite().all())
              and bool(final.weights.isfinite().all()),
@@ -443,10 +576,93 @@ def _pf_main_path(dev) -> dict:
     _require(PF_BAND[0] < rmse < PF_BAND[1],
              f"PF main-path RMSE {rmse} off-band")
     print(f"pf_fused_rollout(device='cuda') {n:,}x{PF_STEPS}: rmse "
-          f"{rmse:.4f}, launches {launches}, host syncs {syncs}, K2b "
-          f"ticket {ticket} after, first call {wall * 1e3:.1f} ms (truth "
-          f"table built)", flush=True)
-    return launches
+          f"{rmse:.4f}, launches {launches}, fired {fired} (read once from "
+          f"the device after), host syncs {pf_cuda.sync_count} (gate) and "
+          f"{syncs.count} (sync debug mode; control .item(): "
+          f"{control.count}), K2b ticket and K3a arrivals {tickets} after, "
+          f"first call {wall * 1e3:.1f} ms (truth table built)", flush=True)
+    return launches, fired, final
+
+
+def _gated_loop_parity(dev, fired: int, final) -> None:
+    """11b. The gated loop against its twin, step by step on the card.
+    With Philox noise and phase 11's draws the kernels' steps reproduce
+    phase 11's rollout bit for bit (the same final particles); at every
+    step the gate and, where it fires, the boundaries and resampled rows
+    of the kernels equal the twins' on the kernels' own state, and the
+    twins' gate fires as often as phase 11's device count.  With noise off,
+    from a spread cloud, the same every step for :data:`PF_STEPS` steps
+    with the gate mixed, and K2b's step (from the gate) within its
+    tolerance of the twin's."""
+    import torch
+
+    from tpuslam_torch.ops import pf_cuda, pf_fused_init
+    from tpuslam_torch.ops import resample_cuda as rs
+
+    n = PF_SIZES[0]
+    cfg = _pf_cfg(n)
+    f32 = dict(dtype=torch.float32, device=dev)
+    ess_min = pf_cuda.ess_min(cfg)
+
+    def merge_both(fs, offs):
+        args = (fs.particles, fs.log_w, fs.lse, fs.lse2, n, offs, ess_min)
+        rows, gate = rs.merge_resample_gated(*args)
+        rows_p, gate_p = rs.merge_resample_gated_plain(*args)
+        _require(torch.equal(gate, gate_p), f"gate {gate.tolist()} against "
+                 f"the twin's {gate_p.tolist()}")
+        if bool(gate[0]):
+            _require(torch.equal(rows, rows_p), "gated rows differ")
+        return bool(gate_p[0])
+
+    # Noise on: phase 11's rollout, its draws made as the rollout makes
+    # them (comb offsets, then scaled observation noise).
+    g = _gen(dev, 0)
+    offs = torch.rand((PF_STEPS,), generator=g, **f32)
+    obs = torch.randn((PF_STEPS, 5, 2), generator=g, **f32) * torch.tensor(
+        cfg.r_std, **f32)
+    fs = pf_fused_init(cfg, device=dev)
+    seed, twin_fired = pf_cuda.SEED0, 0
+    for k in range(PF_STEPS):
+        twin_fired += merge_both(fs, offs[k])
+        fs, _ = pf_cuda.pf_fused_step_stats(cfg, fs, None, seed,
+                                            offs=offs[k], obs_noise=obs[k])
+        seed += pf_cuda.SEED_STEP
+    _require(torch.equal(fs.particles.T, final.particles),
+             "the stepped rollout left phase 11's path")
+    _require(twin_fired == fired, f"the twin's gate fired {twin_fired} "
+             f"times, the device's {fired}")
+
+    # Noise off from a spread cloud with random log weights.
+    gen = _gen(dev, 5)
+    x0, _ = _truth_view(dev)
+    spread = torch.tensor([0.5, 0.5, 0.2], **f32)[:, None]
+    fs = fs._replace(
+        particles=(x0[:, None] + spread * torch.randn((3, n), generator=gen,
+                                                      **f32)).contiguous(),
+        log_w=2.0 * torch.randn(n, generator=gen, **f32))
+    fs = fs._replace(lse=torch.logsumexp(fs.log_w, 0),
+                     lse2=torch.logsumexp(2.0 * fs.log_w, 0))
+    zero = torch.zeros(5, 2, **f32)
+    off_fired, err = 0, 0.0
+    for k in range(PF_STEPS):
+        off_fired += merge_both(fs, offs[k])
+        nxt, _ = pf_cuda.pf_fused_step_stats(cfg, fs, None, 0, False,
+                                             offs=offs[k], obs_noise=zero)
+        plain, _ = pf_cuda.pf_fused_step_stats_plain(
+            cfg, fs, None, 0, False, offs=offs[k], obs_noise=zero)
+        err = max(err, *_step_gap((nxt.particles, nxt.log_w, None),
+                                  (plain.particles, plain.log_w, None),
+                                  "noise-off gated step"))
+        fs = nxt
+    _require(0 < off_fired < PF_STEPS,
+             f"noise off: the gate fired {off_fired} times")
+    torch.cuda.synchronize()
+    print(f"gated loop against its twin, stepped, {n:,}x{PF_STEPS}: Philox "
+          f"(phase 11's draws) reproduces phase 11's final particles bit "
+          f"for bit, gate, boundaries and rows bit-equal to the twins' every "
+          f"step, twin fired {twin_fired} = device {fired}; noise off from a "
+          f"spread cloud: the same, fired {off_fired}, K2b's step "
+          f"max|kernel-plain| {err:.3e} (atol 1e-4)", flush=True)
 
 
 def _pf_timings(dev, smi):
@@ -515,7 +731,8 @@ def _profile(label: str, call, top_n: int = 4,
     ops = ("" if steps is None
            else f", {got['ops_per_step']:.1f} torch ops a step")
     print(f"profile {label}: wall {wall_ms:.3f} ms, device busy "
-          f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%){ops}; "
+          f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), host waiting "
+          f"for the device {got['sync_ms']:.3f} ms{ops}; "
           + "; ".join(f"{k[:40]} {v:.3f} ms" for k, v in got["top"][:top_n]),
           flush=True)
 
@@ -530,11 +747,13 @@ def _pf_profile(dev) -> None:
 
 
 def _pf_kernel_times(dev, smi, final, launches: dict, err: float,
-                     err_resample: tuple[float, float]):
+                     err_resample: tuple[float, float], fired: int):
     """14. Each kernel alone at the flagship's shapes, on the flagship
     rollout's final state, beside its plain version, its bound and,
-    where one PyTorch call computes the same function, that call.
-    Returns the three kernels' entries of the ``kernels`` line."""
+    where one PyTorch call computes the same function, that call.  K3a
+    and K3b are timed firing (the gate forced on) and idle (off); K3a
+    also on given weights, the public merge's form.  Returns the
+    kernels' entries of the ``kernels`` line."""
     import torch
 
     from tpuslam_torch.ops import pf_cuda, pf_fused_init
@@ -546,39 +765,51 @@ def _pf_kernel_times(dev, smi, final, launches: dict, err: float,
     fs = pf_fused_init(cfg, final, device=dev)
     p_rows, lw = fs.particles, fs.log_w
     offs = torch.full((1,), 0.5, dtype=torch.float32, device=dev)
-    wq, base, q_tot = rs.quantize_weights(torch.exp(lw - fs.lse))
-    inv = 1.0 / q_tot
-    t_hi = rs.resample_boundary(wq, base, inv, offs, n)
+    on = (lw, fs.lse, fs.lse2, n, offs, float(n))
+    idle = on[:-1] + (0.0,)
+    w = torch.exp(lw - fs.lse)
+    t_hi, gate = rs.gated_boundary(*on)
+    _, gate_off = rs.gated_boundary(*idle)
+    _require(gate.tolist() == [True, True]
+             and gate_off.tolist() == [False, False], "forced gates")
     counts = torch.diff(t_hi, prepend=t_hi.new_zeros(1)).to(torch.int64)
     step_args = (cfg, 1, 0.0, p_rows, lw, _truth_view(dev)[1])
+    k3a_bound = _bound(8 * n + 16, K5A_OPS * n)
     kernels = [
         ("pf_step", "tpuslam_torch/csrc/pf_step.cu",
          "tpuslam/ops/pf_pallas.py:144",
          lambda: pf_cuda.pf_step_rows(*step_args),
          lambda: pf_cuda.pf_step_rows_plain(*step_args), None,
-         _bound(32 * n + 40 + 4 * pf_cuda._STATS_LEN, PF_STEP_OPS * n), err),
+         _bound(32 * n + 40 + 4 * pf_cuda._STATS_LEN, PF_STEP_OPS * n), err,
+         launches["pf_step"]),
         ("resample_boundary", "tpuslam_torch/csrc/resample.cu",
          "tpuslam/ops/resample_pallas.py:883",
-         lambda: rs.resample_boundary(wq, base, inv, offs, n),
-         lambda: rs.resample_boundary_plain(wq, inv, offs, n), None,
-         _bound(8 * n + 4 * -(-n // rs.BLOCK) + 8, BOUNDARY_OPS * n),
-         err_resample[0]),
+         lambda: rs.gated_boundary(*on),
+         lambda: rs.gated_boundary_plain(*on), None, k3a_bound,
+         err_resample[0], launches["resample_boundary"]),
+        ("resample_boundary_weights", "tpuslam_torch/csrc/resample.cu",
+         "tpuslam/ops/resample_pallas.py:883",
+         lambda: rs.resample_boundary(w, n, offs),
+         lambda: rs.resample_boundary_plain(w, n, offs), None,
+         _bound(8 * n + 4, (K5A_OPS - 2) * n), err_resample[0],
+         launches["resample_boundary_weights"]),
         ("resample_expand", "tpuslam_torch/csrc/resample.cu",
          "tpuslam/ops/resample_pallas.py:235",
-         lambda: rs.resample_expand(p_rows, t_hi, n),
+         lambda: rs.resample_expand(p_rows, t_hi, n, gate=gate),
          lambda: rs.resample_expand_plain(p_rows, t_hi, n),
          lambda: torch.repeat_interleave(p_rows, counts, dim=1,
                                          output_size=n),
-         _bound(28 * n, 0), err_resample[1]),
+         _bound(28 * n, 0), err_resample[1], launches["resample_expand"]),
     ]
     entries = []
-    for name, src, replaces, fn, plain_fn, lib_fn, bound, max_err in kernels:
+    for name, src, replaces, fn, plain_fn, lib_fn, bound, max_err, \
+            count in kernels:
         ms = device_ms(fn, 50)
         plain_ms = device_ms(plain_fn, 5)
         library_ms = None if lib_fn is None else device_ms(lib_fn, 20)
         entries.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": count,
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound[0], "bound_by": bound[1],
             "library_ms": library_ms})
@@ -586,8 +817,25 @@ def _pf_kernel_times(dev, smi, final, launches: dict, err: float,
               f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})"
               + ("" if library_ms is None
                  else f", torch.repeat_interleave {library_ms:.4f} ms")
-              + f"; {launches[name]} launches in the main path; on {smi}",
-              flush=True)
+              + f"; {count} launches in the main path"
+              + (f" ({fired} firing)" if name.startswith("resample_")
+                 and count else "") + f"; on {smi}", flush=True)
+    # The gate off: every block exits after reading it.
+    ms_a = device_ms(lambda: rs.gated_boundary(*idle), 50)
+    ms_b = device_ms(lambda: rs.resample_expand(p_rows, t_hi, n,
+                                                gate=gate_off), 50)
+    print(f"kernel resample_boundary idle (gate off) at {n:,}: {ms_a:.4f} "
+          f"ms a launch; resample_expand idle {ms_b:.4f} ms; on {smi}",
+          flush=True)
+    # K3b where a few particles take most slots (phase 9's heavy tail).
+    _, _, profiles = _resample_profiles(dev)
+    w_heavy, offs_heavy = profiles[0][1], profiles[0][2]
+    t_heavy = rs.resample_boundary(w_heavy, n, offs_heavy)
+    top = int(torch.diff(t_heavy, prepend=t_heavy.new_zeros(1)).max())
+    ms_h = device_ms(lambda: rs.resample_expand(p_rows, t_heavy, n), 50)
+    print(f"kernel resample_expand at {n:,}, {profiles[0][0]} weights (one "
+          f"particle takes {top:,} slots): {ms_h:.4f} ms a launch; on {smi}",
+          flush=True)
     # The same kernel without the reductions (K2a), which the convenience
     # call pf_fused_predict_weight launches; the main path does not.
     ms = device_ms(lambda: pf_cuda.pf_step_rows(*step_args,
@@ -602,15 +850,18 @@ def _pf_kernel_times(dev, smi, final, launches: dict, err: float,
 
 
 def _pf_phases(dev, smi):
-    """The PF path's phases, in order; returns its kernels' entries."""
+    """The PF path's phases, in order; returns its kernels' entries and
+    the main path's firing steps."""
     err_step = _pf_step_parity(dev)
     err_resample = _resample_parity(dev)
     _pf_bands(dev)
-    launches = _pf_main_path(dev)
+    launches, fired, main_final = _pf_main_path(dev)
+    _gated_loop_parity(dev, fired, main_final)
     final, err_timed = _pf_timings(dev, smi)
     _pf_profile(dev)
     return _pf_kernel_times(dev, smi, final, launches,
-                            max(err_step, err_timed), err_resample)
+                            max(err_step, err_timed), err_resample,
+                            fired), fired
 
 
 # ---------------------------------------------------------------------------
@@ -1207,8 +1458,9 @@ def _merge_paths_parity(dev) -> tuple[float, float]:
     """23. The merge's compressed path at the flagship count on phase 9's
     three weight profiles: K3c's stack and counts and K3d's rows equal
     their twins bit for bit, and K3b's rows; both ``pass2`` merges equal
-    the default.  Returns the largest |kernel - plain| of K3c and of
-    K3d."""
+    the default, and so do both gated merges; with the gate off K3c writes
+    zero counts only and K3d nothing.  Returns the largest |kernel -
+    plain| of K3c and of K3d."""
     import torch
 
     from tpuslam_torch.ops import resample_cuda as rs
@@ -1217,8 +1469,7 @@ def _merge_paths_parity(dev) -> tuple[float, float]:
     err_c = err_d = 0.0
     seen = []
     for name, w, offs in profiles:
-        wq, base, q_tot = rs.quantize_weights(w)
-        t_k = rs.resample_boundary(wq, base, 1.0 / q_tot, offs, n)
+        t_k = rs.resample_boundary(w, n, offs)
         stack = rs.compact_particles(p_rows, t_k)
         stack_p = rs.compact_particles_plain(p_rows, t_k)
         err_c = max(err_c, _max_gap(zip(stack, stack_p)))
@@ -1230,16 +1481,26 @@ def _merge_paths_parity(dev) -> tuple[float, float]:
         _require(torch.equal(out, out_p), f"{name}: K3d rows differ")
         default = rs.merge_resample_rows(p_rows, w, n, offs, device=dev)
         _require(torch.equal(out, default), f"{name}: K3d differs from K3b")
+        lw, lse, lse2 = _log_form(w, n)
+        gated = {}
         for pass2 in rs.PASS2:
             got = rs.merge_resample_rows(p_rows, w, n, offs, device=dev,
                                          pass2=pass2)
             _require(torch.equal(got, default),
                      f"{name}: merge pass2={pass2} differs")
+            gated[pass2], _ = rs.merge_resample_gated(
+                p_rows, lw, lse, lse2, n, offs, float(n), pass2=pass2)
+        _require(torch.equal(gated["compressed"], gated["windowed"]),
+                 f"{name}: the gated merges differ")
+        _, off = rs.gated_boundary(lw, lse, lse2, n, offs, 0.0)
+        _require(not bool(rs.compact_particles(p_rows, t_k, gate=off)[2]
+                          .any()), f"{name}: K3c counted with the gate off")
         seen.append(f"{name} {int(stack[2].sum()):,} survivors")
     torch.cuda.synchronize()
     print(f"merge paths parity at {n:,}: K3c stack and counts and K3d rows "
           f"bit-equal to plain and K3d to K3b, both pass2 merges equal the "
-          f"default ({', '.join(seen)}); max|kernel-plain| K3c {err_c}, K3d "
+          f"default, both gated merges equal, K3c's counts 0 with the gate "
+          f"off ({', '.join(seen)}); max|kernel-plain| K3c {err_c}, K3d "
           f"{err_d}", flush=True)
     return err_c, err_d
 
@@ -1305,9 +1566,9 @@ def _wide_compressed_parity(dev) -> tuple[float, float]:
 def _merge_main_paths(dev, default_fired: int) -> dict:
     """25. The compressed paths through the user's calls, the counts set to
     0 just before each and read just after: ``pf_fused_rollout`` with
-    :data:`MERGE_KW` at 2,097,152 x 400 (K3a, K3c and K3d once a firing
-    step, as often as the default path's K3a in phase 11; no K3b; one host
-    sync a step) and ``pf_batch_wide_rollout(pass2="compressed")`` at
+    :data:`MERGE_KW` at 2,097,152 x 400 (K3a, K3c and K3d every step, on
+    the device's gate, which fires as often as in phase 11; no K3b; 0 host
+    syncs) and ``pf_batch_wide_rollout(pass2="compressed")`` at
     1024 x 10,000 x 400 (400 launches each of the segmented K3c and K3d, no
     segmented K3b, 0 host syncs).  Returns the launch counts."""
     import torch
@@ -1318,37 +1579,40 @@ def _merge_main_paths(dev, default_fired: int) -> dict:
     from tpuslam_torch.ops import resample_cuda as rs
     from tpuslam_torch.utils import count_host_syncs
 
+    with count_host_syncs() as control:
+        torch.ones(1, device=dev).item()
+    _require(control.count >= 1, "the host-sync counter saw no .item()")
     n = PF_SIZES[0]
+    gates = []
     pf_cuda.launch_count = pf_cuda.sync_count = 0
     rs.boundary_launch_count = rs.expand_launch_count = 0
     rs.compact_launch_count = rs.expand_compressed_launch_count = 0
-    final, (x_true, x_est) = pf_fused_rollout(
-        _pf_cfg(n), _gen(dev, 0), PF_STEPS, device=dev,
-        merge_caps_kw=MERGE_KW)
+    with count_host_syncs() as syncs:
+        final, (x_true, x_est) = pf_fused_rollout(
+            _pf_cfg(n), _gen(dev, 0), PF_STEPS, device=dev,
+            merge_caps_kw=MERGE_KW, gates=gates)
     torch.cuda.synchronize()
     single = {"pf_step": pf_cuda.launch_count,
               "resample_boundary": rs.boundary_launch_count,
               "resample_expand": rs.expand_launch_count,
               "compact": rs.compact_launch_count,
               "expand_compressed": rs.expand_compressed_launch_count}
-    syncs = pf_cuda.sync_count
+    fired = int(torch.stack(gates)[:, 0].sum())
     _require(single["resample_boundary"] == single["compact"]
-             == single["expand_compressed"] == default_fired
-             and single["resample_expand"] == 0
-             and single["pf_step"] == PF_STEPS,
-             f"compressed PF launches {single}, default fired "
-             f"{default_fired}")
-    _require(syncs == PF_STEPS, f"compressed PF: {syncs} host syncs")
+             == single["expand_compressed"] == single["pf_step"] == PF_STEPS
+             and single["resample_expand"] == 0 and fired == default_fired,
+             f"compressed PF launches {single}, fired {fired}, default "
+             f"fired {default_fired}")
+    _require(pf_cuda.sync_count == 0 and syncs.count == 0,
+             f"compressed PF: {pf_cuda.sync_count} gate syncs, "
+             f"{syncs.count} host syncs")
     _require(bool(final.particles.isfinite().all()), "PF final state")
     rmse = _rmse(x_true, x_est)
     _require(PF_BAND[0] < rmse < PF_BAND[1], f"compressed PF RMSE {rmse}")
     print(f"pf_fused_rollout(device='cuda', merge_caps_kw={MERGE_KW}) "
-          f"{n:,}x{PF_STEPS}: rmse {rmse:.4f}, launches {single}, host "
-          f"syncs {syncs}", flush=True)
-
-    with count_host_syncs() as control:
-        torch.ones(1, device=dev).item()
-    _require(control.count >= 1, "the host-sync counter saw no .item()")
+          f"{n:,}x{PF_STEPS}: rmse {rmse:.4f}, launches {single}, fired "
+          f"{fired} (phase 11: {default_fired}), host syncs "
+          f"{syncs.count}", flush=True)
     b, n = WIDE_MAIN
     pb.wide_boundary_launch_count = pb.wide_stats_launch_count = 0
     rs.expand_seg_launch_count = rs.compact_seg_launch_count = 0
@@ -1725,10 +1989,8 @@ def main() -> int:
         err_timed.items()) + " (atol 1e-3 poses, rtol 1e-4 cov)",
         flush=True)
 
-    pf_entries = _pf_phases(dev, smi)
+    pf_entries, default_fired = _pf_phases(dev, smi)
     pf_entries += _batch_phases(dev, smi)
-    default_fired = next(e["launches"] for e in pf_entries
-                         if e["name"] == "resample_boundary")
     pf_entries += _merge_phases(dev, smi, default_fired)
 
     b, n = FLAGSHIP

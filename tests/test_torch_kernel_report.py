@@ -174,10 +174,16 @@ def test_floors_of_a_loop():
     ("void <unnamed>::wide_boundary_kernel(const float *, const float *, "
      "const unsigned char *, const float *, int *, int *, unsigned char *, "
      "int *, int, int)", "wide_boundary_kernel"),
+    ("void <unnamed>::boundary_kernel<true>(const float *, const float *, "
+     "const float *, float, unsigned char *, const float *, int *, int, "
+     "int)", "boundary_"),
+    ("void <unnamed>::expand_range_kernel(const float *, const int *, const "
+     "unsigned char *, float *, int, int)", "expand_range_kernel"),
 ])
 def test_report_counts_k1_and_the_segmented_expand(demangled, prefix):
-    """K1 in the flagship's mode, the segmented K3b and K5a are among the
-    kernels whose opcodes (and loops) the report prints."""
+    """K1 in the flagship's mode, the segmented K3b, K5a and the single
+    filter's K3a and K3b are among the kernels whose opcodes (and loops)
+    the report prints."""
     assert prefix in kr.SASS_KERNELS
     assert kr._short(demangled).startswith(prefix)
     others = [p for p in kr.SASS_KERNELS if p != prefix]

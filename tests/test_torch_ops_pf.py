@@ -219,7 +219,7 @@ def test_rollout_matches_jax_interpret(rng):
     final, (tx, test) = pf_fused_rollout(cfg, None, n_steps, state0,
                                          noise_on=False, device="cpu",
                                          offs=offs, obs_noise=np.stack(obs))
-    assert pf_cuda.sync_count - before == n_steps
+    assert pf_cuda.sync_count - before == 0  # the merge gates on the device
     np.testing.assert_allclose(tx.numpy(), np.asarray(jx), atol=1e-5)
     np.testing.assert_allclose(test.numpy(), np.asarray(jest), atol=1e-4)
     np.testing.assert_allclose(final.particles.numpy(),

@@ -198,8 +198,7 @@ def test_generator_offset_and_kernel_wrappers_on_cpu(rng):
     a = merge_resample_rows(p, w, n, g1, device="cpu")
     b = merge_resample_rows_plain(p, w, n, offs, device="cpu")
     assert torch.equal(a, b)
-    wq, base, q_tot = quantize_weights(w)
-    t = resample_boundary(wq, base, 1.0 / q_tot, offs, n)
+    t = resample_boundary(w, n, offs)
     assert torch.equal(resample_expand(p, t, n), a)
     assert (resample_cuda.boundary_launch_count,
             resample_cuda.expand_launch_count) == before

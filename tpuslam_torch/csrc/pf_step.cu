@@ -7,9 +7,9 @@
 // landmarks are moved into its frame and compared with the observation,
 // and the summed log-likelihood is added to its log weight
 // (particle_filter.py:156-198).  With STATS, a flag resets the incoming
-// log weights to uniform (the reference's NaN->uniform reset, applied in
-// the pass) and the launch ends with the step's statistics written by
-// the kernel itself:
+// log weights to uniform (the reference's NaN->uniform reset, or the
+// restart after a resample, applied in the pass) and the launch ends with
+// the step's statistics written by the kernel itself:
 //   stats[0:10] = [lse, lse2, x_map, y_map, yaw_map, best_lw, best index,
 //                  x_est, y_est, yaw_est]
 // with lse = logsumexp(lw'), lse2 = logsumexp(2 lw'), the MAP particle the
@@ -51,6 +51,13 @@
 // (concurrent streams would share them).  A launch on one stream after
 // another always finds the ticket at 0, and so does a CUDA graph of the
 // loop.
+//
+// The flags come from the host (PfParams::flag) or, where the caller
+// gives the gate, from the device: gate = [take, restart], two bytes that
+// the merge resample's K3a wrote (resample.cu), so the single filter's
+// merge loop takes no host decision.  take reads the particles from
+// p_alt (the resampled rows) in place of p_in, as K5b reads its expanded
+// rows; restart is the flag.  Neither changes the math.
 //
 // Modes: 0 = noise off (builtin sinf/cosf, for parity with the plain
 // path), 1 = Philox noise, 2 = caller-supplied standard normals of shape
@@ -162,6 +169,8 @@ pf_step_kernel(const float* __restrict__ p_in,
                const float* __restrict__ lw_in, const float* __restrict__ z,
                const float* __restrict__ normals, float* __restrict__ p_out,
                float* __restrict__ lw_out, float* __restrict__ stats,
+               const unsigned char* __restrict__ gate,
+               const float* __restrict__ p_alt,
                const __grid_constant__ PfParams prm) {
   constexpr int P = kPer;
   __shared__ float s_row[kPartStride];
@@ -169,10 +178,14 @@ pf_step_kernel(const float* __restrict__ p_in,
   const int n = static_cast<int>(prm.n);
   const int t = threadIdx.x;
   const int j = blockIdx.x * kSpan + P * t;
+  bool reset = STATS && prm.flag > 0.0f;
+  if (STATS && gate != nullptr) {
+    reset = gate[1] != 0;
+    if (gate[0] != 0) p_in = p_alt;
+  }
   const bool vec = (n & 3) == 0 && aligned16(p_in) && aligned16(lw_in) &&
                    aligned16(p_out) && aligned16(lw_out) &&
                    (MODE != kNoiseNormals || aligned16(normals));
-  const bool reset = STATS && prm.flag > 0.0f;
 
   float x[P], y[P], yaw[P], lw[P], n0[P], n1[P], n2[P], acc[P];
   int idx[P];
@@ -265,13 +278,14 @@ template <int MODE>
 void launch(bool with_stats, unsigned grid, cudaStream_t stream,
             const float* p_in, const float* lw_in, const float* z,
             const float* normals, float* p_out, float* lw_out, float* stats,
+            const unsigned char* gate, const float* p_alt,
             const PfParams& prm) {
   if (with_stats) {
     pf_step_kernel<MODE, true><<<grid, kThreads, 0, stream>>>(
-        p_in, lw_in, z, normals, p_out, lw_out, stats, prm);
+        p_in, lw_in, z, normals, p_out, lw_out, stats, gate, p_alt, prm);
   } else {
     pf_step_kernel<MODE, false><<<grid, kThreads, 0, stream>>>(
-        p_in, lw_in, z, normals, p_out, lw_out, stats, prm);
+        p_in, lw_in, z, normals, p_out, lw_out, stats, gate, p_alt, prm);
   }
 }
 
@@ -279,28 +293,32 @@ void launch(bool with_stats, unsigned grid, cudaStream_t stream,
 
 // C entry point for ctypes.  p_in/p_out: (3, n) rows; lw_in/lw_out: (n,);
 // z: (n_lm, 2) observation on the device; normals: (3, n) in mode 2, else
-// unused; stats: (10,) when with_stats (the layout above).  Launches on
-// `stream` and returns cudaGetLastError() (0 when the launch was
-// accepted); never synchronises.
+// unused; stats: (10,) when with_stats (the layout above); gate: null (the
+// flag from params) or two bytes [take, restart] on the device, with
+// p_alt: (3, n) the rows taken where take is set (with_stats only).
+// Launches on `stream` and returns cudaGetLastError() (0 when the launch
+// was accepted); never synchronises.
 extern "C" int tpuslam_pf_step(const float* p_in, const float* lw_in,
                                const float* z, const float* normals,
                                float* p_out, float* lw_out, float* stats,
                                const void* params, int mode, int with_stats,
+                               const unsigned char* gate, const float* p_alt,
                                void* stream) {
   const PfParams& p = *static_cast<const PfParams*>(params);
   if (p.n < 1 || p.n >= (1LL << 24) || p.n_lm < 0 ||
       p.n_lm > kMaxLandmarks || mode < 0 || mode > 2 ||
       (mode == 2 && normals == nullptr) ||
-      (with_stats && stats == nullptr)) {
+      (with_stats && stats == nullptr) ||
+      (gate != nullptr && (!with_stats || p_alt == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const unsigned grid = static_cast<unsigned>((p.n + kSpan - 1) / kSpan);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool st = with_stats != 0;
   switch (mode) {
-    case 0: launch<0>(st, grid, s, p_in, lw_in, z, normals, p_out, lw_out, stats, p); break;
-    case 1: launch<1>(st, grid, s, p_in, lw_in, z, normals, p_out, lw_out, stats, p); break;
-    default: launch<2>(st, grid, s, p_in, lw_in, z, normals, p_out, lw_out, stats, p); break;
+    case 0: launch<0>(st, grid, s, p_in, lw_in, z, normals, p_out, lw_out, stats, gate, p_alt, p); break;
+    case 1: launch<1>(st, grid, s, p_in, lw_in, z, normals, p_out, lw_out, stats, gate, p_alt, p); break;
+    default: launch<2>(st, grid, s, p_in, lw_in, z, normals, p_out, lw_out, stats, gate, p_alt, p); break;
   }
   return static_cast<int>(cudaGetLastError());
 }

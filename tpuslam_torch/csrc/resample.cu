@@ -9,59 +9,103 @@
 // The selection law: particle j owns the output slots [t_{j-1}, t_j) with
 // t_j = clip(ceil(n * (cum_j * inv_tot) - offs), 0, n) and t_{n-1} forced
 // to n, where cum is the exact-integer prefix of the weights quantized to
-// multiples of 2^-20 of their total.  The quantized weights wq, the
-// per-block exclusive bases and inv_tot = 1 / q_tot are computed once by
-// plain torch outside the kernels (ops/resample_cuda.py), as XLA computed
-// them around the TPU kernels, so kernel and plain version consume the
-// same integers.
+// multiples of 2^-20 of their float total, and inv_tot = 1 / q_tot, the
+// reciprocal of the quantized total.
 //
-// What bounds it on an H100: bytes.  Pass 1 reads 4 bytes of wq and
-// writes 4 bytes of t a lane; pass 2 reads the 12 bytes of the selected
-// particle and writes 12 bytes a slot, with a binary search over t that
-// the 50 MB L2 holds at the sizes the path runs (8 MB at 2,097,152
-// particles).  Arithmetic is a few dozen integer and float operations a
-// lane.  So the design is plain coalesced loads and stores:
-//   * pass 1: one block of 1024 threads per 1024-lane block; an exact
-//     int32 warp-shuffle prefix plus the block's base gives cum (integers
-//     below 2^24 convert to float exactly); the boundary law runs with
-//     __fmul_rn / __fsub_rn, so nvcc cannot contract it into an FMA and
-//     the boundaries equal the plain version's bit for bit;
-//   * pass 2: one thread per output slot finds its source, the first j
-//     with t_j > i (t is non-decreasing and t_{n-1} = n), and copies the
-//     three float32 values, so the values are bit-exact by construction.
-// The TPU's static caps (survivors per tile, window blocks per output
-// tile), its bf16 three-way splits for one-hot matmuls and its XLA
-// fallback have no counterpart: every weight profile, dense or a single
-// survivor, takes the same two launches.
+// Pass 1 (K3a) takes the weights themselves (the public merge), or the
+// single filter's log weights and their normalizers with its ESS gate
+// (the fused rollout's step), and computes everything from there: no
+// torch op runs before it.  Its work has two grid-wide dependencies: the
+// float total of the weights before any lane quantizes, and q_tot, the
+// sum of the quantized integers, before any boundary.  A grid has no
+// order, so K3a is one cooperative launch (every block resident at once,
+// at most eight 256-thread blocks an SM, each looping over tiles) in three
+// passes over the row (the second and third read it again, from L2 at the
+// sizes the path runs: 8 MB at 2,097,152 particles), with a grid barrier
+// after the first two; the last block to arrive at a barrier runs the
+// pass's tail before it releases the others:
+//   1. sum: each 1024-lane tile's weights w_j (or expf(lw_j - lse), IEEE
+//      subtract) summed in a fixed order: a thread's four lanes in
+//      sequence, then a tree of halving IEEE adds over the block's 256
+//      threads (level h: v[i] + v[i + h]); the tile sums go to g_part.  The
+//      tail adds them in a fixed order too (thread t: tiles t, t + 256, ...
+//      in sequence from 0, then the same tree) and writes scale =
+//      2^20 / total (__fdiv_rn).  ops/resample_cuda.py::
+//      boundary_total_plain repeats every add, so twin and kernel agree
+//      bit for bit;
+//   2. quant: wq_j = rintf(w_j * scale) (half to even, as
+//      quantize_weights_law), each tile's integer sum to g_base; the tail
+//      turns g_base into its exclusive prefix in place (integer sums are
+//      exact in any order) and writes inv_tot = __frcp_rn(q_tot), the
+//      twin's IEEE 1 / x;
+//   3. law: the tile's quantized weights again, their exact in-block
+//      prefix plus g_base[tile] gives cum, and the boundary law runs with
+//      __fmul_rn / __fsub_rn, so nvcc cannot contract it into an FMA and
+//      the boundaries equal the plain version's bit for bit; lanes from
+//      n - 1 on get n.
+// With the gate, every block computes it from the two device normalizers
+// (bad = !(isfinite(lse) && isfinite(lse2)), ess = bad ? n :
+// expf(2 lse - lse2), fire = ess < ess_min, the threshold rounded to
+// float32 as torch rounds the scalar), block 0 writes gate = [fire,
+// bad | fire], and where it is off every block exits before the first
+// barrier, so no host reads the gate and an idle step costs one launch.
+// On an H100 80GB HBM3 at 700 W the one launch took as long as three
+// launches with last-block tickets firing and a third of their time idle
+// (PERF.md).  The scratch (g_part, g_base, the two scalars and the
+// barrier's counters) is one of each a device, in this library: two K3a
+// launches must not run at once on one device (concurrent streams would
+// share them).  A launch after another on one stream finds the barrier's
+// arrivals at 0.
 //
-// Pass 2 also has a segmented form for the wide batched filter (its pass
-// B, pf_batch_pallas.py:1367-1387, which ran _expand_kernel in slot
-// space): each firing slot expands its own filter's boundaries.  A slot's
-// row is cut into windows of kSegWindow boundaries, one block a window
-// and slot; the window's particles own the output slots
-// [t[w0 - 1], t[w1 - 1]), which two loads give, so no window searches
-// global memory:
-//   * the block stages its window of t once, with coalesced 16-byte loads
-//     where the row is 16-byte aligned (n % 4 == 0 and an aligned base),
-//     into shared memory;
-//   * each thread owns runs of four consecutive output slots; the run's
-//     first source comes from a binary search of the staged window, and
-//     since sources do not decrease each following slot probes the
-//     previous source and the next one, and searches only past them;
-//   * a run's three planes are stored as float4s where the row is aligned
-//     and the run whole, so a warp writes 512 contiguous bytes a plane;
-//   * an idle slot's blocks, and windows with no output slot (every
-//     weight zero), exit after one or three loads.  The grid is
-//     (ceil(n / kSegWindow), b): at 1024 x 10,000, 5 blocks a slot, so
-//     the idle slots' blocks cost a few microseconds a launch.
-// A row of any length runs: a longer row has more windows.  The
-// single-filter launch (expand_kernel) keeps one thread a slot and its
-// search of the whole row.
+// What bounds K3a on an H100: bytes, 8 a lane (4 of weight read, 4 of
+// boundary written: 0.0050 ms at 2,097,152); the design reads the row
+// three times, the last two from L2, and waits at two grid barriers.
+//
+// Pass 2 (K3b): the survivors expanded into their output slots, in one of
+// two designs, which the launch takes by its slot count.  Both give each
+// thread runs of four consecutive output slots: the run's first source
+// comes from a binary search of boundaries staged in shared memory, and
+// since sources do not decrease each following slot probes the previous
+// source and the next one, and searches only past them; a run's three
+// planes are stored as float4s where the row is aligned and the run
+// whole, so a warp writes 512 contiguous bytes a plane; an idle slot's
+// blocks exit after one load.  Bytes: 12 a slot read and 12 written, 4 a
+// lane of boundary.
+//   * The single filter (expand_range_kernel, one slot: valid[0] the
+//     gate's fire flag, or 1 for the public merge): its output slots are
+//     cut into ranges of kRangeSlots, one block a range, so every block
+//     writes the same number of slots however the weight is spread (a
+//     block a window of particles left a particle that takes a quarter of
+//     2,097,152 slots to one block: 0.18 ms against 0.028 on an H100
+//     80GB HBM3).  The range's sources are a run of particles [j0, j1):
+//     warps 0 and 1 find the sources of its first and last slot, the
+//     first j with t[j] > i, by a 32-way search of the row (32 lanes
+//     probe a range at once: five dependent loads at 2^21 boundaries);
+//     the block stages t[j0, j1) where it fits (kRangeStage boundaries;
+//     dense survivors), else every step-th of them (survivors sparser
+//     than a slot in two particles), and a slot's source then lies within
+//     a step of the first sample above it, which a short search of global
+//     memory finds.  The row stride is n_pad: lanes [n, n_pad) are
+//     written 0 where the slot is valid.
+//   * The wide batched filter's pass B (expand_seg_kernel, B slots;
+//     pf_batch_pallas.py:1367-1387, which ran _expand_kernel in slot
+//     space): each firing slot expands its own filter's boundaries.  A
+//     slot's row is cut into windows of kSegWindow boundaries, one block a
+//     window and slot; the window's particles own the output slots
+//     [t[w0 - 1], t[w1 - 1]), which two loads give, so no window searches
+//     global memory, and the block stages its window with 16-byte loads
+//     where the row is aligned.  Windows with no output slot (every
+//     weight zero) exit after three loads.  The grid is (ceil(n /
+//     kSegWindow), b): at 1024 x 10,000, 5 blocks a slot.  The range
+//     design's searches cost this launch about 4% on an H100 80GB HBM3
+//     (0.0320 against 0.0308 ms at 240 firing of 1024 x 10,000), where a
+//     row of 10,000 slots spreads over five blocks however its weight
+//     lies, so the wide path keeps the window.
 //
 // The merge's pass2="compressed" form runs pass 2 through a survivor stack,
 // which two more kernels build and read; each serves the single filter as one
 // slot of its segmented form (the wide filter's pass B), blockIdx.y being
-// the slot:
+// the slot (the single filter's valid[0] is its gate, as for K3b):
 //   * compact (K3c, replaces _compact_kernel, resample_pallas.py:203):
 //     per 1024-lane block, an exact int32 warp-shuffle scan of the
 //     survivor flags t_j > t_{j-1} (t_{-1} = 0; a block's first lane
@@ -90,6 +134,7 @@
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cassert>
 #include <cstdint>
 
@@ -99,39 +144,225 @@
 
 namespace {
 
+using tpuslam::aligned16;
+using tpuslam::block_exclusive_scan;
+using tpuslam::kFullMask;
+using tpuslam::load4;
+using tpuslam::store4_of;
 using tpuslam::warp_inclusive_scan;
 
-constexpr int kScanBlock = 1024;  // lanes per boundary block (ops: BLOCK)
+constexpr int kScanBlock = 1024;  // lanes per compaction block (ops: BLOCK)
 constexpr int kScanWarps = kScanBlock / 32;
 constexpr int kExpandBlock = 256;
-constexpr int kSegBlock = 256;     // the segmented expand's threads
-constexpr int kSegWindow = 2048;   // its boundaries a block, 8 KB staged
+constexpr int kSegBlock = 256;     // K3b's threads a block (both forms)
+constexpr int kRangeSlots = 2048;  // the single form's output slots a block
+constexpr int kRangeStage = 4096;  // its staged boundaries, 16 KB
+constexpr int kSegWindow = 2048;   // the segmented form's boundaries a block
+constexpr int kBoundThreads = 256;  // K3a's threads a block
+constexpr int kTile = 4 * kBoundThreads;  // K3a's lanes a tile
+constexpr int kMaxTiles = (1 << 24) / kTile;
+constexpr int kBoundBlocksPerSm = 8;  // K3a's grid: 2048 threads an SM
 
-__global__ void __launch_bounds__(kScanBlock)
-boundary_kernel(const float* __restrict__ wq, const float* __restrict__ base,
-                const float* __restrict__ inv_tot_p,
+// K3a's scratch (see the file's head): each tile's weight sum, each tile's
+// quantized sum and then its exclusive prefix, scale = 2^20 / total,
+// inv_tot = 1 / q_tot, and its grid barrier's arrivals and generation.
+__device__ float g_part[kMaxTiles];
+__device__ int g_base[kMaxTiles];
+__device__ float g_scale;
+__device__ float g_inv;
+__device__ unsigned int g_arrive;
+__device__ unsigned int g_gen;
+
+// The single filter's ESS gate from its two normalizers (see the head).
+__device__ __forceinline__ void ess_gate(const float* lse_p,
+                                         const float* lse2_p, float ess_min,
+                                         int n, bool& fire, bool& bad) {
+  const float lse = __ldg(lse_p);
+  const float lse2 = __ldg(lse2_p);
+  bad = !(isfinite(lse) && isfinite(lse2));
+  const float ess = bad ? static_cast<float>(n)
+                        : expf(__fsub_rn(__fmul_rn(2.0f, lse), lse2));
+  fire = ess < ess_min;
+}
+
+// The weights of four lanes from j on: the row itself (LOG false) or
+// expf(lw - lse); 0 from n on.
+template <bool LOG>
+__device__ __forceinline__ float4 weights4(const float* row, int j, int n,
+                                           bool vec, float lse) {
+  const float4 v = load4(row, j, n, vec);
+  if (!LOG) return v;
+  return make_float4(j < n ? expf(__fsub_rn(v.x, lse)) : 0.0f,
+                     j + 1 < n ? expf(__fsub_rn(v.y, lse)) : 0.0f,
+                     j + 2 < n ? expf(__fsub_rn(v.z, lse)) : 0.0f,
+                     j + 3 < n ? expf(__fsub_rn(v.w, lse)) : 0.0f);
+}
+
+__device__ __forceinline__ int quantize(float w, float scale) {
+  return static_cast<int>(rintf(__fmul_rn(w, scale)));
+}
+
+// The block's sum of one float a thread in a fixed order: a tree of
+// halving IEEE adds (level h: v[i] + v[i + h]), the last five levels by
+// warp shuffles.  Every thread must call it; every thread gets the sum.
+__device__ __forceinline__ float block_tree_sum(float v, float* s) {
+  constexpr int T = kBoundThreads;
+  const int t = threadIdx.x;
+  s[t] = v;
+  __syncthreads();
+#pragma unroll
+  for (int h = T / 2; h >= 32; h >>= 1) {
+    if (t < h) s[t] = __fadd_rn(s[t], s[t + h]);
+    __syncthreads();
+  }
+  if (t < 32) {
+    float w = s[t];
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) {
+      w = __fadd_rn(w, __shfl_down_sync(kFullMask, w, d));
+    }
+    if (t == 0) s[0] = w;
+  }
+  __syncthreads();
+  const float sum = s[0];
+  __syncthreads();  // s is free for the next call
+  return sum;
+}
+
+// A grid-wide barrier of a cooperative launch (every block resident):
+// each block waits until all have arrived; the last to arrive first runs
+// `tail` with all its threads (one block's work between two passes), then
+// releases the others by a new generation.  g_arrive returns to 0.
+template <class F>
+__device__ __forceinline__ void grid_barrier(bool* s_last, F tail) {
+  __syncthreads();
+  unsigned int gen = 0;
+  if (threadIdx.x == 0) {
+    gen = *reinterpret_cast<volatile unsigned int*>(&g_gen);
+    __threadfence();
+    *s_last = atomicAdd(&g_arrive, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (*s_last) {
+    __threadfence();
+    tail();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      g_arrive = 0;
+      __threadfence();
+      atomicAdd(&g_gen, 1u);
+    }
+  } else if (threadIdx.x == 0) {
+    while (*reinterpret_cast<volatile unsigned int*>(&g_gen) == gen) {
+      __nanosleep(64);
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// K3a, one cooperative launch (see the file's head).  With LOG, row holds
+// log weights and the gate is computed and written here.
+template <bool LOG>
+__global__ void __launch_bounds__(kBoundThreads)
+boundary_kernel(const float* __restrict__ row,
+                const float* __restrict__ lse_p,
+                const float* __restrict__ lse2_p, float ess_min,
+                unsigned char* __restrict__ gate,
                 const float* __restrict__ offs_p, int* __restrict__ t_hi,
                 int n, int n_pad) {
-  __shared__ int warp_sums[kScanWarps];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int j = blockIdx.x * kScanBlock + threadIdx.x;
-  const int v = j < n_pad ? __float2int_rn(wq[j]) : 0;
-  const int incl = warp_inclusive_scan(v, lane);
-  if (lane == 31) warp_sums[warp] = incl;
-  __syncthreads();
-  if (warp == 0) warp_sums[lane] = warp_inclusive_scan(warp_sums[lane], lane);
-  __syncthreads();
-  if (j >= n_pad) return;
-  const int cum = __float2int_rn(base[blockIdx.x]) +
-                  (warp > 0 ? warp_sums[warp - 1] : 0) + incl;
+  constexpr int T = kBoundThreads;
+  __shared__ float s_sum[T];
+  __shared__ int s_warp[T / 32];
+  __shared__ bool s_last;
+  const int t = threadIdx.x;
+  float lse = 0.0f;
+  if (LOG) {
+    bool fire, bad;
+    ess_gate(lse_p, lse2_p, ess_min, n, fire, bad);
+    if (blockIdx.x == 0 && t == 0) {
+      gate[0] = fire;
+      gate[1] = fire || bad;
+    }
+    if (!fire) return;  // the whole grid: the gate is off
+    lse = __ldg(lse_p);
+  }
+  const int tiles = (n + kTile - 1) / kTile;
+  const int tiles_pad = (n_pad + kTile - 1) / kTile;
+  const bool vec = (n & 3) == 0 && aligned16(row);
+
+  // 1. The tiles' weight sums, then the total and the scale.
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const float4 w = weights4<LOG>(row, tile * kTile + 4 * t, n, vec, lse);
+    const float sum = block_tree_sum(
+        __fadd_rn(__fadd_rn(__fadd_rn(w.x, w.y), w.z), w.w), s_sum);
+    if (t == 0) g_part[tile] = sum;
+  }
+  grid_barrier(&s_last, [&] {
+    float acc = 0.0f;
+    for (int r = t; r < tiles; r += T) acc = __fadd_rn(acc, __ldcg(g_part + r));
+    const float total = block_tree_sum(acc, s_sum);
+    if (t == 0) g_scale = __fdiv_rn(1048576.0f, total);
+  });
+  const float scale = __ldcg(&g_scale);
+
+  // 2. The tiles' quantized sums, then their exclusive prefix and 1 / q_tot
+  // (thread t of the last block takes a run of tiles).
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const float4 w = weights4<LOG>(row, tile * kTile + 4 * t, n, vec, lse);
+    int total;
+    block_exclusive_scan<T>(quantize(w.x, scale) + quantize(w.y, scale) +
+                                quantize(w.z, scale) + quantize(w.w, scale),
+                            s_warp, total);
+    if (t == 0) g_base[tile] = total;
+  }
+  grid_barrier(&s_last, [&] {
+    const int per = (tiles + T - 1) / T;
+    const int lo = min(t * per, tiles);
+    const int hi = min(lo + per, tiles);
+    int run = 0;
+    for (int r = lo; r < hi; ++r) run += __ldcg(g_base + r);
+    int q_tot;
+    int pre = block_exclusive_scan<T>(run, s_warp, q_tot);
+    for (int r = lo; r < hi; ++r) {
+      const int v = __ldcg(g_base + r);
+      g_base[r] = pre;
+      pre += v;
+    }
+    if (t == 0) g_inv = __frcp_rn(static_cast<float>(q_tot));
+  });
+  const float inv_tot = __ldcg(&g_inv);
+
+  // 3. The boundaries of t_hi's n_pad lanes; the tiles past n hold only
+  // forced lanes.
+  const float offs = __ldg(offs_p);
   const float nf = static_cast<float>(n);
-  const float scaled = __fmul_rn(nf, __fmul_rn(static_cast<float>(cum),
-                                               *inv_tot_p));
-  float t = ceilf(__fsub_rn(scaled, *offs_p));
-  t = fminf(fmaxf(t, 0.0f), nf);
-  if (j >= n - 1) t = nf;  // the last particle takes every remaining slot
-  t_hi[j] = static_cast<int>(t);
+  const bool vec_out = (n_pad & 3) == 0 && aligned16(t_hi);
+  for (int tile = blockIdx.x; tile < tiles_pad; tile += gridDim.x) {
+    const int j = tile * kTile + 4 * t;
+    int c[4] = {0, 0, 0, 0};  // the thread's inclusive prefix
+    if (tile < tiles) {
+      const float4 w = weights4<LOG>(row, j, n, vec, lse);
+      c[0] = quantize(w.x, scale);
+      c[1] = c[0] + quantize(w.y, scale);
+      c[2] = c[1] + quantize(w.z, scale);
+      c[3] = c[2] + quantize(w.w, scale);
+    }
+    int total;
+    const int pre = (tile < tiles ? __ldcg(g_base + tile) : 0) +
+                    block_exclusive_scan<T>(c[3], s_warp, total);
+    int tb[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float scaled = __fmul_rn(
+          nf, __fmul_rn(static_cast<float>(pre + c[k]), inv_tot));
+      float v = ceilf(__fsub_rn(scaled, offs));
+      v = fminf(fmaxf(v, 0.0f), nf);
+      if (j + k >= n - 1) v = nf;  // the last particle takes the rest
+      tb[k] = static_cast<int>(v);
+    }
+    store4_of(t_hi, j, n_pad, vec_out, make_int4(tb[0], tb[1], tb[2], tb[3]));
+  }
 }
 
 // The source of output slot i: the first j with t[j] > i (t is
@@ -151,23 +382,6 @@ __device__ __forceinline__ int source_of(const int* __restrict__ t, int n,
   return lo;
 }
 
-__global__ void __launch_bounds__(kExpandBlock)
-expand_kernel(const float* __restrict__ p, const int* __restrict__ t_hi,
-              float* __restrict__ out, int n, int n_pad) {
-  const int i = blockIdx.x * kExpandBlock + threadIdx.x;
-  if (i >= n_pad) return;
-  if (i >= n) {
-    out[i] = 0.0f;
-    out[n_pad + i] = 0.0f;
-    out[2 * n_pad + i] = 0.0f;
-    return;
-  }
-  const int lo = source_of(t_hi, n, i);
-  out[i] = __ldg(p + lo);
-  out[n_pad + i] = __ldg(p + n_pad + lo);
-  out[2 * n_pad + i] = __ldg(p + 2 * n_pad + lo);
-}
-
 // The first j in [lo, hi) with t[j] > i, or hi; t sorted.
 __device__ __forceinline__ int first_above(const int* t, int lo, int hi,
                                            int i) {
@@ -182,7 +396,135 @@ __device__ __forceinline__ int first_above(const int* t, int lo, int hi,
   return lo;
 }
 
-// The segmented form (the wide filter's pass B): block (c, s) expands the
+// The first j in [0, n) with t[j] > i, by one warp: each round the 32
+// lanes probe 32 evenly spaced lanes of the range left and keep the gap
+// after the last probe at or below i, so a row of 2^21 takes five
+// dependent loads.  t[n - 1] > i; every lane gets the answer.
+__device__ __forceinline__ int warp_first_above(const int* t, int n, int i) {
+  const int lane = threadIdx.x & 31;
+  int lo = 0, hi = n - 1;  // the answer lies in [lo, hi], t[hi] > i
+  while (hi - lo > 31) {
+    const int step = (hi - lo + 31) >> 5;
+    const bool above = __ldg(t + min(lo + lane * step, hi)) > i;
+    const unsigned mask = __ballot_sync(kFullMask, above);
+    if (mask == 0) {
+      lo += 31 * step + 1;
+    } else {
+      const int f = __ffs(mask) - 1;
+      hi = min(lo + f * step, hi);
+      if (f > 0) lo += (f - 1) * step + 1;
+    }
+  }
+  const bool above = lo + lane >= hi || __ldg(t + lo + lane) > i;
+  return lo + __ffs(__ballot_sync(kFullMask, above)) - 1;
+}
+
+// The single K3b's runs of four output slots of [i0, i1), whose sources
+// are the particles [0, m) of tg (the row's boundaries) and src (its rows,
+// planes `plane` apart), with ts holding every boundary (SPARSE false) or
+// every step-th, ms of them (SPARSE: a slot's source then lies within a step of
+// the first sample above it, which a short search of global memory
+// finds).  Sources do not decrease, so after a run's first slot each slot
+// probes the previous source and the next one, and searches only past
+// them.
+template <bool SPARSE>
+__device__ __forceinline__ void expand_runs(
+    const int* ts, int ms, int step, const int* __restrict__ tg, int m,
+    const float* __restrict__ src, long long plane, float* dst, int i0,
+    int i1, bool aligned) {
+  // The first j in [0, m) with tg[j] > i (tg[m - 1] > i).
+  auto source = [&](int i) {
+    const int q = first_above(ts, 0, ms, i);
+    if (!SPARSE) return q;
+    const int lo = q == 0 ? 0 : (q - 1) * step + 1;
+    return first_above(tg, lo, min(q * step, m - 1), i);
+  };
+  auto t_at = [&](int j) { return SPARSE ? __ldg(tg + j) : ts[j]; };
+  for (int i = i0 + 4 * threadIdx.x; i < i1; i += 4 * kSegBlock) {
+    int j = source(i);
+    float x[4], y[4], z[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (i + u < i1) {
+        if (u > 0 && t_at(j) <= i + u) {  // past the previous source
+          ++j;
+          if (t_at(j) <= i + u) j = source(i + u);
+        }
+        x[u] = __ldg(src + j);
+        y[u] = __ldg(src + plane + j);
+        z[u] = __ldg(src + 2 * plane + j);
+      }
+    }
+    if (aligned && i + 4 <= i1) {
+      reinterpret_cast<float4*>(dst + i)[0] =
+          make_float4(x[0], x[1], x[2], x[3]);
+      reinterpret_cast<float4*>(dst + plane + i)[0] =
+          make_float4(y[0], y[1], y[2], y[3]);
+      reinterpret_cast<float4*>(dst + 2 * plane + i)[0] =
+          make_float4(z[0], z[1], z[2], z[3]);
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (i + u < i1) {
+          dst[i + u] = x[u];
+          dst[plane + i + u] = y[u];
+          dst[2 * plane + i + u] = z[u];
+        }
+      }
+    }
+  }
+}
+
+// K3b of the single filter: block c writes the output slots [i0, i1) =
+// [c, c + 1) * kRangeSlots of the row from its boundaries t, where
+// valid[0] (else it exits at once).  p and out are (3, stride), t
+// (stride,), with n <= stride particles; lanes [n, stride) are written 0.
+__global__ void __launch_bounds__(kSegBlock)
+expand_range_kernel(const float* __restrict__ p, const int* __restrict__ t,
+                    const unsigned char* __restrict__ valid,
+                    float* __restrict__ out, int n, int stride) {
+  __shared__ int ts[kRangeStage];
+  __shared__ int s_src[2];
+  if (!valid[0]) return;
+  const long long plane = stride;
+  if (blockIdx.x == gridDim.x - 1) {  // the padding lanes, if any
+    for (int i = n + threadIdx.x; i < stride; i += kSegBlock) {
+      out[i] = 0.0f;
+      out[plane + i] = 0.0f;
+      out[2 * plane + i] = 0.0f;
+    }
+  }
+  const int i0 = blockIdx.x * kRangeSlots;
+  const int i1 = min(n, i0 + kRangeSlots);
+  // The sources of the first and the last slot: warps 0 and 1.
+  if (threadIdx.x < 64) {
+    const int j = warp_first_above(t, n, threadIdx.x < 32 ? i0 : i1 - 1);
+    if ((threadIdx.x & 31) == 0) s_src[threadIdx.x >> 5] = j;
+  }
+  __syncthreads();
+  const int j0 = s_src[0];
+  const int m = s_src[1] + 1 - j0;  // the block's sources: [j0, j0 + m)
+  // Their boundaries staged: every one where they fit, else every
+  // step-th (survivors sparse).
+  const int* tg = t + j0;
+  const int step = (m + kRangeStage - 1) / kRangeStage;
+  const int ms = (m + step - 1) / step;
+  for (int q = threadIdx.x; q < ms; q += kSegBlock) {
+    ts[q] = __ldg(tg + q * step);
+  }
+  __syncthreads();
+  const float* src = p + j0;
+  const bool aligned = (stride & 3) == 0 && aligned16(out);
+  if (step == 1) {
+    expand_runs<false>(ts, ms, step, tg, m, src, plane, out, i0, i1,
+                       aligned);
+  } else {
+    expand_runs<true>(ts, ms, step, tg, m, src, plane, out, i0, i1,
+                      aligned);
+  }
+}
+
+// K3b in segments (the wide filter's pass B): block (c, s) expands the
 // particles [w0, w1) = [c, c + 1) * kSegWindow of slot s's filter fids[s]
 // by the boundaries t_hi[s] into its output slots; an idle slot exits at
 // once.  p and out are (3, b, n) with no padding; t_hi is (b, n) in slot
@@ -205,8 +547,7 @@ expand_seg_kernel(const float* __restrict__ p, const int* __restrict__ t_hi,
   if (a == e) return;
   // Rows and windows 16-byte aligned: n % 4 == 0 and both bases aligned
   // (a contiguous view may start at any 4-byte offset).
-  const bool aligned = (n & 3) == 0 && tpuslam::aligned16(t_hi) &&
-                       tpuslam::aligned16(out);
+  const bool aligned = (n & 3) == 0 && aligned16(t_hi) && aligned16(out);
   if (aligned) {
     const int4* t4 = reinterpret_cast<const int4*>(t);
     for (int q = threadIdx.x; q < (len >> 2); q += kSegBlock) {
@@ -346,37 +687,79 @@ expand_compressed_kernel(const float* __restrict__ cv,
 // C entry points for ctypes.  Each launches on `stream` and returns
 // cudaGetLastError() (0 when the launch was accepted); never synchronises.
 
-// wq: (n_pad,) quantized weights; base: (ceil(n_pad / 1024),) exclusive
-// block prefixes; inv_tot, offs: one float each, on the device.
-// Writes t_hi: (n_pad,) int32.
-extern "C" int tpuslam_resample_boundary(const float* wq, const float* base,
-                                         const float* inv_tot,
-                                         const float* offs, int* t_hi, int n,
-                                         int n_pad, void* stream) {
-  if (n < 1 || n_pad < n) return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned grid = static_cast<unsigned>((n_pad + kScanBlock - 1) /
-                                              kScanBlock);
-  boundary_kernel<<<grid, kScanBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      wq, base, inv_tot, offs, t_hi, n, n_pad);
-  return static_cast<int>(cudaGetLastError());
+namespace {
+
+// K3a's cooperative launch: the row's tiles, at most kBoundBlocksPerSm
+// blocks an SM and no more than the SMs hold at once (the launch refuses
+// a grid that would not be resident).
+template <bool LOG>
+int launch_boundary(const float* row, const float* lse, const float* lse2,
+                    float ess_min, const float* offs, unsigned char* gate,
+                    int* t_hi, int n, int n_pad, cudaStream_t stream) {
+  static int per_sm = 0;  // the same on every H100
+  if (per_sm == 0) {
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, boundary_kernel<LOG>, kBoundThreads, 0);
+  }
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int tiles = (n_pad + kTile - 1) / kTile;
+  const int grid = std::max(
+      1, std::min(tiles, std::min(per_sm, kBoundBlocksPerSm) * sms));
+  void* args[] = {&row, &lse, &lse2, &ess_min, &gate, &offs, &t_hi, &n,
+                  &n_pad};
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(boundary_kernel<LOG>), dim3(grid),
+      dim3(kBoundThreads), args, 0, stream));
 }
 
-// p: (3, n_pad) particle rows; t_hi from the boundary pass.  Writes out:
-// (3, n_pad), the resampled rows, padding lanes zero.
+}  // namespace
+
+// K3a, one cooperative launch.  row: (n_pad,) weights, padding lanes
+// ignored; or,
+// with lse given, the log weights, lse and lse2 their normalizers (one
+// float each on the device), ess_min the gate's threshold, and gate: (2,)
+// bytes written [fire, bad | fire] (the launches do nothing more where
+// fire is 0).  offs: the comb offset on the device.  Writes t_hi: (n_pad,)
+// int32.
+extern "C" int tpuslam_resample_boundary(const float* row, const float* lse,
+                                         const float* lse2, float ess_min,
+                                         const float* offs,
+                                         unsigned char* gate, int* t_hi,
+                                         int n, int n_pad, void* stream) {
+  if (n < 1 || n_pad < n || n_pad >= (1 << 24) ||
+      (lse != nullptr && (lse2 == nullptr || gate == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (lse != nullptr) {
+    return launch_boundary<true>(row, lse, lse2, ess_min, offs, gate, t_hi,
+                                 n, n_pad, s);
+  }
+  return launch_boundary<false>(row, nullptr, nullptr, 0.0f, offs, nullptr,
+                                t_hi, n, n_pad, s);
+}
+
+// K3b of one filter: p: (3, n_pad) rows; t_hi: (n_pad,) from K3a; valid:
+// one byte on the device (the gate's fire flag, or 1).  Writes out:
+// (3, n_pad), the resampled rows, padding lanes zero, where valid[0].
 extern "C" int tpuslam_resample_expand(const float* p, const int* t_hi,
+                                       const unsigned char* valid,
                                        float* out, int n, int n_pad,
                                        void* stream) {
   if (n < 1 || n_pad < n) return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned grid = static_cast<unsigned>((n_pad + kExpandBlock - 1) /
-                                              kExpandBlock);
-  expand_kernel<<<grid, kExpandBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      p, t_hi, out, n, n_pad);
+  const int grid = (n + kRangeSlots - 1) / kRangeSlots;
+  expand_range_kernel<<<grid, kSegBlock, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      p, t_hi, valid, out, n, n_pad);
   return static_cast<int>(cudaGetLastError());
 }
 
-// p: (3, b, n) particle rows of b filters; t_hi: (b, n) boundaries in slot
-// order; fids, valid: (b,) each slot's filter and whether it fires.
-// Writes out: (3, b, n), slot s's resampled rows at s, valid slots only.
+// K3b in segments: p: (3, b, n) particle rows of b filters; t_hi: (b, n)
+// boundaries in slot order; fids, valid: (b,) each slot's filter and
+// whether it fires.  Writes out: (3, b, n), slot s's resampled rows at s,
+// valid slots only.
 extern "C" int tpuslam_resample_expand_seg(const float* p, const int* t_hi,
                                            const int* fids,
                                            const unsigned char* valid,
@@ -389,6 +772,13 @@ extern "C" int tpuslam_resample_expand_seg(const float* p, const int* t_hi,
   expand_seg_kernel<<<grid, kSegBlock, 0, static_cast<cudaStream_t>(stream)>>>(
       p, t_hi, fids, valid, out, n, b);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K3a's barrier arrivals on the current device into *value (0 between
+// launches).  Synchronises with the device: a check, not for the loop.
+extern "C" int tpuslam_resample_arrivals(unsigned int* value) {
+  return static_cast<int>(
+      cudaMemcpyFromSymbol(value, g_arrive, sizeof(unsigned int)));
 }
 
 // p: (3, b, len) particle rows of b filters; t_hi: (b, len) boundaries in
@@ -427,20 +817,21 @@ extern "C" int tpuslam_resample_expand_compressed(const float* cv,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Resident blocks per SM of kernel `which` (0: boundary, 1: expand, 2: the
-// segmented expand, 3: compact, 4: the compressed expand), *name its name;
-// cudaErrorInvalidValue past the last.  n is unused.
+// Resident blocks per SM of kernel `which` (0: K3a in the gated form, 1:
+// K3b of the single filter, 2: K3b in segments, 3: compact, 4: the
+// compressed expand), *name its name; cudaErrorInvalidValue past the last.
+// n is unused.
 extern "C" int tpuslam_occupancy_resample(int which, int n, int* blocks,
                                           const char** name) {
   (void)n;
   using tpuslam::occupancy;
   switch (which) {
     case 0:
-      return occupancy(boundary_kernel, "K3a boundary", kScanBlock, 0,
-                       blocks, name);
+      return occupancy(boundary_kernel<true>, "K3a boundary", kBoundThreads,
+                       0, blocks, name);
     case 1:
-      return occupancy(expand_kernel, "K3b expand", kExpandBlock, 0, blocks,
-                       name);
+      return occupancy(expand_range_kernel, "K3b expand_range", kSegBlock, 0,
+                       blocks, name);
     case 2:
       return occupancy(expand_seg_kernel, "K3b expand_seg", kSegBlock, 0,
                        blocks, name);

@@ -94,9 +94,13 @@ def pf_init(cfg: PfConfig, batch_shape: tuple = (), *,
             dtype: torch.dtype = torch.float32,
             device: torch.device | str) -> PfState:
     """All particles at x0 with uniform weights (particle_filter.py:77-84),
-    broadcast to ``batch_shape``."""
+    broadcast to ``batch_shape``; made without a host sync on a CUDA
+    device."""
+    # ops imports this module, so the helper is imported at call time.
+    from tpuslam_torch.ops._build import device_constant
+
     lead = tuple(batch_shape)
-    x0 = torch.tensor(cfg.x0, dtype=dtype, device=device)
+    x0 = device_constant(cfg.x0, torch.empty(0, dtype=dtype, device=device))
     return PfState(
         x_true=x0.expand(lead + (3,)),
         particles=x0.expand(lead + (cfg.num_particles, 3)),

@@ -73,15 +73,16 @@ def _sources() -> tuple[list[pathlib.Path], str]:
 
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
-    ptr, c_int = ctypes.c_void_p, ctypes.c_int
+    ptr, c_int, c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     signatures = {
         "tpuslam_ekf_rollout": [ptr, ptr, ptr, ptr, ptr, ptr, c_int, c_int,
                                 ptr],
         "tpuslam_pf_step": [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, c_int,
-                            c_int, ptr],
-        "tpuslam_resample_boundary": [ptr, ptr, ptr, ptr, ptr, c_int, c_int,
-                                      ptr],
-        "tpuslam_resample_expand": [ptr, ptr, ptr, c_int, c_int, ptr],
+                            c_int, ptr, ptr, ptr],
+        "tpuslam_resample_boundary": [ptr, ptr, ptr, c_float, ptr, ptr, ptr,
+                                      c_int, c_int, ptr],
+        "tpuslam_resample_expand": [ptr, ptr, ptr, ptr, c_int, c_int, ptr],
+        "tpuslam_resample_arrivals": [ctypes.POINTER(ctypes.c_uint)],
         "tpuslam_resample_expand_seg": [ptr, ptr, ptr, ptr, ptr, c_int,
                                         c_int, ptr],
         "tpuslam_resample_compact": [ptr, ptr, ptr, ptr, ptr, ptr, ptr,

@@ -29,8 +29,13 @@ the counter ``(particle index, 0, 0, 0)``.  ``normals`` of shape
 stream.  The observation noise and the comb offsets come from a
 ``torch.Generator`` or are supplied by the caller.
 
-ESS gate: deciding whether a step resamples reads one device scalar on
-the host, one synchronisation a step (counted in :data:`sync_count`).
+ESS gate: with ``resample_method="merge"`` the gate stays on the device.
+The merge's K3a computes it from the carried normalizers and writes it
+(``resample_cuda.merge_resample_gated``); K3a, pass 2 and K2b read it
+there, every step, and do nothing where it is off, so the loop makes no
+host synchronisation.  The other methods (``search``, the default,
+``hist``, ``systematic``) resample with torch ops on the host's decision:
+one synchronisation a step, counted in :data:`sync_count`.
 """
 
 from __future__ import annotations
@@ -54,7 +59,8 @@ from tpuslam_torch.ops.fastmath import (normals_from_bits, philox4x32,
 #: Launches of the CUDA kernel since this count was last set to 0.
 launch_count = 0
 #: Host synchronisations of the ESS gate since this count was last set
-#: to 0 (one a step of the fused path).
+#: to 0: one a step of the fused path whose resample method is not
+#: ``merge`` (the merge gates on the device and makes none).
 sync_count = 0
 
 #: The per-step kernel seed of :func:`pf_fused_rollout`: the JAX
@@ -237,17 +243,34 @@ def _stats_plain(p_rows: torch.Tensor, lw: torch.Tensor) -> torch.Tensor:
     return torch.cat([stats, best[None], x_est])
 
 
+def _check_gate(gate, p_alt, p_rows, with_stats: bool) -> None:
+    if gate is None:
+        return
+    if not with_stats or p_alt is None:
+        raise ValueError("a gate needs the statistics and the rows p_alt")
+    device = p_rows.device
+    _build.check_tensor("gate", gate, (2,), torch.bool, device)
+    _build.check_tensor("p_alt", p_alt, tuple(p_rows.shape), torch.float32,
+                        device)
+
+
 def pf_step_rows_plain(cfg: PfConfig, seed: int, flag: float,
                        p_rows: torch.Tensor, lw: torch.Tensor,
                        z: torch.Tensor, noise_on: bool = True,
                        normals: torch.Tensor | None = None,
-                       with_stats: bool = True):
+                       with_stats: bool = True, *,
+                       gate: torch.Tensor | None = None,
+                       p_alt: torch.Tensor | None = None):
     """Plain twin of :func:`pf_step_rows`, on any device."""
     mode = _mode(noise_on, normals)
     _check(cfg, p_rows, lw, z, normals)
+    _check_gate(gate, p_alt, p_rows, with_stats)
+    if gate is not None:
+        p_rows = torch.where(gate[0], p_alt, p_rows)
+        lw = torch.where(gate[1], 0.0, lw)
     x, y, yaw, acc = _predict_loglik(cfg, z, p_rows[0], p_rows[1], p_rows[2],
                                      mode, normals, int(seed))
-    if with_stats and flag > 0:
+    if with_stats and gate is None and flag > 0:
         lw = torch.zeros_like(lw)
     p_rows, lw = torch.stack([x, y, yaw]), lw + acc
     return p_rows, lw, _stats_plain(p_rows, lw) if with_stats else None
@@ -256,13 +279,21 @@ def pf_step_rows_plain(cfg: PfConfig, seed: int, flag: float,
 def pf_step_rows(cfg: PfConfig, seed: int, flag: float,
                  p_rows: torch.Tensor, lw: torch.Tensor, z: torch.Tensor,
                  noise_on: bool = True, normals: torch.Tensor | None = None,
-                 with_stats: bool = True):
+                 with_stats: bool = True, *,
+                 gate: torch.Tensor | None = None,
+                 p_alt: torch.Tensor | None = None):
     """K2: one launch of the step kernel over ``(3, N)`` rows.
 
     ``with_stats`` is K2b (the reset ``flag`` and the statistics), else
     K2a.  A CPU tensor runs :func:`pf_step_rows_plain`.  K2b's statistics
     go through one device counter (``csrc/pf_step.cu``), so two K2b
     launches must not run at once on one device.
+
+    ``gate`` (K2b only) takes the flags from the device in place of
+    ``flag``: a ``(2,)`` bool tensor ``[take, restart]``, as the merge's
+    K3a writes it (``resample_cuda.gated_boundary``); ``take`` steps the
+    rows ``p_alt`` (the resampled particles) in place of ``p_rows``, and
+    ``restart`` treats the incoming log weights as zeros.
 
     Returns:
         ``(p_rows', lw', stats)``: fresh ``(3, N)`` and ``(N,)`` tensors
@@ -277,11 +308,13 @@ def pf_step_rows(cfg: PfConfig, seed: int, flag: float,
     device = lw.device
     if device.type == "cpu":
         return pf_step_rows_plain(cfg, seed, flag, p_rows, lw, z, noise_on,
-                                  normals, with_stats)
+                                  normals, with_stats, gate=gate,
+                                  p_alt=p_alt)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
     mode = _mode(noise_on, normals)
     _check(cfg, p_rows, lw, z, normals)
+    _check_gate(gate, p_alt, p_rows, with_stats)
     lib = _build.cuda_library(device)
     seed, n = int(seed), cfg.num_particles
     with torch.cuda.device(device):
@@ -299,6 +332,8 @@ def pf_step_rows(cfg: PfConfig, seed: int, flag: float,
             p_out.data_ptr(), lw_out.data_ptr(),
             None if stats is None else stats.data_ptr(),
             ctypes.addressof(params), mode, int(with_stats),
+            None if gate is None else gate.data_ptr(),
+            None if p_alt is None else p_alt.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"pf_step kernel launch failed: CUDA error {rc}")
@@ -322,13 +357,15 @@ def ticket_count(device: torch.device | str) -> int:
 
 def _step_rows(cfg: PfConfig, seed: int, flag: float, p_rows: torch.Tensor,
                lw: torch.Tensor, z: torch.Tensor, noise_on: bool,
-               normals: torch.Tensor | None, with_stats: bool, plain: bool):
+               normals: torch.Tensor | None, with_stats: bool, plain: bool,
+               gate: torch.Tensor | None = None,
+               p_alt: torch.Tensor | None = None):
     """:func:`pf_step_rows` or, with ``plain``, its twin: returns
     ``(p_rows', lw')`` and, ``with_stats``, also the ``(10,)``
     statistics."""
     step = pf_step_rows_plain if plain else pf_step_rows
     out = step(cfg, seed, flag, p_rows, lw, z, noise_on, normals,
-               with_stats)
+               with_stats, gate=gate, p_alt=p_alt)
     return out if with_stats else out[:2]
 
 
@@ -429,11 +466,12 @@ def pf_fused_init(cfg: PfConfig, state0: PfState | None = None, *,
     weights = state0.weights.to(**f32)
     lw = torch.log(torch.clamp(weights, min=1e-38))
     particles = state0.particles.to(**f32)
+    best = torch.argmax(weights).reshape(1)  # a device index: no host read
     return PfFusedState(
         x_true=state0.x_true.to(**f32), particles=particles.T.contiguous(),
         log_w=lw, lse=torch.logsumexp(lw, dim=0),
         lse2=torch.logsumexp(2.0 * lw, dim=0),
-        x_est=particles[torch.argmax(weights)])
+        x_est=particles.index_select(0, best)[0])
 
 
 def pf_fused_to_state(cfg: PfConfig, fs: PfFusedState) -> PfState:
@@ -443,37 +481,65 @@ def pf_fused_to_state(cfg: PfConfig, fs: PfFusedState) -> PfState:
                    weights=weights_from_log(cfg, fs.log_w, fs.lse))
 
 
+def _ess(cfg: PfConfig, lse: torch.Tensor, lse2: torch.Tensor):
+    """``(bad, ess)`` of the carried normalizers: ``n`` where one is not
+    finite (the NaN->uniform reset), ``exp(2 lse - lse2)`` elsewhere."""
+    bad = ~(torch.isfinite(lse) & torch.isfinite(lse2))
+    return bad, torch.where(bad, float(cfg.num_particles),
+                            torch.exp(2.0 * lse - lse2))
+
+
+def ess_min(cfg: PfConfig) -> float:
+    """The gate's threshold ``n * ess_threshold_frac`` as float32, the
+    value a float32 tensor is compared with."""
+    return ctypes.c_float(cfg.num_particles * cfg.ess_threshold_frac).value
+
+
+def _resample_gated(cfg, fs, offs, plain, merge_kw):
+    """The merge on the device's gate: ``(p_alt, gate)``, no host read
+    (:func:`~tpuslam_torch.ops.resample_cuda.merge_resample_gated`)."""
+    merge = (resample_cuda.merge_resample_gated_plain if plain
+             else resample_cuda.merge_resample_gated)
+    return merge(fs.particles, fs.log_w, fs.lse, fs.lse2,
+                 cfg.num_particles, offs, ess_min(cfg), **merge_kw)
+
+
+def _resample_on_host(cfg, fs, offs):
+    """The other methods' resample on the host's decision, one sync:
+    ``(particles, log_w, flag)`` for the step, ``flag`` the NaN->uniform
+    reset where the gate did not fire."""
+    global sync_count
+    bad, ess = _ess(cfg, fs.lse, fs.lse2)
+    do_rs, is_bad = torch.stack([ess < ess_min(cfg), bad]).tolist()
+    sync_count += 1
+    if not do_rs:
+        return fs.particles, fs.log_w, 1.0 if is_bad else 0.0
+    w = torch.exp(fs.log_w - fs.lse)
+    idx = resample_indices_from_offs(offs, w, cfg.resample_method)
+    return fs.particles[:, idx], torch.zeros_like(fs.log_w), 0.0
+
+
 def _step(cfg: PfConfig, fs: PfFusedState, x_true: torch.Tensor,
           z: torch.Tensor, seed: int, offs: torch.Tensor, noise_on: bool,
           normals: torch.Tensor | None, plain: bool, merge_kw: dict):
     """One step from the step's truth and observation: ESS gate,
-    resample where it fires (the merge with ``merge_kw``, from
-    :func:`~tpuslam_torch.ops.resample_cuda.merge_options`), then the
-    stats pass and the estimate."""
-    global sync_count
-    n = cfg.num_particles
-    bad = ~(torch.isfinite(fs.lse) & torch.isfinite(fs.lse2))
-    ess = torch.where(bad, float(n), torch.exp(2.0 * fs.lse - fs.lse2))
-    fire = ess < n * cfg.ess_threshold_frac
-    do_rs, is_bad = torch.stack([fire, bad]).tolist()
-    sync_count += 1
-
-    particles, log_w = fs.particles, fs.log_w
-    if do_rs:
-        w = torch.exp(log_w - fs.lse)
-        if cfg.resample_method == "merge":
-            resample = (resample_cuda.merge_resample_rows_plain if plain
-                        else resample_cuda.merge_resample_rows)
-            particles = resample(particles, w, n, offs,
-                                 device=particles.device, **merge_kw)
-        else:
-            idx = resample_indices_from_offs(offs, w, cfg.resample_method)
-            particles = particles[:, idx]
-        log_w = torch.zeros_like(log_w)
-    # The lazy NaN->uniform reset rides the kernel's read of log_w.
-    flag = 1.0 if is_bad and not do_rs else 0.0
+    resample where it fires (the merge on the device's gate, with
+    ``merge_kw`` from
+    :func:`~tpuslam_torch.ops.resample_cuda.merge_options`; another
+    method on the host's), then the stats pass and the estimate.
+    Returns the next state and the merge's ``(2,)`` device gate (None for
+    the other methods)."""
+    if cfg.resample_method == "merge":
+        p_alt, gate = _resample_gated(cfg, fs, offs, plain, merge_kw)
+        particles, log_w, flag = fs.particles, fs.log_w, 0.0
+    else:
+        particles, log_w, flag = _resample_on_host(cfg, fs, offs)
+        p_alt = gate = None
+    # The lazy NaN->uniform reset and the restart after a resample ride the
+    # kernel's read of log_w.
     particles, log_w, stats = _step_rows(
-        cfg, seed, flag, particles, log_w, z, noise_on, normals, True, plain)
+        cfg, seed, flag, particles, log_w, z, noise_on, normals, True, plain,
+        gate, p_alt)
     lse = stats[0]
 
     if cfg.estimate == "mean":
@@ -486,7 +552,7 @@ def _step(cfg: PfConfig, fs: PfFusedState, x_true: torch.Tensor,
     else:
         x_est = stats[7:10]
     return PfFusedState(x_true=x_true, particles=particles, log_w=log_w,
-                        lse=lse, lse2=stats[1], x_est=x_est), ess
+                        lse=lse, lse2=stats[1], x_est=x_est), gate
 
 
 def _draws(cfg: PfConfig, generator: torch.Generator | None, n_steps: int,
@@ -501,7 +567,8 @@ def _draws(cfg: PfConfig, generator: torch.Generator | None, n_steps: int,
         offs = torch.as_tensor(offs, **f32).reshape(n_steps)
     if obs_noise is None:
         obs_noise = torch.randn((n_steps, n_lm, 2), generator=generator,
-                                **f32) * torch.tensor(cfg.r_std, **f32)
+                                **f32)
+        obs_noise = obs_noise * _build.device_constant(cfg.r_std, obs_noise)
     else:
         obs_noise = torch.as_tensor(obs_noise, **f32).reshape(n_steps, n_lm,
                                                               2)
@@ -520,8 +587,8 @@ def _step_stats(cfg, fs, generator, seed, noise_on, offs, obs_noise,
                              fs.particles.device)
     x_true = circular_step(fs.x_true, cfg.vel, cfg.yaw_rate, cfg.dt)
     z = (_observe(cfg, x_true) + obs_noise[0]).contiguous()
-    return _step(cfg, fs, x_true, z, seed, offs[0], noise_on, normals,
-                 plain, merge_kw)
+    return (_step(cfg, fs, x_true, z, seed, offs[0], noise_on, normals,
+                  plain, merge_kw)[0], _ess(cfg, fs.lse, fs.lse2)[1])
 
 
 def pf_fused_step_stats(cfg: PfConfig, fs: PfFusedState,
@@ -536,7 +603,8 @@ def pf_fused_step_stats(cfg: PfConfig, fs: PfFusedState,
     observe -> weight -> normalize -> estimate), with the normalization,
     the ESS and the MAP estimate from the kernel's reductions.  With
     ``resample_method="merge"`` the resample runs
-    :func:`~tpuslam_torch.ops.resample_cuda.merge_resample_rows`.
+    :func:`~tpuslam_torch.ops.resample_cuda.merge_resample_gated` on the
+    device's gate (no host read); the other methods decide on the host.
 
     Args:
         generator: draws the comb offset and the observation noise (on
@@ -617,7 +685,7 @@ def _truth_tables(cfg: PfConfig, fs: PfFusedState, n_steps: int,
 
 
 def _rollout(cfg, generator, n_steps, state0, noise_on, device, offs,
-             obs_noise, plain, merge_caps_kw):
+             obs_noise, plain, merge_caps_kw, gates):
     device = _build.resolve_device(device)
     if n_steps < 1:
         raise ValueError(f"n_steps {n_steps} must be positive")
@@ -632,9 +700,11 @@ def _rollout(cfg, generator, n_steps, state0, noise_on, device, offs,
     seed = SEED0
     x_est = []
     for k in range(n_steps):
-        fs, _ = _step(cfg, fs, x_tbl[k], z_all[k], seed, offs[k], noise_on,
-                      None, plain, merge_kw)
+        fs, gate = _step(cfg, fs, x_tbl[k], z_all[k], seed, offs[k],
+                         noise_on, None, plain, merge_kw)
         x_est.append(fs.x_est)
+        if gates is not None:
+            gates.append(gate)
         seed += SEED_STEP
     return pf_fused_to_state(cfg, fs), (x_tbl, torch.stack(x_est))
 
@@ -642,7 +712,8 @@ def _rollout(cfg, generator, n_steps, state0, noise_on, device, offs,
 def pf_fused_rollout(cfg: PfConfig, generator: torch.Generator | None,
                      n_steps: int, state0: PfState | None = None,
                      noise_on: bool = True, *, device: torch.device | str,
-                     offs=None, obs_noise=None, merge_caps_kw: tuple = ()):
+                     offs=None, obs_noise=None, merge_caps_kw: tuple = (),
+                     gates: list | None = None):
     """``n_steps`` fused PF steps (the path of ``bench.py``'s
     ``bench_pf_pallas``).
 
@@ -660,13 +731,18 @@ def pf_fused_rollout(cfg: PfConfig, generator: torch.Generator | None,
         obs_noise: optional ``(n_steps, L, 2)`` scaled observation noise.
         merge_caps_kw: the merge's path, as in
             :func:`pf_fused_step_stats`.
+        gates: optional list that collects each step's ``(2,)`` device
+            gate ``[fire, restart]`` (the merge method's; None for the
+            others), to be read after the rollout: the rollout itself
+            reads none.
 
     Returns:
         ``(final_state, (x_true, x_est))`` with ``(n_steps, 3)``
         trajectories.
     """
     return _rollout(cfg, generator, n_steps, state0, noise_on, device, offs,
-                    obs_noise, plain=False, merge_caps_kw=merge_caps_kw)
+                    obs_noise, plain=False, merge_caps_kw=merge_caps_kw,
+                    gates=gates)
 
 
 def pf_fused_rollout_plain(cfg: PfConfig,
@@ -674,8 +750,10 @@ def pf_fused_rollout_plain(cfg: PfConfig,
                            state0: PfState | None = None,
                            noise_on: bool = True, *,
                            device: torch.device | str, offs=None,
-                           obs_noise=None, merge_caps_kw: tuple = ()):
+                           obs_noise=None, merge_caps_kw: tuple = (),
+                           gates: list | None = None):
     """:func:`pf_fused_rollout` through the plain twins only, on any
     device."""
     return _rollout(cfg, generator, n_steps, state0, noise_on, device, offs,
-                    obs_noise, plain=True, merge_caps_kw=merge_caps_kw)
+                    obs_noise, plain=True, merge_caps_kw=merge_caps_kw,
+                    gates=gates)

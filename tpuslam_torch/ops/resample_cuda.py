@@ -7,16 +7,23 @@ selection of ``filters/pf.py::resample_indices(method="hist")``, bit for
 bit, and copies the float32 values exactly.  Its form on the card is
 prefix -> boundary -> slots -> copy (see ``csrc/resample.cu``):
 
-* shared prerequisites, in plain torch, once (:func:`quantize_weights`):
-  the weights quantized to integers of ``2^-20`` of their total, the
-  exclusive prefix of their 1024-lane block sums, and the total;
-  ``inv_tot = 1 / q_tot`` in float32;
-* :func:`resample_boundary` (kernel, K3a): the exact in-block prefix
-  plus the base, the boundary law, the forcing ``t[n-1] = n``;
+* :func:`resample_boundary` (kernel, K3a, one cooperative launch): the
+  weights' float total in a fixed order (:func:`boundary_total_plain`),
+  their quantized integers of ``2^-20`` of it, the exact prefix and
+  ``1 / q_tot``, the boundary law, the forcing ``t[n-1] = n``; no torch
+  op runs before it;
 * :func:`resample_expand` (kernel, K3b): each output slot's source
-  particle and the copy of its values;
-* :func:`resample_expand_seg` (the same kernel in segments): the wide
-  batched filter's pass B, each firing slot expanding its own filter.
+  particle and the copy of its values, a block a range of output slots;
+* :func:`resample_expand_seg` (kernel, K3b in segments): the wide
+  batched filter's pass B, each firing slot expanding its own filter, a
+  block a window of staged boundaries.
+
+The fused single filter resamples on its ESS gate without a host read
+(:func:`merge_resample_gated`): K3a takes the log weights and their
+normalizers, computes the gate from them and writes it to the device
+(``[fire, bad | fire]``), and it and pass 2 do nothing more where the
+gate is off; the step kernel then reads the gate too
+(``ops/pf_cuda.py``).
 
 Its ``pass2="compressed"`` form reads pass 2 from a survivor stack, as
 the JAX merge's does:
@@ -43,8 +50,9 @@ boundaries built by XLA, then ``_compact_kernel``) is a TPU schedule of
 the same pass 1: here the boundaries always come from K3a, and
 :func:`merge_options` refuses ``fused=False``.  The segmented forms
 (:func:`compact_particles_seg`, :func:`expand_compressed_seg`) are the
-wide filter's ``pass2="compressed"``; the single-filter forms launch the
-same kernels with the filter as their one slot.
+wide filter's ``pass2="compressed"``; the single-filter K3c and K3d
+launch the same kernels with the filter as their one slot, its flag the
+gate's.
 
 Each kernel wrapper has its plain twin (``*_plain``) on the same inputs,
 and :func:`merge_resample_rows_plain` is the whole resample in plain
@@ -59,6 +67,8 @@ takes the same launches, and :func:`merge_options` refuses those caps.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
@@ -66,8 +76,12 @@ from tpuslam_torch.filters.pf import (boundary_law, decode_slots,
                                       quantize_weights_law)
 from tpuslam_torch.ops import _build
 
-#: Launches of each CUDA kernel since its count was last set to 0.
+#: Launches of each CUDA kernel since its count was last set to 0; K3a's
+#: two forms apart: ``boundary_launch_count`` on the gate
+#: (:func:`gated_boundary`), ``boundary_weights_launch_count`` on given
+#: weights (:func:`resample_boundary`).
 boundary_launch_count = 0
+boundary_weights_launch_count = 0
 expand_launch_count = 0
 expand_seg_launch_count = 0
 compact_launch_count = 0
@@ -75,16 +89,26 @@ compact_seg_launch_count = 0
 expand_compressed_launch_count = 0
 expand_compressed_seg_launch_count = 0
 
-#: Lanes per boundary and compaction block: the kernels' ``kScanBlock``.
+#: Lanes per compaction block: the kernels' ``kScanBlock``.
 BLOCK = 1024
+#: K3a's threads a block (``kBoundThreads``), each taking four lanes of
+#: a tile of :data:`TILE`: they set the order of its float total.
+BOUND_THREADS = 256
+TILE = 4 * BOUND_THREADS
 _MAX_N = 1 << 24  # boundaries and integer prefixes exact in float32
 #: The forms of pass 2: the expand over all boundaries, or over the
 #: compressed survivor list.
 PASS2 = ("windowed", "compressed")
 
+# The single filter as one slot of the segmented kernels: slot 0's filter
+# (0) and an always-valid flag, made once a device.
+_SLOT0: dict = {}
+
 
 def quantize_weights(w_row: torch.Tensor):
-    """The resample's plain-torch prerequisites.
+    """The JAX package's merge prerequisites
+    (``resample_pallas.quantize_weights``), with the row's sum in torch's
+    order.
 
     Args:
         w_row: ``(n_pad,)`` float32 weights, padding lanes zero.
@@ -96,6 +120,8 @@ def quantize_weights(w_row: torch.Tensor):
         their :data:`BLOCK`-lane block sums and their total, all float32.
         Sums of integers below ``2^24`` are exact in any order, so
         ``base[b]`` plus an in-block prefix equals the global cumsum.
+        K3a takes its total in its own fixed order instead
+        (:func:`boundary_total_plain`): the two agree where the sums do.
     """
     wq = quantize_weights_law(w_row, w_row.sum())
     pad = -wq.shape[0] % BLOCK
@@ -104,19 +130,34 @@ def quantize_weights(w_row: torch.Tensor):
     return wq, cum_blocks - sums, cum_blocks[-1]
 
 
-def _finish_boundaries(t: torch.Tensor, n: int) -> torch.Tensor:
-    """Clip to ``[0, n]`` and force every lane from ``n - 1`` on to
-    ``n`` (the reference's trailing ``clip(idx, 0, n-1)`` as interval
-    coverage)."""
+def _scalar(value, device: torch.device) -> torch.Tensor:
+    """A float32 one-element tensor on ``device``: a device scalar is
+    passed to the kernels by pointer, so reading it needs no host sync.
+    A one-element float32 tensor there already is passed as it is."""
+    if (isinstance(value, torch.Tensor) and value.numel() == 1
+            and value.dtype == torch.float32 and value.device == device
+            and value.is_contiguous()):
+        return value
+    return torch.as_tensor(value, dtype=torch.float32,
+                           device=device).reshape(1)
+
+
+def _boundaries(cum: torch.Tensor, inv_tot, offs, n: int) -> torch.Tensor:
+    """The boundary law on the exact-integer prefix ``cum``, clipped to
+    ``[0, n]``, every lane from ``n - 1`` on forced to ``n`` (the
+    reference's trailing ``clip(idx, 0, n-1)`` as interval coverage)."""
+    t = boundary_law(cum, _scalar(inv_tot, cum.device), n,
+                     _scalar(offs, cum.device))
     t = t.to(torch.int32).clamp(0, n)
     t[n - 1:] = n
     return t
 
 
 def slot_boundaries(w_row: torch.Tensor, n: int, offs) -> torch.Tensor:
-    """Slot boundaries of the systematic comb: ``(n_pad,)`` int32,
-    non-decreasing in ``[0, n]``; particle ``j`` owns the output slots
-    ``[t[j-1], t[j])``."""
+    """Slot boundaries of the systematic comb, as the JAX package's
+    ``slot_boundaries`` computes them (its total in torch's order):
+    ``(n_pad,)`` int32, non-decreasing in ``[0, n]``; particle ``j`` owns
+    the output slots ``[t[j-1], t[j])``."""
     wq, _, _ = quantize_weights(w_row)
     return slot_boundaries_from_wq(wq, n, offs)
 
@@ -125,8 +166,8 @@ def slot_boundaries_from_wq(wq_row: torch.Tensor, n: int,
                             offs) -> torch.Tensor:
     """Slot boundaries from pre-quantized integer weights (the same law
     as :func:`slot_boundaries` on the same integers)."""
-    q_tot = torch.cumsum(wq_row, dim=0)[-1]
-    return resample_boundary_plain(wq_row, 1.0 / q_tot, offs, n)
+    cum = torch.cumsum(wq_row, dim=0)
+    return _boundaries(cum, 1.0 / cum[-1], offs, n)
 
 
 def decode_indices(t_row: torch.Tensor, n: int) -> torch.Tensor:
@@ -139,65 +180,218 @@ def decode_indices(t_row: torch.Tensor, n: int) -> torch.Tensor:
 def _check_n(n: int, n_pad: int) -> None:
     if not 1 <= n <= n_pad:
         raise ValueError(f"n={n} must be in [1, n_pad={n_pad}]")
-    if n >= _MAX_N:
-        raise ValueError("merge resample requires n < 2**24 (f32-exact "
-                         f"slot boundaries); got {n}")
+    if n_pad >= _MAX_N:
+        raise ValueError("merge resample requires n_pad < 2**24 (f32-exact "
+                         f"slot boundaries); got {n_pad}")
 
 
-def _scalar(value, device: torch.device) -> torch.Tensor:
-    """A float32 one-element tensor on ``device``: a device scalar is
-    passed to the kernels by pointer, so reading it needs no host sync."""
-    return torch.as_tensor(value, dtype=torch.float32,
-                           device=device).reshape(1)
+def _tree(v: torch.Tensor) -> torch.Tensor:
+    """The sum over the last axis (a power of two) by a tree of halving
+    adds, level h: ``v[i] + v[i + h]``."""
+    while v.shape[-1] > 1:
+        h = v.shape[-1] // 2
+        v = v[..., :h] + v[..., h:]
+    return v[..., 0]
 
 
-def resample_boundary_plain(wq: torch.Tensor, inv_tot, offs,
-                            n: int) -> torch.Tensor:
-    """Plain twin of :func:`resample_boundary` (global cumsum in place of
-    the block prefix plus base; equal for integers below ``2^24``)."""
-    cum = torch.cumsum(wq, dim=0)
-    inv_tot = _scalar(inv_tot, wq.device)
-    offs = _scalar(offs, wq.device)
-    return _finish_boundaries(boundary_law(cum, inv_tot, n, offs), n)
+def boundary_total_plain(w: torch.Tensor) -> torch.Tensor:
+    """The float32 total of ``(n,)`` weights in K3a's order: each tile of
+    :data:`TILE` lanes sums thread t's four lanes ``4t .. 4t + 3`` in
+    sequence, then a tree of halving adds over the
+    :data:`BOUND_THREADS` threads; the tile sums are added so too (thread
+    t: tiles ``t, t + T, ...`` in sequence from 0, then the tree).  Every
+    add is one IEEE float32 add, as the kernel's ``__fadd_rn``."""
+    n = w.shape[-1]
+    tiles = -(-n // TILE)
+    lanes = F.pad(w, (0, tiles * TILE - n)).view(tiles, BOUND_THREADS, 4)
+    part = _tree(((lanes[..., 0] + lanes[..., 1]) + lanes[..., 2])
+                 + lanes[..., 3])
+    rows = -(-tiles // BOUND_THREADS)
+    part = F.pad(part, (0, rows * BOUND_THREADS - tiles)).view(
+        rows, BOUND_THREADS)
+    acc = torch.zeros(BOUND_THREADS, dtype=w.dtype, device=w.device)
+    for r in range(rows):
+        acc = acc + part[r]
+    return _tree(acc)
 
 
-def resample_boundary(wq: torch.Tensor, base: torch.Tensor, inv_tot, offs,
-                      n: int) -> torch.Tensor:
-    """K3a: slot boundaries from the quantized weights, one kernel launch.
+def _weights(row: torch.Tensor, n: int, lse=None) -> torch.Tensor:
+    """K3a's weights: the row, or ``exp(row - lse)``; lanes from ``n`` on
+    0."""
+    w = row if lse is None else torch.exp(row - lse)
+    return F.pad(w[:n], (0, row.shape[0] - n))
 
-    Args:
-        wq, base: from :func:`quantize_weights`.
-        inv_tot: ``1 / q_tot`` as a float32 scalar or one-element tensor.
-        offs: the comb offset in [0, 1), likewise.
-        n: valid particle count.
 
-    Returns:
-        ``(n_pad,)`` int32 boundaries, as :func:`slot_boundaries`.
-    """
-    global boundary_launch_count
-    device = wq.device
-    if device.type == "cpu":
-        return resample_boundary_plain(wq, inv_tot, offs, n)
-    if device.type != "cuda":
-        raise ValueError(f"unsupported device {device}")
-    n_pad = wq.shape[0]
+def resample_boundary_plain(row: torch.Tensor, n: int, offs, *,
+                            lse=None) -> torch.Tensor:
+    """Plain twin of :func:`resample_boundary`: the weights (``row``, or
+    ``exp(row - lse)`` of log weights), quantized by
+    :func:`~tpuslam_torch.filters.pf.quantize_weights_law` of their
+    :func:`boundary_total_plain`, their cumsum (exact integers below
+    ``2^24``), ``1 / q_tot`` and the law."""
+    w = _weights(row, n, lse)
+    cum = torch.cumsum(quantize_weights_law(w, boundary_total_plain(w)),
+                       dim=0)
+    return _boundaries(cum, 1.0 / cum[-1], offs, n)
+
+
+def _check_row(name: str, row: torch.Tensor, n: int,
+               device: torch.device) -> int:
+    n_pad = row.shape[-1]
     _check_n(n, n_pad)
-    _build.check_tensor("wq", wq, (n_pad,), torch.float32, device)
-    _build.check_tensor("base", base, (-(-n_pad // BLOCK),), torch.float32,
-                        device)
+    _build.check_tensor(name, row, (n_pad,), torch.float32, device)
+    return n_pad
+
+
+def _launch_boundary(row, n, n_pad, offs, lse=None, lse2=None,
+                     ess_min=0.0, gate=None, out=None) -> torch.Tensor:
+    """K3a's launch into ``out`` (or a fresh ``(n_pad,)`` int32 row); the
+    caller counts it."""
+    device = row.device
     lib = _build.cuda_library(device)
-    inv_tot, offs = _scalar(inv_tot, device), _scalar(offs, device)
+    offs = _scalar(offs, device)
     with torch.cuda.device(device):
-        t_hi = torch.empty(n_pad, dtype=torch.int32, device=device)
+        t_hi = (torch.empty(n_pad, dtype=torch.int32, device=device)
+                if out is None else out)
         rc = lib.tpuslam_resample_boundary(
-            wq.data_ptr(), base.data_ptr(), inv_tot.data_ptr(),
-            offs.data_ptr(), t_hi.data_ptr(), n, n_pad,
+            row.data_ptr(), None if lse is None else lse.data_ptr(),
+            None if lse2 is None else lse2.data_ptr(), ess_min,
+            offs.data_ptr(), None if gate is None else gate.data_ptr(),
+            t_hi.data_ptr(), n, n_pad,
             torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"resample_boundary kernel launch failed: CUDA "
                            f"error {rc}")
-    boundary_launch_count += 1
     return t_hi
+
+
+def resample_boundary(w_row: torch.Tensor, n: int, offs) -> torch.Tensor:
+    """K3a on given weights: slot boundaries, one kernel launch.
+
+    Args:
+        w_row: ``(n_pad,)`` float32 weights (lanes from ``n`` on
+            ignored).
+        n: valid particle count.
+        offs: the comb offset in [0, 1), a float or a one-element tensor.
+
+    Returns:
+        ``(n_pad,)`` int32 boundaries; a CPU tensor runs
+        :func:`resample_boundary_plain`.
+    """
+    global boundary_weights_launch_count
+    device = w_row.device
+    if device.type == "cpu":
+        return resample_boundary_plain(w_row, n, offs)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    t_hi = _launch_boundary(w_row, n, _check_row("w_row", w_row, n, device),
+                            offs)
+    boundary_weights_launch_count += 1
+    return t_hi
+
+
+def ess_gate_plain(lse: torch.Tensor, lse2: torch.Tensor, n: int,
+                   ess_min: float) -> torch.Tensor:
+    """The single filter's ESS gate in torch: ``bad`` where a normalizer
+    is not finite, ``ess = n`` there and ``exp(2 lse - lse2)`` elsewhere,
+    ``fire = ess < ess_min`` (float32, as torch compares a tensor with a
+    Python float).  Returns the ``(2,)`` bool gate ``[fire, bad | fire]``
+    that K3a writes."""
+    bad = ~(torch.isfinite(lse) & torch.isfinite(lse2))
+    ess = torch.where(bad, float(n), torch.exp(2.0 * lse - lse2))
+    fire = ess < ess_min
+    return torch.stack([fire, bad | fire]).reshape(2)
+
+
+def gated_boundary_plain(log_w: torch.Tensor, lse: torch.Tensor,
+                         lse2: torch.Tensor, n: int, offs,
+                         ess_min: float):
+    """Plain twin of :func:`gated_boundary`.  Where the gate is off it
+    decodes uniform weights (the kernel writes no boundary there), so its
+    boundaries stay a partition of the slots."""
+    gate = ess_gate_plain(lse, lse2, n, ess_min)
+    fire = gate[0]
+    t_hi = resample_boundary_plain(torch.where(fire, log_w, 0.0), n, offs,
+                                   lse=torch.where(fire, lse, 0.0))
+    return t_hi, gate
+
+
+def gated_boundary(log_w: torch.Tensor, lse: torch.Tensor,
+                   lse2: torch.Tensor, n: int, offs, ess_min: float, *,
+                   out: torch.Tensor | None = None):
+    """K3a on the single filter's ESS gate, one launch, no host read.
+
+    Every block computes the gate from the two normalizers
+    (:func:`ess_gate_plain`'s law, ``expf`` and float32 on the card), the
+    first writes it, and where it is off every block exits.
+
+    Args:
+        log_w: ``(n_pad,)`` float32 log weights (lanes from ``n`` on
+            ignored); lse, lse2: their normalizers, one-element float32
+            tensors on the device.
+        n: valid particle count.
+        offs: the comb offset in [0, 1), a float or a one-element tensor.
+        ess_min: the gate's threshold, ``n * ess_threshold_frac``.
+        out: optional ``(n_pad,)`` int32 row to write.
+
+    Returns:
+        ``(t_hi, gate)``: the ``(n_pad,)`` int32 boundaries of the weights
+        ``exp(log_w - lse)`` (written only where the gate fires) and the
+        ``(2,)`` bool gate ``[fire, bad | fire]``.  A CPU tensor runs
+        :func:`gated_boundary_plain`.
+    """
+    global boundary_launch_count
+    device = log_w.device
+    if device.type == "cpu":
+        return gated_boundary_plain(log_w, lse, lse2, n, offs, ess_min)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    n_pad = _check_row("log_w", log_w, n, device)
+    for name, t in (("lse", lse), ("lse2", lse2)):
+        _build.check_tensor(name, t, t.shape, torch.float32, device)
+        if t.numel() != 1:
+            raise ValueError(f"{name} must hold one value")
+    if out is not None:
+        _build.check_tensor("out", out, (n_pad,), torch.int32, device)
+    gate = torch.empty(2, dtype=torch.bool, device=device)
+    t_hi = _launch_boundary(log_w, n, n_pad, offs, lse, lse2,
+                            ctypes.c_float(ess_min).value, gate, out)
+    boundary_launch_count += 1
+    return t_hi, gate
+
+
+def boundary_arrivals(device: torch.device | str) -> int:
+    """K3a's grid-barrier arrivals on ``device`` (0 between launches).
+    Reads the device: for checks only."""
+    device = _build.resolve_device(device)
+    lib = _build.cuda_library(device)
+    value = ctypes.c_uint(0)
+    with torch.cuda.device(device):
+        rc = lib.tpuslam_resample_arrivals(ctypes.byref(value))
+    if rc != 0:
+        raise RuntimeError(f"reading K3a's barrier arrivals failed: CUDA "
+                           f"error {rc}")
+    return value.value
+
+
+def _slot0(device: torch.device):
+    """``(fids, valid)`` of the single filter as slot 0: ``[0]`` and
+    ``[True]`` on ``device``, made once."""
+    if device not in _SLOT0:
+        _SLOT0[device] = (torch.zeros(1, dtype=torch.int32, device=device),
+                          torch.ones(1, dtype=torch.bool, device=device))
+    return _SLOT0[device]
+
+
+def _one_slot(gate: torch.Tensor | None, device: torch.device):
+    """``(fids, valid)`` of a single-filter launch: slot 0, valid where
+    ``gate`` (the ``(2,)`` gate of :func:`gated_boundary`, its byte 0 the
+    flag) fires, or always."""
+    fids, always = _slot0(device)
+    if gate is None:
+        return fids, always
+    _build.check_tensor("gate", gate, (2,), torch.bool, device)
+    return fids, gate
 
 
 def resample_expand_plain(p_rows: torch.Tensor, t_hi: torch.Tensor,
@@ -209,10 +403,27 @@ def resample_expand_plain(p_rows: torch.Tensor, t_hi: torch.Tensor,
     return out
 
 
-def resample_expand(p_rows: torch.Tensor, t_hi: torch.Tensor,
-                    n: int) -> torch.Tensor:
+def resample_expand(p_rows: torch.Tensor, t_hi: torch.Tensor, n: int, *,
+                    gate: torch.Tensor | None = None,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
     """K3b: every output slot's source particle and a copy of its values,
-    one kernel launch.  Returns the ``(3, n_pad)`` resampled rows."""
+    one kernel launch (a block a range of output slots, so a particle that
+    takes many slots does not fall to one block; the segmented form,
+    :func:`resample_expand_seg`, keeps a block a window of particles).
+
+    Args:
+        p_rows: ``(3, n_pad)`` float32 particle rows.
+        t_hi: ``(n_pad,)`` int32 boundaries (:func:`resample_boundary`).
+        n: valid particle count.
+        gate: optional ``(2,)`` bool gate (:func:`gated_boundary`): the
+            launch writes nothing where it does not fire.
+        out: optional ``(3, n_pad)`` float32 rows to write.
+
+    Returns:
+        The ``(3, n_pad)`` resampled rows, padding lanes zero; a CPU
+        tensor runs :func:`resample_expand_plain` (which ignores the
+        gate).
+    """
     global expand_launch_count
     device = p_rows.device
     if device.type == "cpu":
@@ -223,11 +434,15 @@ def resample_expand(p_rows: torch.Tensor, t_hi: torch.Tensor,
     _check_n(n, n_pad)
     _build.check_tensor("p_rows", p_rows, (3, n_pad), torch.float32, device)
     _build.check_tensor("t_hi", t_hi, (n_pad,), torch.int32, device)
+    if out is not None:
+        _build.check_tensor("out", out, (3, n_pad), torch.float32, device)
+    valid = _one_slot(gate, device)[1]
     lib = _build.cuda_library(device)
     with torch.cuda.device(device):
-        out = torch.empty_like(p_rows)
+        out = torch.empty_like(p_rows) if out is None else out
         rc = lib.tpuslam_resample_expand(
-            p_rows.data_ptr(), t_hi.data_ptr(), out.data_ptr(), n, n_pad,
+            p_rows.data_ptr(), t_hi.data_ptr(), valid.data_ptr(),
+            out.data_ptr(), n, n_pad,
             torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"resample_expand kernel launch failed: CUDA "
@@ -328,18 +543,11 @@ def compact_particles_plain(p: torch.Tensor, t: torch.Tensor):
     return vals, iv, cnt
 
 
-def _one_slot(device: torch.device):
-    """The single filter as the one slot of a segmented launch: ``fids``
-    ``[0]`` and ``valid`` ``[True]``, made on ``device`` with no host
-    sync."""
-    return (torch.zeros(1, dtype=torch.int32, device=device),
-            torch.ones(1, dtype=torch.bool, device=device))
-
-
 def _launch_compact(p_rows: torch.Tensor, t_hi: torch.Tensor,
                     fids: torch.Tensor, valid: torch.Tensor):
-    """K3c's launch over the slots of ``(3, b, len)`` rows."""
-    b, length = _check_seg(p_rows, t_hi, fids, valid)
+    """K3c's launch over the slots of ``(3, b, len)`` rows (checked by the
+    caller)."""
+    _, b, length = p_rows.shape
     device = p_rows.device
     lib = _build.cuda_library(device)
     with torch.cuda.device(device):
@@ -358,7 +566,8 @@ def _launch_compact(p_rows: torch.Tensor, t_hi: torch.Tensor,
     return vals, iv, cnt
 
 
-def compact_particles(p_rows: torch.Tensor, t_hi: torch.Tensor):
+def compact_particles(p_rows: torch.Tensor, t_hi: torch.Tensor, *,
+                      gate: torch.Tensor | None = None):
     """K3c: each :data:`BLOCK`-lane block's survivors compacted, one
     kernel launch (the filter as the one slot of
     :func:`compact_particles_seg`'s kernel).
@@ -367,6 +576,9 @@ def compact_particles(p_rows: torch.Tensor, t_hi: torch.Tensor):
         p_rows: ``(3, n_pad)`` float32 particle rows.
         t_hi: ``(n_pad,)`` int32 boundaries (:func:`resample_boundary`;
             lanes from ``n - 1`` on carry ``n``).
+        gate: optional ``(2,)`` bool gate (:func:`gated_boundary`): where
+            it does not fire the launch writes zero counts only (a CPU
+            tensor ignores it).
 
     Returns:
         ``(vals, iv, cnt)``: the ``(3, n_pad)`` float32 values and
@@ -386,7 +598,7 @@ def compact_particles(p_rows: torch.Tensor, t_hi: torch.Tensor):
     _build.check_tensor("p_rows", p_rows, (3, n_pad), torch.float32, device)
     _build.check_tensor("t_hi", t_hi, (n_pad,), torch.int32, device)
     vals, iv, cnt = _launch_compact(p_rows[:, None], t_hi[None],
-                                    *_one_slot(device))
+                                    *_one_slot(gate, device))
     compact_launch_count += 1
     return vals[:, 0], iv[:, 0], cnt[0]
 
@@ -421,6 +633,7 @@ def compact_particles_seg(p_rows: torch.Tensor, t_hi: torch.Tensor,
         return compact_particles_seg_plain(p_rows, t_hi, fids, valid)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
+    _check_seg(p_rows, t_hi, fids, valid)
     stack = _launch_compact(p_rows, t_hi, fids, valid)
     compact_seg_launch_count += 1
     return stack
@@ -468,8 +681,9 @@ def _check_stack_seg(vals: torch.Tensor, iv: torch.Tensor,
 
 def _launch_expand_compressed(vals: torch.Tensor, iv: torch.Tensor,
                               valid: torch.Tensor, n: int) -> torch.Tensor:
-    """K3d's launch over the slots of a ``(3, b, len)`` stack."""
-    b, length = _check_stack_seg(vals, iv, valid)
+    """K3d's launch over the slots of a ``(3, b, len)`` stack (checked by
+    the caller)."""
+    _, b, length = vals.shape
     _check_n(n, length)
     device = vals.device
     lib = _build.cuda_library(device)
@@ -484,8 +698,8 @@ def _launch_expand_compressed(vals: torch.Tensor, iv: torch.Tensor,
     return out
 
 
-def expand_compressed(vals: torch.Tensor, iv: torch.Tensor,
-                      n: int) -> torch.Tensor:
+def expand_compressed(vals: torch.Tensor, iv: torch.Tensor, n: int, *,
+                      gate: torch.Tensor | None = None) -> torch.Tensor:
     """K3d: every output slot's survivor in the stack and a copy of its
     values, one kernel launch (the filter as the one slot of
     :func:`expand_compressed_seg`'s kernel).
@@ -493,6 +707,9 @@ def expand_compressed(vals: torch.Tensor, iv: torch.Tensor,
     Args:
         vals, iv: the stack from :func:`compact_particles`.
         n: valid particle count.
+        gate: optional ``(2,)`` bool gate (:func:`gated_boundary`): the
+            launch writes nothing where it does not fire (a CPU tensor
+            ignores it).
 
     Returns:
         The ``(3, n_pad)`` resampled rows, padding lanes zero.
@@ -507,7 +724,7 @@ def expand_compressed(vals: torch.Tensor, iv: torch.Tensor,
     _build.check_tensor("vals", vals, (3, n_pad), torch.float32, device)
     _build.check_tensor("iv", iv, (2, n_pad), torch.int32, device)
     out = _launch_expand_compressed(vals[:, None], iv[:, None],
-                                    _one_slot(device)[1], n)
+                                    _one_slot(gate, device)[1], n)
     expand_compressed_launch_count += 1
     return out[:, 0]
 
@@ -546,6 +763,7 @@ def expand_compressed_seg(vals: torch.Tensor, iv: torch.Tensor,
         return expand_compressed_seg_plain(vals, iv, valid)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
+    _check_stack_seg(vals, iv, valid)
     out = _launch_expand_compressed(vals, iv, valid, vals.shape[-1])
     expand_compressed_seg_launch_count += 1
     return out
@@ -582,16 +800,19 @@ def merge_options(merge_caps_kw: tuple = ()) -> dict:
 
 
 def _pass2(p_rows: torch.Tensor, t_hi: torch.Tensor, n: int, pass2: str,
-           plain: bool) -> torch.Tensor:
-    """Pass 2 of the merge from the boundaries: K3b, or K3c and K3d
-    (their plain twins with ``plain``)."""
+           plain: bool, gate: torch.Tensor | None = None) -> torch.Tensor:
+    """Pass 2 of the merge from the boundaries: K3b, or K3c and K3d, on
+    ``gate`` where one is given (their plain twins with ``plain``, which
+    take no gate)."""
+    if plain:
+        if pass2 == "windowed":
+            return resample_expand_plain(p_rows, t_hi, n)
+        vals, iv, _ = compact_particles_plain(p_rows, t_hi)
+        return expand_compressed_plain(vals, iv, n)
     if pass2 == "windowed":
-        expand = resample_expand_plain if plain else resample_expand
-        return expand(p_rows, t_hi, n)
-    compact = compact_particles_plain if plain else compact_particles
-    expand = expand_compressed_plain if plain else expand_compressed
-    vals, iv, _ = compact(p_rows, t_hi)
-    return expand(vals, iv, n)
+        return resample_expand(p_rows, t_hi, n, gate=gate)
+    vals, iv, _ = compact_particles(p_rows, t_hi, gate=gate)
+    return expand_compressed(vals, iv, n, gate=gate)
 
 
 def expand_seg(p_rows: torch.Tensor, t_hi: torch.Tensor, fids: torch.Tensor,
@@ -631,8 +852,7 @@ def merge_resample_rows_plain(p_rows: torch.Tensor, w_row: torch.Tensor,
     device = _build.resolve_device(device)
     _check_rows(p_rows, w_row, n, device)
     check_pass2(pass2)
-    wq, _, q_tot = quantize_weights(w_row)
-    t_hi = resample_boundary_plain(wq, 1.0 / q_tot, _offs_on(offs, device), n)
+    t_hi = resample_boundary_plain(w_row, n, _offs_on(offs, device))
     return _pass2(p_rows, t_hi, n, pass2, plain=True)
 
 
@@ -642,7 +862,9 @@ def merge_resample_rows(p_rows: torch.Tensor, w_row: torch.Tensor, n: int,
     """Systematic resample of row-major particles.
 
     Selection is bit-identical to ``resample_indices(method="hist")`` on
-    the same weights and offset; values are copied exactly.
+    the same weights and offset where their totals agree (the kernel sums
+    the weights in its own fixed order, :func:`boundary_total_plain`);
+    values are copied exactly.
 
     Args:
         p_rows: ``(3, n_pad)`` float32 particle rows.
@@ -670,6 +892,47 @@ def merge_resample_rows(p_rows: torch.Tensor, w_row: torch.Tensor, n: int,
     _build.cuda_library(device)
     _check_rows(p_rows, w_row, n, device)
     check_pass2(pass2)
-    wq, base, q_tot = quantize_weights(w_row)
-    t_hi = resample_boundary(wq, base, 1.0 / q_tot, _offs_on(offs, device), n)
+    t_hi = resample_boundary(w_row, n, _offs_on(offs, device))
     return _pass2(p_rows, t_hi, n, pass2, plain=False)
+
+
+def merge_resample_gated_plain(p_rows: torch.Tensor, log_w: torch.Tensor,
+                               lse: torch.Tensor, lse2: torch.Tensor,
+                               n: int, offs, ess_min: float, *,
+                               pass2: str = "windowed"):
+    """Plain twin of :func:`merge_resample_gated`, on any device: it
+    resamples whatever the gate says (uniform weights where it is off)
+    and reads nothing on the host."""
+    check_pass2(pass2)
+    t_hi, gate = gated_boundary_plain(log_w, lse, lse2, n, offs, ess_min)
+    return _pass2(p_rows, t_hi, n, pass2, plain=True), gate
+
+
+def merge_resample_gated(p_rows: torch.Tensor, log_w: torch.Tensor,
+                         lse: torch.Tensor, lse2: torch.Tensor, n: int,
+                         offs, ess_min: float, *,
+                         pass2: str = "windowed"):
+    """The single filter's merge on its ESS gate, with no host read:
+    :func:`gated_boundary` (K3a on the log weights, writing the gate),
+    then pass 2 (K3b, or K3c and K3d) on that gate.  Every launch reads
+    the gate on the device and does nothing where it is off.
+
+    Args:
+        p_rows: ``(3, n_pad)`` float32 particle rows; log_w: ``(n_pad,)``
+            their log weights; lse, lse2: the normalizers (one-element
+            tensors); n, offs, ess_min, pass2: as :func:`gated_boundary`
+            and :func:`merge_resample_rows`.
+
+    Returns:
+        ``(rows, gate)``: the resampled ``(3, n_pad)`` rows (written only
+        where the gate fires) and the ``(2,)`` bool gate ``[fire,
+        bad | fire]``.  A CPU tensor runs :func:`merge_resample_gated_plain`.
+    """
+    if log_w.device.type == "cpu":
+        return merge_resample_gated_plain(p_rows, log_w, lse, lse2, n, offs,
+                                          ess_min, pass2=pass2)
+    check_pass2(pass2)
+    _build.check_tensor("p_rows", p_rows, (3, log_w.shape[-1]),
+                        torch.float32, log_w.device)
+    t_hi, gate = gated_boundary(log_w, lse, lse2, n, offs, ess_min)
+    return _pass2(p_rows, t_hi, n, pass2, plain=False, gate=gate), gate

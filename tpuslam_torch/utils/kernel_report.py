@@ -1,13 +1,13 @@
 """What the compiler and the occupancy calculator say about the built
 kernels: each kernel's registers, stack frame and spills (``ptxas -v``,
 kept beside the library by :mod:`tpuslam_torch.ops._build`), the SASS
-opcode counts of K1, K2b, K4, K5a, K5b and the segmented K3b (``cuobjdump
--sass`` of the library), those of each such kernel's largest loop (the
-instructions from a backward branch's target to the branch: K1's step
-loop) and of its body (the instructions before the branch to itself that
-follows the kernel's last ``EXIT``: the subroutines after it, such as the
-IEEE divide's slow path, left out), and each PF kernel's resident blocks
-per SM
+opcode counts of K1, K2b, K3a, K4, K5a, K5b and both forms of K3b
+(``cuobjdump -sass`` of the library), those of each such kernel's
+largest loop (the instructions from a backward branch's target to the
+branch: K1's step loop) and of its body (the instructions before the
+branch to itself that follows the kernel's last ``EXIT``: the
+subroutines after it, such as the IEEE divide's slow path, left out),
+and each PF kernel's resident blocks per SM
 (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, through one
 ``tpuslam_occupancy_<source>`` entry point a source).
 
@@ -34,10 +34,12 @@ import subprocess
 
 #: Kernels whose opcodes are counted (demangled-name prefixes): K1 in the
 #: flagship's mode (Philox, no NEES), K2b, K4 and the fused K5b in Philox
-#: mode, K5a and the segmented K3b.
+#: mode, K5a, the single filter's K3a (every ``boundary_`` kernel of
+#: ``resample.cu``) and both forms of K3b (single and segmented).
 SASS_KERNELS = ("ekf_rollout_kernel<1, false", "pf_step_kernel<1, true>",
                 "pf_batch_kernel<1", "wide_boundary_kernel",
-                "wide_stats_kernel<1, true", "expand_seg_kernel")
+                "wide_stats_kernel<1, true", "expand_seg_kernel",
+                "expand_range_kernel", "boundary_")
 #: Opcode groups of the count, by the opcode's first dotted part.
 OPCODE_GROUPS = (("LDL/STL", ("LDL", "STL")), ("LDC", ("LDC",)),
                  ("LDG/STG", ("LDG", "STG")), ("LDS/STS", ("LDS", "STS")),

@@ -77,13 +77,21 @@ def steps_per_second(fn, *args, work_items: int, reps: int = 5,
                               device=device)
 
 
+#: The runtime calls in which the host waits for the device: a copy to
+#: the host (``.item()``, ``.tolist()``) and the stream synchronise
+#: behind it.
+_WAITS = ("cudaMemcpyAsync", "cudaStreamSynchronize")
+
+
 def profile_window(call, steps: int | None = None) -> dict:
     """Where one call's time goes (``torch.profiler``, CPU and CUDA).
 
     Returns ``wall_ms`` (host clock around the call, synchronised),
     ``busy_ms`` (the device's own events: kernels and copies; a torch
     op's entry repeats the time of the kernels it launched, so ops are not
-    summed), ``top`` (``(name, ms)`` of every entry with device time,
+    summed), ``sync_ms`` (the host's time inside the runtime calls that
+    wait for the device: :data:`_WAITS`, the closing synchronise left
+    out), ``top`` (``(name, ms)`` of every entry with device time,
     largest first) and, with ``steps``, ``ops_per_step``: the ``aten::``
     events that no other ``aten::`` event encloses, over ``steps``.
     """
@@ -97,14 +105,17 @@ def profile_window(call, steps: int | None = None) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
-    busy_us = 0.0
+    busy_us = sync_us = 0.0
     for evt in prof.key_averages():
+        if evt.key in _WAITS:
+            sync_us += evt.cpu_time_total
         us = getattr(evt, "self_device_time_total", 0.0)
         if us > 0:
             by_name[evt.key] = by_name.get(evt.key, 0.0) + us
             if evt.device_type != torch.autograd.DeviceType.CPU:
                 busy_us += us
     out = {"wall_ms": wall_ms, "busy_ms": busy_us / 1e3,
+           "sync_ms": sync_us / 1e3,
            "top": [(k, v / 1e3) for k, v in
                    sorted(by_name.items(), key=lambda kv: -kv[1])]}
     if steps:

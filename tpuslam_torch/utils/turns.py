@@ -32,13 +32,30 @@ card's clocks falls on every side.  Each prints one JSON line with:
   one, its torch combine of partial rows) and of the public
   ``pf_fused_predict_weight_stats`` (which also transposes the
   particles), and a digest of the particles and log weights; the same
-  digest at 100,000 with noise off and with injected normals;
+  digest at 100,000 with noise off and with injected normals, each with
+  the restart flag at 0 and at 1.  A checkout whose K2b reads its gate
+  from the device takes the flags from there (and, for one more digest,
+  the resampled rows in place of the carried ones); the digests equal
+  the host-flag form's where the bits agree;
+* the single filter's firing step at 2,097,152 (log weights of spread
+  4): its pass 1 (the checkout's K3a with the torch work it needs
+  before it: the weights, their quantized integers, block prefix and
+  ``1 / q_tot`` where the checkout has them) and the whole firing branch
+  (pass 1 and K3b), device time a call (20 calls behind a sleep kernel)
+  and torch ops a call; K3b alone on the first turn's boundaries; a
+  digest of the boundaries and of the rows; where the checkout gates on
+  the device, both with the gate off too.  Each checkout's boundaries
+  are saved, and the run ends by counting the lanes where they differ
+  from the first checkout's;
 * the device time a launch and a digest of the outputs of K4 at
   8192 x 1000 and K5b at 1024 x 10,000 (Philox noise, a mixed gate),
   which share ``csrc/fastmath.cuh`` with K1;
-* the single-filter (2,097,152) and wide (1024 x 10,000) rollouts'
-  torch ops, device busy time and host wall time a step, from a profiled
-  50-step rollout after a warm-up one.
+* the single-filter (2,097,152 and 100,000) and wide (1024 x 10,000)
+  rollouts' torch ops, device busy time, host wall time and the host's
+  wait for the device (``profile_window``'s ``sync_ms``) a step, from a
+  profiled 50-step rollout after a warm-up one; and the single filter's
+  particle-steps a second at 2,097,152, 1,000,000 and 100,000 x 400
+  (CUDA events, median of 3 after one warm-up), in the same turns.
 
 K3b and K5b read boundaries: every turn takes those of the first turn
 (saved under this tree's ``build/turns/``), so their digests compare the
@@ -65,8 +82,10 @@ BASELINE = (8192, 400)
 K3B_SHAPE = (1024, 10_000)
 K3B_FIRING = (0, 240, 1024)
 K2_SIZES = (2_097_152, 1_000_000, 100_000)
+K3_SIZE = K2_SIZES[0]
 K4_SHAPE = (8192, 1000)
 LOOP_STEPS = 50
+RATE_STEPS = 400
 SHARE_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "turns"
 
 
@@ -194,6 +213,65 @@ def _full_rows(saved: dict, dev) -> dict:
         t[v] = rows
         out[k] = tuple(x.to(dev) for x in (t, f, v, s))
     return out
+
+
+def _k3_inputs(dev):
+    """The single filter's firing step at :data:`K3_SIZE`: particle rows,
+    log weights of spread 4 (the gate fires), their normalizers and a
+    comb offset, a 0-d view as the rollout passes it."""
+    import torch
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(33)
+    n = K3_SIZE
+    p_rows = torch.randn((3, n), generator=g, **f32)
+    lw = 4.0 * torch.randn(n, generator=g, **f32)
+    offs = torch.rand(4, generator=g, **f32)[1]
+    return (p_rows, lw, torch.logsumexp(lw, 0), torch.logsumexp(2.0 * lw, 0),
+            offs)
+
+
+def _k3_forms(rs, dev, p_rows, lw, lse, lse2, offs, fire: bool = True):
+    """``(pass1, branch)``: a checkout's single-filter firing step at
+    :func:`_k3_inputs`: its pass 1 (boundaries) and the whole branch
+    (pass 1 and K3b, the resampled rows).  The parent's form is
+    ``pf_cuda._step``'s firing branch: the weights, the merge's torch
+    prerequisites and K3a, then K3b.  A checkout that gates on the device
+    runs its K3a on the log weights, the gate read by the kernels (off
+    where ``fire`` is false: no lane of the threshold 0 fires)."""
+    import numpy as np
+    import torch
+
+    n = lw.shape[0]
+    if hasattr(rs, "gated_boundary"):
+        ess_min = float(np.float32(n * 0.5)) if fire else 0.0
+
+        def pass1():
+            return rs.gated_boundary(lw, lse, lse2, n, offs, ess_min)
+
+        def branch():
+            t_hi, gate = pass1()
+            return rs.resample_expand(p_rows, t_hi, n, gate=gate)
+
+        return (lambda: pass1()[0]), branch
+
+    def pass1():
+        w = torch.exp(lw - lse)
+        wq, base, q_tot = rs.quantize_weights(w)
+        return rs.resample_boundary(wq, base, 1.0 / q_tot,
+                                    rs._offs_on(offs, dev), n)
+
+    def branch():
+        return rs.merge_resample_rows(p_rows, torch.exp(lw - lse), n, offs,
+                                      device=dev)
+
+    return pass1, branch
+
+
+def _ops_a_call(profile_window, fn) -> float:
+    """The torch ops one call of ``fn`` makes (after a warm-up call)."""
+    fn()
+    return profile_window(fn, 1)["ops_per_step"]
 
 
 def _pf_args(dev):
@@ -330,6 +408,21 @@ def _measure(tree: pathlib.Path, share: pathlib.Path, label: str) -> dict:
         rows = rs.resample_expand_seg(*args)
         out[f"k3b_{n_fire}_digest"] = _digest(rows[:, valid])
 
+    gated = hasattr(rs, "gated_boundary")
+
+    def k2b(args, noise, flag: float, take: bool = False):
+        """K2b's ``(p', lw')``: the host flag, or the device gate
+        ``[take, flag]`` with the carried rows (or, with ``take``, the
+        resampled ones: the carried rows then hold other values)."""
+        if not gated:
+            return pf_cuda._step_rows(*args[:2], flag, *args[3:], *noise,
+                                      True, False)[:2]
+        gate = torch.tensor([take, flag > 0], device=dev)
+        carried = torch.zeros_like(args[3]) if take else args[3]
+        return pf_cuda._step_rows(*args[:3], carried, *args[4:], *noise,
+                                  True, False, gate=gate,
+                                  p_alt=args[3])[:2]
+
     for n, args in k2.items():
         p_nt = args[3].T.contiguous()
         out[f"k2b_{n}_ms"] = device_ms(
@@ -337,15 +430,46 @@ def _measure(tree: pathlib.Path, share: pathlib.Path, label: str) -> dict:
         out[f"k2b_api_{n}_ms"] = device_ms(
             lambda: pf_cuda.pf_fused_predict_weight_stats(
                 *args[:3], p_nt, *args[4:]), 20)
-        out[f"k2b_{n}_digest"] = _digest(tuple(pf_cuda._step_rows(
-            *args, True, None, True, False)[:2]))
-    # Modes 0 (noise off) and 2 (injected normals) at the smallest size.
+        out[f"k2b_{n}_digest"] = _digest(tuple(k2b(args, (True, None),
+                                                   0.0)))
+    # Modes 0 (noise off), 1 (Philox) and 2 (injected normals) at the
+    # smallest size, the restart flag at 0 and 1, and the resampled rows.
     args = k2[K2_SIZES[-1]]
     normals = torch.randn((3, K2_SIZES[-1]), device=dev,
                           generator=torch.Generator(device=dev).manual_seed(7))
-    for mode, noise in (("off", (False, None)), ("normals", (True, normals))):
-        out[f"k2b_{mode}_digest"] = _digest(tuple(pf_cuda._step_rows(
-            *args, *noise, True, False)[:2]))
+    for mode, noise in (("off", (False, None)), ("philox", (True, None)),
+                        ("normals", (True, normals))):
+        for flag in (0.0, 1.0):
+            out[f"k2b_{mode}_flag{int(flag)}_digest"] = _digest(tuple(
+                k2b(args, noise, flag)))
+        if gated:  # the parent has no resampled rows: as flag 1
+            out[f"k2b_{mode}_take_digest"] = _digest(tuple(
+                k2b(args, noise, 1.0, take=True)))
+
+    # The single filter's firing step: each checkout's boundaries, K3b on
+    # the first turn's.
+    k3_in = _k3_inputs(dev)
+    pass1, branch = _k3_forms(rs, dev, *k3_in)
+    out["k3a_ms"] = device_ms(pass1, 20)
+    out["k3a_ops"] = _ops_a_call(profile_window, pass1)
+    out["k3_branch_ms"] = device_ms(branch, 20)
+    out["k3_branch_ops"] = _ops_a_call(profile_window, branch)
+    t_own = pass1()
+    out["k3a_digest"] = _digest(t_own)
+    out["k3a_ops_us"] = _op_times(profile_window, pass1)
+    if gated:
+        idle1, idle_branch = _k3_forms(rs, dev, *k3_in, fire=False)
+        out["k3a_idle_ms"] = device_ms(idle1, 20)
+        out["k3_branch_idle_ms"] = device_ms(idle_branch, 20)
+    torch.save(t_own.cpu(), share / f"{label}_k3a.pt")
+    common_t = share / "k3a_inputs.pt"
+    if not common_t.exists():
+        torch.save(t_own.cpu(), common_t)
+    t_first = torch.load(common_t).to(dev)
+    p_k3 = k3_in[0]
+    out["k3b_ms"] = device_ms(lambda: rs.resample_expand(p_k3, t_first,
+                                                          K3_SIZE), 50)
+    out["k3b_digest"] = _digest(rs.resample_expand(p_k3, t_first, K3_SIZE))
 
     t_hi, fids, valid, src = bounds["k5b"]
     expanded = rs.resample_expand_seg(parts_w, t_hi, fids, valid)
@@ -362,13 +486,17 @@ def _measure(tree: pathlib.Path, share: pathlib.Path, label: str) -> dict:
     def gen():
         return torch.Generator(device=dev).manual_seed(0)
 
-    single = PfConfig(num_particles=K2_SIZES[0], weight_mode="log",
-                      resample_method="merge")
+    def single(n):
+        return PfConfig(num_particles=n, weight_mode="log",
+                        resample_method="merge")
+
     wide = PfConfig(num_particles=K3B_SHAPE[1], weight_mode="log",
                     ess_threshold_frac=0.01)
     for name, fn in (
-            ("single", lambda: pf_fused_rollout(single, gen(), LOOP_STEPS,
-                                                device=dev)),
+            ("single", lambda: pf_fused_rollout(single(K2_SIZES[0]), gen(),
+                                                LOOP_STEPS, device=dev)),
+            ("single_100k", lambda: pf_fused_rollout(
+                single(K2_SIZES[-1]), gen(), LOOP_STEPS, device=dev)),
             ("wide", lambda: pf_batch_wide_rollout(
                 wide, gen(), K3B_SHAPE[0], LOOP_STEPS, device=dev))):
         fn()
@@ -376,6 +504,13 @@ def _measure(tree: pathlib.Path, share: pathlib.Path, label: str) -> dict:
         out[f"{name}_ops_a_step"] = got["ops_per_step"]
         out[f"{name}_busy_ms_a_step"] = got["busy_ms"] / LOOP_STEPS
         out[f"{name}_wall_ms_a_step"] = got["wall_ms"] / LOOP_STEPS
+        out[f"{name}_sync_ms_a_step"] = got["sync_ms"] / LOOP_STEPS
+    # The single filter's rates at bench.py's sizes, unprofiled.
+    for n in K2_SIZES:
+        seconds = timed(lambda n=n: pf_fused_rollout(
+            single(n), gen(), RATE_STEPS, device=dev), reps=3, warmup=1,
+            device=dev)
+        out[f"single_{n}_rate"] = n * RATE_STEPS / seconds
     torch.cuda.synchronize()
     return out
 
@@ -409,11 +544,13 @@ def main(argv: list[str]) -> int:
         result = json.loads(proc.stdout.strip().splitlines()[-1])
         runs[label].append(result)
         print(f"turn {label}: {json.dumps(result)}", flush=True)
-    for key in runs[trees[0][0]][0]:
+    keys = dict.fromkeys(k for rs in runs.values() for r in rs for k in r)
+    for key in keys:
         print(f"{key}: " + "; ".join(
             f"{label} " + ", ".join(
-                f"{r[key]:.4f}" if isinstance(r[key], float) else str(r[key])
-                for r in runs[label]) for label, _ in trees), flush=True)
+                f"{r[key]:.4f}" if isinstance(r.get(key), float)
+                else str(r.get(key, "-")) for r in runs[label])
+            for label, _ in trees), flush=True)
     _count_boundaries(trees)
     print(f"on {smi}", flush=True)
     return 0
@@ -421,11 +558,17 @@ def main(argv: list[str]) -> int:
 
 def _count_boundaries(trees) -> None:
     """Print, for each checkout after the first, the K5a boundaries (valid
-    lanes) that differ from the first checkout's, and where the slots
-    differ."""
+    lanes) and the single filter's K3a boundaries that differ from the
+    first checkout's, and where the slots differ."""
     import torch
 
     first = trees[0][0]
+    ref_t = torch.load(SHARE_DIR / f"{first}_k3a.pt")
+    for label, _ in trees[1:]:
+        got_t = torch.load(SHARE_DIR / f"{label}_k3a.pt")
+        print(f"k3a boundaries of {label} differing from {first}'s: "
+              f"{int((ref_t != got_t).sum())} of {ref_t.numel():,}",
+              flush=True)
     ref = torch.load(SHARE_DIR / f"{first}.pt")
     for label, _ in trees[1:]:
         got = torch.load(SHARE_DIR / f"{label}.pt")
