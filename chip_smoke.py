@@ -1450,16 +1450,42 @@ def _batch_phases(dev, smi):
 # ---------------------------------------------------------------------------
 
 def _max_gap(pairs) -> float:
-    """The largest |a - b| over pairs of equal-shaped tensors."""
-    return max(float((a - b).abs().max()) for a, b in pairs)
+    """The largest |a - b| over pairs of equal-shaped tensors (0 where
+    they are empty)."""
+    return max((float((a - b).abs().max()) for a, b in pairs if a.numel()),
+               default=0.0)
+
+
+def _stack_held(rs, p_rows, t, n: int, what: str) -> tuple[float, float]:
+    """The single K3c's stack and counts and K3d's rows (a block a range
+    of output slots) bit-equal to their twins and K3d's rows to K3b's, on
+    rows ``p_rows`` and boundaries ``t``.  Returns the largest |kernel -
+    plain| of each and the survivors."""
+    import torch
+
+    stack = rs.compact_particles(p_rows, t)
+    stack_p = rs.compact_particles_plain(p_rows, t)
+    err_c = _max_gap(zip(stack, stack_p))
+    _require(all(torch.equal(a, b) for a, b in zip(stack, stack_p)),
+             f"{what}: K3c stack or counts differ")
+    out = rs.expand_compressed(*stack[:2], n, cnt=stack[2])
+    out_p = rs.expand_compressed_plain(*stack[:2], n)
+    err_d = _max_gap([(out, out_p)])
+    _require(torch.equal(out, out_p), f"{what}: K3d rows differ")
+    _require(torch.equal(out, rs.resample_expand(p_rows, t, n)),
+             f"{what}: K3d differs from K3b")
+    return err_c, err_d, int(stack[2].sum())
 
 
 def _merge_paths_parity(dev) -> tuple[float, float]:
     """23. The merge's compressed path at the flagship count on phase 9's
-    three weight profiles: K3c's stack and counts and K3d's rows equal
-    their twins bit for bit, and K3b's rows; both ``pass2`` merges equal
-    the default, and so do both gated merges; with the gate off K3c writes
-    zero counts only and K3d nothing.  Returns the largest |kernel -
+    weight profiles (the heavy tail, near-uniform, 400 survivors in one
+    block and the sparse front): K3c's stack and counts and K3d's rows
+    equal their twins bit for bit, and K3b's rows; both ``pass2`` merges
+    equal the default, and so do both gated merges; with the gate off K3c
+    writes zero counts only and K3d nothing.  Then the single forms at
+    100,003 particles in 100,352 lanes, and K3c with its boundaries in a
+    view 4 bytes off 16-byte alignment.  Returns the largest |kernel -
     plain| of K3c and of K3d."""
     import torch
 
@@ -1470,17 +1496,9 @@ def _merge_paths_parity(dev) -> tuple[float, float]:
     seen = []
     for name, w, offs in profiles:
         t_k = rs.resample_boundary(w, n, offs)
-        stack = rs.compact_particles(p_rows, t_k)
-        stack_p = rs.compact_particles_plain(p_rows, t_k)
-        err_c = max(err_c, _max_gap(zip(stack, stack_p)))
-        _require(all(torch.equal(a, b) for a, b in zip(stack, stack_p)),
-                 f"{name}: K3c stack or counts differ")
-        out = rs.expand_compressed(*stack[:2], n)
-        out_p = rs.expand_compressed_plain(*stack[:2], n)
-        err_d = max(err_d, _max_gap([(out, out_p)]))
-        _require(torch.equal(out, out_p), f"{name}: K3d rows differ")
+        ec, ed, survivors = _stack_held(rs, p_rows, t_k, n, name)
+        err_c, err_d = max(err_c, ec), max(err_d, ed)
         default = rs.merge_resample_rows(p_rows, w, n, offs, device=dev)
-        _require(torch.equal(out, default), f"{name}: K3d differs from K3b")
         lw, lse, lse2 = _log_form(w, n)
         gated = {}
         for pass2 in rs.PASS2:
@@ -1493,28 +1511,81 @@ def _merge_paths_parity(dev) -> tuple[float, float]:
         _require(torch.equal(gated["compressed"], gated["windowed"]),
                  f"{name}: the gated merges differ")
         _, off = rs.gated_boundary(lw, lse, lse2, n, offs, 0.0)
-        _require(not bool(rs.compact_particles(p_rows, t_k, gate=off)[2]
-                          .any()), f"{name}: K3c counted with the gate off")
-        seen.append(f"{name} {int(stack[2].sum()):,} survivors")
+        stack = rs.compact_particles(p_rows, t_k, gate=off)
+        _require(not bool(stack[2].any()),
+                 f"{name}: K3c counted with the gate off")
+        # The stack is stale where the gate is off: K3d must not read it.
+        rs.expand_compressed(*stack[:2], n, cnt=stack[2], gate=off)
+        seen.append(f"{name} {survivors:,} survivors")
+    # n_pad > n: lanes [n, n_pad) carry n and must come out zero.
+    n_r, n_pad = 100_003, 100_352
+    g = _gen(dev, 23)
+    w = torch.zeros(n_pad, dtype=torch.float32, device=dev)
+    w[:n_r] = torch.softmax(4.0 * torch.randn(n_r, generator=g, device=dev),
+                            0)
+    p_r = torch.randn((3, n_pad), generator=g, device=dev)
+    t_r = rs.resample_boundary(w, n_r, torch.rand(1, generator=g,
+                                                  device=dev))
+    ec, ed, _ = _stack_held(rs, p_r, t_r, n_r, f"{n_r:,} in {n_pad:,}")
+    # Boundaries in a view 4 bytes past a 16-byte boundary: K3c's scalar
+    # loads.
+    shifted = torch.empty(n_pad + 1, dtype=torch.int32,
+                          device=dev)[1:].copy_(t_r)
+    _require(shifted.data_ptr() % 16 != 0, "the shifted view is aligned")
+    ec2, ed2, _ = _stack_held(rs, p_r, shifted, n_r, "shifted boundaries")
+    err_c, err_d = max(err_c, ec, ec2), max(err_d, ed, ed2)
     torch.cuda.synchronize()
     print(f"merge paths parity at {n:,}: K3c stack and counts and K3d rows "
           f"bit-equal to plain and K3d to K3b, both pass2 merges equal the "
           f"default, both gated merges equal, K3c's counts 0 with the gate "
-          f"off ({', '.join(seen)}); max|kernel-plain| K3c {err_c}, K3d "
-          f"{err_d}", flush=True)
+          f"off ({', '.join(seen)}); the same K3c and K3d at {n_r:,} in "
+          f"{n_pad:,} lanes and with the boundaries 4 bytes off 16-byte "
+          f"alignment; max|kernel-plain| K3c {err_c}, K3d {err_d}",
+          flush=True)
     return err_c, err_d
+
+
+def _seg_stack_held(rs, args, what: str) -> tuple[float, float, int]:
+    """The segmented K3c's stack (valid slots) and counts and K3d's rows
+    (a block a window of stack blocks and a slot; valid slots) bit-equal
+    to their twins and K3d's rows to the segmented K3b's, on ``args``
+    ``(particles, t_hi, fids, valid)``.  Returns the largest |kernel -
+    plain| of each and the survivors."""
+    import torch
+
+    v = args[3]
+    vals, iv, cnt = rs.compact_particles_seg(*args)
+    vals_p, iv_p, cnt_p = rs.compact_particles_seg_plain(*args)
+    pairs = [(vals[:, v], vals_p[:, v]), (iv[:, v], iv_p[:, v]),
+             (cnt, cnt_p)]
+    err_c = _max_gap(pairs)
+    _require(all(torch.equal(a, c) for a, c in pairs),
+             f"segmented K3c stack or counts differ: {what}")
+    ex = rs.expand_compressed_seg(vals, iv, v, cnt=cnt)
+    ex_p = rs.expand_compressed_seg_plain(vals, iv, v)
+    err_d = _max_gap([(ex[:, v], ex_p[:, v])])
+    _require(torch.equal(ex[:, v], ex_p[:, v]),
+             f"segmented K3d rows differ: {what}")
+    _require(torch.equal(ex[:, v], rs.resample_expand_seg(*args)[:, v]),
+             f"segmented K3d differs from the segmented K3b: {what}")
+    return err_c, err_d, int(cnt.sum())
 
 
 def _wide_compressed_parity(dev) -> tuple[float, float]:
     """24. The segmented K3c and K3d bit-equal to their twins at
     1024 x 10,000 on phase 16's inputs (a fifth of the filters firing),
-    their rows equal to the segmented K3b's; then one whole wide step with
-    ``pass2="compressed"`` equal to the windowed step bit for bit.
-    Returns the largest |kernel - plain| of each."""
+    their rows equal to the segmented K3b's; the same on phase 16b's
+    (``turns.seg_args``): :data:`EXPAND_FIRING` filters firing of
+    1024 x 10,000, :data:`EXPAND_EDGES` (64 x 10,001, 8 x 100,000, one
+    survivor a filter), and the boundaries in a view 4 bytes off 16-byte
+    alignment; then one whole wide step with ``pass2="compressed"`` equal
+    to the windowed step bit for bit.  Returns the largest |kernel -
+    plain| of each."""
     import torch
 
     from tpuslam_torch.ops import pf_batch_cuda as pb
     from tpuslam_torch.ops import resample_cuda as rs
+    from tpuslam_torch.utils.turns import seg_args
 
     b, n = WIDE_MAIN
     f32 = dict(dtype=torch.float32, device=dev)
@@ -1522,21 +1593,22 @@ def _wide_compressed_parity(dev) -> tuple[float, float]:
                                                                  16)
     slots = pb.wide_boundary(log_w, lse, fire, offs)
     v = slots.valid
-    args = (particles, slots.t_hi, slots.fids, v)
-    (vals, iv, cnt) = rs.compact_particles_seg(*args)
-    (vals_p, iv_p, cnt_p) = rs.compact_particles_seg_plain(*args)
-    pairs = [(vals[:, v], vals_p[:, v]), (iv[:, v], iv_p[:, v]),
-             (cnt, cnt_p)]
-    err_c = _max_gap(pairs)
-    _require(all(torch.equal(a, c) for a, c in pairs),
-             "segmented K3c stack or counts differ")
-    ex = rs.expand_compressed_seg(vals, iv, v)
-    ex_p = rs.expand_compressed_seg_plain(vals, iv, v)
-    err_d = _max_gap([(ex[:, v], ex_p[:, v])])
-    _require(torch.equal(ex[:, v], ex_p[:, v]), "segmented K3d rows differ")
-    _require(torch.equal(ex[:, v], rs.resample_expand_seg(*args)[:, v]),
-             "segmented K3d differs from the segmented K3b")
-    survivors = int(cnt.sum())
+    err_c, err_d, survivors = _seg_stack_held(
+        rs, (particles, slots.t_hi, slots.fids, v), "phase 16's inputs")
+    cases = [(seg_args(dev, b, n, n_fire), f"{b}x{n}, {n_fire} firing")
+             for n_fire in EXPAND_FIRING]
+    cases += [(seg_args(dev, bb, nn, bb, 17, one),
+               f"{bb}x{nn}, one survivor {one}")
+              for bb, nn, one in EXPAND_EDGES]
+    args = seg_args(dev, b, n, b, 17)
+    shifted = torch.empty(args[1].numel() + 1, dtype=args[1].dtype,
+                          device=dev)[1:].view_as(args[1]).copy_(args[1])
+    _require(shifted.data_ptr() % 16 != 0, "the shifted view is aligned")
+    cases.append(((args[0], shifted, *args[2:]),
+                  f"{b}x{n}, shifted boundaries"))
+    for case, what in cases:
+        ec, ed, _ = _seg_stack_held(rs, case, what)
+        err_c, err_d = max(err_c, ec), max(err_d, ed)
 
     x0, _ = _truth_view(dev)
     state = pb.PfBatchWideState(x0, particles, log_w, lse, lse2,
@@ -1556,10 +1628,11 @@ def _wide_compressed_parity(dev) -> tuple[float, float]:
     print(f"wide compressed pass B (segmented K3c + K3d) parity at "
           f"{b:,}x{n:,}: {int(v.sum())} of {b} filters firing, "
           f"{survivors:,} survivors; stack, counts and rows bit-equal to "
-          f"plain and to the segmented K3b (max|kernel-plain| {err_c}, "
-          f"{err_d}); one Philox step with {fired} firing: particles, log "
-          f"weights, normalizers and x_est of pass2='compressed' equal the "
-          f"windowed step's", flush=True)
+          f"plain and to the segmented K3b, and so at "
+          f"{'; '.join(what for _, what in cases)} (max|kernel-plain| "
+          f"{err_c}, {err_d}); one Philox step with {fired} firing: "
+          f"particles, log weights, normalizers and x_est of "
+          f"pass2='compressed' equal the windowed step's", flush=True)
     return err_c, err_d
 
 
@@ -1704,8 +1777,9 @@ def _merge_kernel_times(dev, smi, finals, launches, errs) -> list:
     twins, their bounds and one library call each: boolean-mask
     compaction ``rows[:, flags]`` (which also compresses, and synchronises
     with the host) for K3c, ``torch.repeat_interleave`` of the stack by
-    ``t_hi - t_lo`` (0 for its inert columns) for K3d.  Returns their
-    entries of the ``kernels`` line."""
+    ``t_hi - t_lo`` (0 for its inert columns) for K3d; each form idle too
+    (the single filter's gate off, no slot firing).  Returns their entries
+    of the ``kernels`` line."""
     import torch
     import torch.nn.functional as F
 
@@ -1747,6 +1821,16 @@ def _merge_kernel_times(dev, smi, finals, launches, errs) -> list:
     at_single = f"{n:,}, {survivors:,} survivors"
     at_wide = f"{b:,}x{n_w:,}, {n_fire} firing, {survivors_w:,} survivors"
 
+    off = torch.zeros(2, dtype=torch.bool, device=dev)
+    v_idle = torch.zeros_like(v)
+    idle = {
+        "compact": lambda: rs.compact_particles(p_rows, t_hi, gate=off),
+        "expand_compressed": lambda: rs.expand_compressed(
+            vals, iv, n, cnt=cnt, gate=off),
+        "compact_seg": lambda: rs.compact_particles_seg(
+            sw.particles, t_w, slots.fids, v_idle),
+        "expand_compressed_seg": lambda: rs.expand_compressed_seg(
+            vals_w, iv_w, v_idle, cnt=cnt_w)}
     kernels = [
         ("compact", "tpuslam/ops/resample_pallas.py:203",
          lambda: rs.compact_particles(p_rows, t_hi),
@@ -1755,7 +1839,7 @@ def _merge_kernel_times(dev, smi, finals, launches, errs) -> list:
          _bound(24 * n + 12 * survivors + 4 * blocks, 0), errs["compact"],
          at_single),
         ("expand_compressed", "tpuslam/ops/resample_pallas.py:489",
-         lambda: rs.expand_compressed(vals, iv, n),
+         lambda: rs.expand_compressed(vals, iv, n, cnt=cnt),
          lambda: rs.expand_compressed_plain(vals, iv, n),
          ("torch.repeat_interleave",
           lambda: torch.repeat_interleave(vals, counts, dim=1,
@@ -1769,7 +1853,7 @@ def _merge_kernel_times(dev, smi, finals, launches, errs) -> list:
          _bound(24 * lanes_fire + 12 * survivors_w + 4 * b * blocks_w
                 + 5 * b, 0), errs["compact_seg"], at_wide),
         ("expand_compressed_seg", "tpuslam/ops/resample_pallas.py:489",
-         lambda: rs.expand_compressed_seg(vals_w, iv_w, v),
+         lambda: rs.expand_compressed_seg(vals_w, iv_w, v, cnt=cnt_w),
          lambda: rs.expand_compressed_seg_plain(vals_w, iv_w, v),
          ("torch.repeat_interleave",
           lambda: torch.repeat_interleave(stack_rows, counts_w, dim=1,
@@ -1781,6 +1865,7 @@ def _merge_kernel_times(dev, smi, finals, launches, errs) -> list:
     for name, replaces, fn, plain_fn, (lib_name, lib_fn), bound, max_err, \
             shape in kernels:
         ms = device_ms(fn, 50)
+        idle_ms = device_ms(idle[name], 50)
         plain_ms = device_ms(plain_fn, 5)
         library_ms = device_ms(lib_fn, 20)
         entries.append({
@@ -1790,7 +1875,8 @@ def _merge_kernel_times(dev, smi, finals, launches, errs) -> list:
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound[0], "bound_by": bound[1],
             "library_ms": library_ms})
-        print(f"kernel {name} at {shape}: {ms:.4f} ms a launch, plain "
+        print(f"kernel {name} at {shape}: {ms:.4f} ms a launch ({idle_ms:.4f} "
+              f"idle), plain "
               f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}), "
               f"{lib_name} {library_ms:.4f} ms; {launches[name]} launches "
               f"in the main path; on {smi}", flush=True)

@@ -179,11 +179,20 @@ def test_floors_of_a_loop():
      "int)", "boundary_"),
     ("void <unnamed>::expand_range_kernel(const float *, const int *, const "
      "unsigned char *, float *, int, int)", "expand_range_kernel"),
+    ("void <unnamed>::compact_kernel(const float *, const int *, const int "
+     "*, const unsigned char *, float *, int *, int *, int, int, int)",
+     "compact_kernel"),
+    ("void <unnamed>::compressed_range_kernel(const float *, const int *, "
+     "const int *, const unsigned char *, float *, int, int)",
+     "compressed_range_kernel"),
+    ("void (anonymous namespace)::compressed_window_kernel(const float *, "
+     "const int *, const int *, const unsigned char *, float *, int, int)",
+     "compressed_window_kernel"),
 ])
 def test_report_counts_k1_and_the_segmented_expand(demangled, prefix):
-    """K1 in the flagship's mode, the segmented K3b, K5a and the single
-    filter's K3a and K3b are among the kernels whose opcodes (and loops)
-    the report prints."""
+    """K1 in the flagship's mode, the segmented K3b, K5a, the single
+    filter's K3a and K3b, and K3c and both forms of K3d are among the
+    kernels whose opcodes (and loops) the report prints."""
     assert prefix in kr.SASS_KERNELS
     assert kr._short(demangled).startswith(prefix)
     others = [p for p in kr.SASS_KERNELS if p != prefix]

@@ -47,6 +47,7 @@ from tpuslam_torch.ops.resample_cuda import (BLOCK, compact_particles,
                                              slot_boundaries)
 
 N, N_PAD = 1000, 1024
+SRC = (_build.CSRC_DIR / "resample.cu").read_text()
 PATHS = [(True, "windowed"), (False, "windowed"), (True, "compressed"),
          (False, "compressed")]  # the JAX merge's (fused, pass2)
 PASS2 = resample_cuda.PASS2
@@ -402,15 +403,135 @@ def test_rejects_bad_arguments():
 
 def test_kernel_source_interface():
     """The new launches are C entry points of ``csrc/resample.cu``,
-    declared for ``ctypes``, one kernel each (the single filter is one
-    slot of it), and the kernels' block is :data:`BLOCK`."""
-    src = (_build.CSRC_DIR / "resample.cu").read_text()
+    declared for ``ctypes``: K3c one kernel (the single filter one slot of
+    it), K3d one kernel a design (a range of output slots for one slot, a
+    window of stack blocks for more); the stack's block is
+    :data:`BLOCK`."""
     build = (_build.CSRC_DIR.parent / "ops" / "_build.py").read_text()
     for name in ("tpuslam_resample_compact",
                  "tpuslam_resample_expand_compressed"):
-        assert re.search(rf'extern "C" int {name}\(', src), name
+        assert re.search(rf'extern "C" int {name}\(', SRC), name
         assert f'"{name}"' in build, name
-    for kernel in ("compact_kernel", "expand_compressed_kernel"):
+    for kernel in ("compact_kernel", "compressed_range_kernel",
+                   "compressed_window_kernel"):
         assert re.search(rf"__global__ void __launch_bounds__\(\w+\)\n"
-                         rf"{kernel}\(", src), kernel
-    assert re.search(r"kScanBlock = (\d+)", src).group(1) == str(BLOCK)
+                         rf"{kernel}\(", SRC), kernel
+    assert re.search(r"kScanBlock = (\d+)", SRC).group(1) == str(BLOCK)
+
+
+# K3d's lookups (csrc/resample.cu), repeated in torch: which live stack
+# columns each block stages, and each output slot's survivor among them.
+RANGE_SLOTS = int(re.search(r"kRangeSlots = (\d+)", SRC).group(1))
+STACK_WINDOW = int(re.search(r"kStackWindow = (\d+)", SRC).group(1))
+N_STAGE, N_PAD_STAGE = 10_000, 10_240
+
+
+def _live(cnt, k0: int, k1: int, lo: int = 0, hi: int = 1 << 30):
+    """The live columns of stack blocks k0 .. k1 (block k's first
+    ``cnt[k]``) from ``lo`` to ``hi``, in order: what a block stages."""
+    return torch.tensor([c for k in range(k0, k1 + 1)
+                         for c in range(k * BLOCK, k * BLOCK + int(cnt[k]))
+                         if lo <= c <= hi], dtype=torch.int64)
+
+
+def _expand_staged(iv, cols, a: int, e: int) -> torch.Tensor:
+    """``expand_staged``: the column of each slot of ``[a, e)``, the first
+    staged one whose ``t_hi`` is above it; raises where its interval does
+    not hold the slot (the kernel's device assert)."""
+    i = torch.arange(a, e, dtype=torch.int32)
+    j = torch.searchsorted(iv[1][cols], i, right=True)
+    if bool((j >= len(cols)).any()) or bool((iv[0][cols[j]] > i).any()):
+        raise ValueError("the survivor stack does not partition the output "
+                         "slots")
+    return cols[j]
+
+
+def _range_sources(iv, cnt, n: int) -> torch.Tensor:
+    """``compressed_range_kernel``'s slot sources, block by block: the
+    survivors of a range's first and last slot by a search of the
+    ``t_hi`` row, the live columns between staged (never more than the
+    range's slots)."""
+    hi = iv[1][:n].contiguous()
+    out = []
+    for i0 in range(0, n, RANGE_SLOTS):
+        i1 = min(n, i0 + RANGE_SLOTS)
+        ca, cb = (int(torch.searchsorted(
+            hi, torch.tensor([v], dtype=torch.int32), right=True))
+            for v in (i0, i1 - 1))
+        cols = _live(cnt, ca // BLOCK, cb // BLOCK, ca, cb)
+        assert len(cols) <= RANGE_SLOTS
+        out.append(_expand_staged(iv, cols, i0, i1))
+    return torch.cat(out)
+
+
+def _window_sources(iv, cnt, n: int) -> torch.Tensor:
+    """``compressed_window_kernel``'s slot sources, window by window: the
+    output slots ``[t_run(k0 - 1), t_run(k1))`` from two loads, the
+    window's live columns staged."""
+    hi = iv[1]
+    out = []
+    for k0 in range(0, len(cnt), STACK_WINDOW):
+        k1 = min(len(cnt), k0 + STACK_WINDOW) - 1
+        a = 0 if k0 == 0 else int(hi[k0 * BLOCK - 1])
+        e = int(hi[min(n, (k1 + 1) * BLOCK) - 1])
+        if a < e:
+            cols = _live(cnt, k0, k1)
+            assert len(cols) <= STACK_WINDOW * BLOCK
+            out.append(_expand_staged(iv, cols, a, e))
+    return torch.cat(out)
+
+
+def _far_pair(n_pad: int) -> np.ndarray:
+    """Two survivors eight stack blocks apart: the range that holds the
+    edge between their slots spans seven empty blocks."""
+    w = np.zeros(n_pad)
+    w[[5, 8 * BLOCK + 9]] = [3.0, 5.0]
+    return _exact_weights(w)
+
+
+@pytest.mark.parametrize("name", ["heavy", "near-uniform", "single",
+                                  "one-block-400", "far-pair"])
+def test_k3d_lookups_find_each_slots_survivor(rng, name):
+    """Both K3d designs' lookups over the stack's ``t_hi`` row and counts
+    give every output slot the survivor a search of the whole row gives,
+    staging at most their capacity; the ranges cover ``[0, n)`` with
+    padding lanes past it, the windows (segmented rows: no padding) the
+    whole row."""
+    for n, n_pad in ((N_STAGE, N_PAD_STAGE), (N_PAD_STAGE, N_PAD_STAGE)):
+        w = (_far_pair(n_pad) if name == "far-pair"
+             else _profile(rng, name, n, n_pad))
+        t = slot_boundaries(torch.from_numpy(w), n, 0.4375)
+        _, iv, cnt = compact_particles_plain(_rows(rng, n_pad), t)
+        want = torch.searchsorted(iv[1], torch.arange(n, dtype=torch.int32),
+                                  right=True)
+        assert torch.equal(_range_sources(iv, cnt, n), want)
+        if n == n_pad:
+            assert torch.equal(_window_sources(iv, cnt, n), want)
+
+
+def test_k3d_lookups_raise_on_a_broken_partition(rng):
+    """A survivor whose ``t_lo`` lies past its first slot stops both
+    lookups, as the kernels' device assert does, and the plain twins."""
+    n = n_pad = N_PAD_STAGE
+    w = torch.from_numpy(_profile(rng, "near-uniform", n, n_pad))
+    p = _rows(rng, n_pad)
+    vals, iv, cnt = compact_particles_plain(p, slot_boundaries(w, n, 0.5))
+    col = 3 * BLOCK + 7
+    assert int(iv[0, col]) < int(iv[1, col])  # a survivor
+    iv[0, col] += 1
+    for lookup in (_range_sources, _window_sources):
+        with pytest.raises(ValueError, match="partition"):
+            lookup(iv, cnt, n)
+    with pytest.raises(ValueError, match="partition"):
+        expand_compressed(vals, iv, n)
+    with pytest.raises(ValueError, match="partition"):
+        expand_compressed_seg(vals[:, None], iv[:, None],
+                              torch.ones(1, dtype=torch.bool))
+
+
+def test_k3d_keeps_its_partition_check():
+    """The K3d kernels assert each survivor's interval on the device, and
+    no build flag compiles the assert out."""
+    body = SRC[SRC.index("expand_staged("):]
+    assert "assert(j < m && s_lo[j] <= i);" in body
+    assert not any("NDEBUG" in flag for flag in _build.NVCC_FLAGS)

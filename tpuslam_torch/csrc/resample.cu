@@ -103,31 +103,51 @@
 //     lies, so the wide path keeps the window.
 //
 // The merge's pass2="compressed" form runs pass 2 through a survivor stack,
-// which two more kernels build and read; each serves the single filter as one
-// slot of its segmented form (the wide filter's pass B), blockIdx.y being
-// the slot (the single filter's valid[0] is its gate, as for K3b):
+// which two more kernels build and read; the single filter is one slot
+// of their launches (its valid[0] the gate's fire flag, as for K3b).  The
+// stack has the rows' own width: stack block k (1024 lanes) holds its
+// survivors, the lanes j with t_j > t_{j-1} (t_{-1} = 0), in its leading
+// cnt[k] columns, each with its values and its slot interval [t_lo, t_hi)
+// = [t_{j-1}, t_j), and inert columns after them (zero values, the empty
+// interval at the block's last boundary t_run(k)).  So the stack's t_hi
+// row is sorted, the first column above any slot is a survivor, and block
+// k's survivors own exactly the output slots [t_run(k - 1), t_run(k)).
 //   * compact (K3c, replaces _compact_kernel, resample_pallas.py:203):
-//     per 1024-lane block, an exact int32 warp-shuffle scan of the
-//     survivor flags t_j > t_{j-1} (t_{-1} = 0; a block's first lane
-//     reads the last boundary of the block before) moves each survivor's
-//     three floats and its slot interval [t_{j-1}, t_j) to column
-//     block * 1024 + rank.  Columns past the block's count get zero values
-//     and an empty interval at the block's last boundary, so no output
-//     slot can select them; cnt[block] is the count.  A block holds at
-//     most 1024 survivors, so the stack has the rows' own width and no
-//     cap can overflow.  Bytes: 8 a lane read (t_j, and t_{j-1} from L1),
-//     12 a survivor read, 20 a column written.
+//     256 threads a block, four lanes a thread (one int4 of boundaries
+//     where the row is aligned), t_{j-1} from the neighbouring lane by a
+//     shuffle, the survivors' values loaded before one block-wide scan of
+//     the threads' survivor counts; the survivors' values and intervals
+//     are staged in shared memory and every column of the stack block is
+//     written once, four a thread, as float4 and int4 stores where the
+//     stack is aligned.  One slot (the single
+//     filter) takes a CUDA block a stack block; B slots take kCompactWindow
+//     stack blocks a CUDA block in turn, so an idle slot's blocks are few
+//     and write only its zero counts.  A block holds at most 1024
+//     survivors, so no cap can overflow.  Bytes: 4 a lane read, 12 a
+//     survivor read, 20 a column written.
 //   * expand_compressed (K3d, replaces _expand_compressed_kernel,
 //     resample_pallas.py:489): output slot i takes the first stack column
 //     with t_hi > i and copies its three floats from the stack.  The TPU
 //     gathered every block's survivors into one list first (in XLA); here
-//     the per-block stack is searched as it stands, because its t_hi row
-//     is already sorted: survivors' t_hi rise strictly, and an inert
-//     column repeats the last boundary before it, so the first column
-//     above i is always a survivor, never an inert one.  That removes the
-//     gather, its survivor count and any host read of it: done in torch
-//     over every lane, the gather took ten times the two kernels' time on
-//     an H100 on the wide path.  The survivor's t_lo <= i is asserted.
+//     the per-block stack is read as it stands, with its counts.  Two
+//     designs, taken by the launch's slot count as K3b's are; both stage
+//     the live columns they need (t_hi, t_lo and the column; the inert
+//     tails skipped) in shared memory and write runs of four consecutive
+//     output slots a thread (expand_staged), a survivor's values kept in
+//     registers while slots share it, float4 stores where the row is
+//     aligned.  Each survivor's staged t_lo <= its first slot is asserted
+//     (the partition check; a device assert traps).
+//     - The single filter (compressed_range_kernel): a block a range of
+//       kRangeSlots output slots, as the single K3b; warps 0 and 1 find
+//       the survivors of its first and last slot by a 32-way search of
+//       the t_hi row (five dependent loads at 2^21), and the survivors
+//       between, at most kRangeSlots since each owns a slot of the range,
+//       are staged.  An idle launch is n / kRangeSlots blocks that read one
+//       byte.
+//     - The wide filter's pass B (compressed_window_kernel): a block a
+//       window of kStackWindow stack blocks and a slot, as the segmented
+//       K3b; its output slots [t_run(k0 - 1), t_run(k1)) come from two
+//       loads, so no window searches global memory.
 //     Bytes: 20 a survivor read, 12 a slot written.
 // The TPU's bf16 splits, one-hot products, t_k / w_b caps, skip table and
 // fallback have no counterpart here.
@@ -140,7 +160,7 @@
 
 #include "occupancy.cuh"
 #include "pf_math.cuh"  // aligned16
-#include "rows.cuh"      // warp_inclusive_scan
+#include "rows.cuh"      // block_exclusive_scan, load4_of, store4_of
 
 namespace {
 
@@ -148,13 +168,14 @@ using tpuslam::aligned16;
 using tpuslam::block_exclusive_scan;
 using tpuslam::kFullMask;
 using tpuslam::load4;
+using tpuslam::load4_of;
 using tpuslam::store4_of;
-using tpuslam::warp_inclusive_scan;
 
-constexpr int kScanBlock = 1024;  // lanes per compaction block (ops: BLOCK)
-constexpr int kScanWarps = kScanBlock / 32;
-constexpr int kExpandBlock = 256;
-constexpr int kSegBlock = 256;     // K3b's threads a block (both forms)
+constexpr int kScanBlock = 1024;  // lanes per stack block (ops: BLOCK)
+constexpr int kCompactThreads = 256;  // K3c's threads, four lanes each
+constexpr int kCompactWindow = 2;  // the segmented K3c's stack blocks a block
+constexpr int kStackWindow = 2;    // the segmented K3d's stack blocks a block
+constexpr int kSegBlock = 256;     // K3b's and K3d's threads a block
 constexpr int kRangeSlots = 2048;  // the single form's output slots a block
 constexpr int kRangeStage = 4096;  // its staged boundaries, 16 KB
 constexpr int kSegWindow = 2048;   // the segmented form's boundaries a block
@@ -162,6 +183,9 @@ constexpr int kBoundThreads = 256;  // K3a's threads a block
 constexpr int kTile = 4 * kBoundThreads;  // K3a's lanes a tile
 constexpr int kMaxTiles = (1 << 24) / kTile;
 constexpr int kBoundBlocksPerSm = 8;  // K3a's grid: 2048 threads an SM
+static_assert(4 * kCompactThreads == kScanBlock &&
+                  4 * kSegBlock == kScanBlock,
+              "K3c and the segmented K3d take four columns a thread");
 
 // K3a's scratch (see the file's head): each tile's weight sum, each tile's
 // quantized sum and then its exclusive prefix, scale = 2^20 / total,
@@ -363,23 +387,6 @@ boundary_kernel(const float* __restrict__ row,
     }
     store4_of(t_hi, j, n_pad, vec_out, make_int4(tb[0], tb[1], tb[2], tb[3]));
   }
-}
-
-// The source of output slot i: the first j with t[j] > i (t is
-// non-decreasing and t[n-1] = n > i).
-__device__ __forceinline__ int source_of(const int* __restrict__ t, int n,
-                                         int i) {
-  int lo = 0;
-  int hi = n - 1;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (__ldg(t + mid) > i) {
-      hi = mid;
-    } else {
-      lo = mid + 1;
-    }
-  }
-  return lo;
 }
 
 // The first j in [lo, hi) with t[j] > i, or hi; t sorted.
@@ -597,23 +604,40 @@ expand_seg_kernel(const float* __restrict__ p, const int* __restrict__ t_hi,
   }
 }
 
-// K3c: block blockIdx.x of slot s = blockIdx.y, which compacts the
-// particles of its filter fids[s] by its boundaries t_hi[s] into row s of
-// the (3, b, len) / (2, b, len) stack (t_lo, then t_hi a plane on) and
-// row s of the (b, nblk) counts; an idle slot writes zero counts and exits
-// at once.  p is (3, b, len): filter f's particles at f.
-__global__ void __launch_bounds__(kScanBlock)
+// K3c: stack blocks [k0, k0 + per) of slot s = blockIdx.y, k0 =
+// blockIdx.x * per, each in turn: it compacts the particles of the slot's
+// filter fids[s] by its boundaries t_hi[s] into row s of the (3, b, len) /
+// (2, b, len) stack (t_lo, then t_hi a plane on) and row s of the (b,
+// nblk) counts; an idle slot writes its blocks' zero counts and exits at
+// once.  p is (3, b, len): filter f's particles at f.  Thread t takes the
+// stack block's lanes 4t .. 4t + 3 (one int4 where the row is aligned),
+// t_{j-1} of its first lane from the thread before by a shuffle (a warp's
+// first thread loads it); one block-wide scan of its survivor count places
+// them; the block's columns are staged in shared memory and written once
+// each, four a thread, as float4 / int4 stores where the stack is aligned.
+__global__ void __launch_bounds__(kCompactThreads)
 compact_kernel(const float* __restrict__ p, const int* __restrict__ t_hi,
                const int* __restrict__ fids,
                const unsigned char* __restrict__ valid,
                float* __restrict__ vals, int* __restrict__ iv,
-               int* __restrict__ cnt, int len, int b) {
-  __shared__ int warp_sums[kScanWarps];
+               int* __restrict__ cnt, int len, int b, int per) {
+  constexpr int T = kCompactThreads;
+  __shared__ __align__(16) float s_v[3][kScanBlock];
+  __shared__ __align__(16) int s_iv[2][kScanBlock];
+  __shared__ int s_warp[T / 32];
+  __shared__ int s_run;
   const int s = blockIdx.y;
+  const int nblk = (len + kScanBlock - 1) / kScanBlock;
+  const int k0 = blockIdx.x * per;
+  const int k1 = min(nblk, k0 + per);
+  int* c = cnt + static_cast<long long>(s) * nblk;
   if (!valid[s]) {
-    if (threadIdx.x == 0) cnt[s * gridDim.x + blockIdx.x] = 0;
+    for (int k = k0 + threadIdx.x; k < k1; k += T) c[k] = 0;
     return;
   }
+  // Rows 16-byte aligned: len % 4 == 0 and the bases aligned.
+  const bool vec_in = (len & 3) == 0 && aligned16(t_hi);
+  const bool vec_out = (len & 3) == 0 && aligned16(vals) && aligned16(iv);
   const long long plane = static_cast<long long>(b) * len;
   const long long row = static_cast<long long>(s) * len;
   const int* t = t_hi + row;
@@ -621,65 +645,294 @@ compact_kernel(const float* __restrict__ p, const int* __restrict__ t_hi,
   vals += row;
   iv += row;
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int col0 = blockIdx.x * kScanBlock;
-  const int j = col0 + threadIdx.x;
-  const bool in = j < len;
-  const int t_j = in ? __ldg(t + j) : 0;
-  const int t_prev = (in && j > 0) ? __ldg(t + j - 1) : 0;
-  const int f = t_j > t_prev ? 1 : 0;
-  const int incl = warp_inclusive_scan(f, lane);
-  if (lane == 31) warp_sums[warp] = incl;
-  __syncthreads();
-  if (warp == 0) warp_sums[lane] = warp_inclusive_scan(warp_sums[lane], lane);
-  __syncthreads();
-  const int count = warp_sums[kScanWarps - 1];
-  if (threadIdx.x == 0) cnt[s * gridDim.x + blockIdx.x] = count;
-  if (!in) return;
-  if (f) {
-    const int col = col0 + (warp > 0 ? warp_sums[warp - 1] : 0) + incl - 1;
-    vals[col] = __ldg(p + j);
-    vals[plane + col] = __ldg(p + plane + j);
-    vals[2 * plane + col] = __ldg(p + 2 * plane + j);
-    iv[col] = t_prev;
-    iv[plane + col] = t_j;
-  }
-  if (static_cast<int>(threadIdx.x) >= count) {
-    const int t_run = __ldg(t + min(len, col0 + kScanBlock) - 1);
-    vals[j] = 0.0f;
-    vals[plane + j] = 0.0f;
-    vals[2 * plane + j] = 0.0f;
-    iv[j] = t_run;
-    iv[plane + j] = t_run;
+  const int q = 4 * threadIdx.x;  // the thread's first lane and column
+  for (int k = k0; k < k1; ++k) {
+    const int col0 = k * kScanBlock;
+    const int j = col0 + q;
+    const int last = min(len, col0 + kScanBlock) - 1;  // the block's last lane
+    const int4 tv = load4_of<int4>(t, j, len, vec_in);
+    int prev = __shfl_up_sync(kFullMask, tv.w, 1);
+    if (lane == 0) prev = j > 0 && j - 1 < len ? __ldg(t + j - 1) : 0;
+    const int tl[4] = {tv.x, tv.y, tv.z, tv.w};
+    bool f[4];
+    int num = 0;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      f[u] = j + u <= last && tl[u] > (u == 0 ? prev : tl[u - 1]);
+      num += f[u];
+    }
+    if (j <= last && last < j + 4) s_run = tl[last - j];
+    // The survivors' values, loaded before the scan so their latency
+    // overlaps it (only theirs: where the wide filter fires, about 6% of
+    // the lanes survive).
+    float pv[3][4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (f[u]) {
+        pv[0][u] = __ldg(p + j + u);
+        pv[1][u] = __ldg(p + plane + j + u);
+        pv[2][u] = __ldg(p + 2 * plane + j + u);
+      }
+    }
+    int count;
+    int pos = block_exclusive_scan<T>(num, s_warp, count);
+    if (threadIdx.x == 0) c[k] = count;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (f[u]) {
+#pragma unroll
+        for (int r = 0; r < 3; ++r) {
+          s_v[r][pos] = pv[r][u];
+        }
+        s_iv[0][pos] = u == 0 ? prev : tl[u - 1];
+        s_iv[1][pos] = tl[u];
+        ++pos;
+      }
+    }
+    __syncthreads();
+    // Columns q .. q + 3: a survivor's below the count, else inert (zero
+    // values, the empty interval at the block's last boundary).
+    if (j <= last) {
+      const bool live[4] = {q < count, q + 1 < count, q + 2 < count,
+                            q + 3 < count};
+#pragma unroll
+      for (int r = 0; r < 3; ++r) {
+        const float4 v = *reinterpret_cast<const float4*>(&s_v[r][q]);
+        store4_of(vals + r * plane, j, len, vec_out,
+                  make_float4(live[0] ? v.x : 0.0f, live[1] ? v.y : 0.0f,
+                              live[2] ? v.z : 0.0f, live[3] ? v.w : 0.0f));
+      }
+      const int run = s_run;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int4 w = *reinterpret_cast<const int4*>(&s_iv[r][q]);
+        store4_of(iv + r * plane, j, len, vec_out,
+                  make_int4(live[0] ? w.x : run, live[1] ? w.y : run,
+                            live[2] ? w.z : run, live[3] ? w.w : run));
+      }
+    }
+    __syncthreads();  // the staging and s_run are free for the next block
   }
 }
 
-// K3d: slot s = blockIdx.y expands its own stack row (cv: (3, b, len),
-// civ: (2, b, len)) into row s of out: slot i < n takes the first column k
-// with t_hi[k] > i (a survivor, and k <= n - 1, see above) and copies its
-// values; slots n <= i < len are 0; an idle slot exits at once.
-__global__ void __launch_bounds__(kExpandBlock)
-expand_compressed_kernel(const float* __restrict__ cv,
+// The single K3d's staging: the live stack columns from ca to cb (the
+// survivors of a range's first and last slot) of one stack row (lo and hi
+// its t_lo and t_hi rows, c its counts), in order, their t_hi, t_lo and
+// column to s_hi, s_lo and s_col; returns how many.  Block k of those
+// spanned holds its columns [max(ca, k * 1024), min(cb + 1, k * 1024 +
+// c[k])).  The blocks go 256 at a time, one a thread (a range can span
+// many blocks with no survivor): a block-wide scan of their live counts
+// places them, then thread t stages the columns t, t + 256, ... of the
+// chunk, each finding its block by a search of the placed offsets.  A
+// stack that partitions the slots never stages more than `cap` (a
+// survivor owns at least one slot of the range); more traps.  Every
+// thread must call it.
+__device__ int stage_live(const int* __restrict__ lo,
+                          const int* __restrict__ hi,
+                          const int* __restrict__ c, int ca, int cb,
+                          int cap, int* s_hi, int* s_lo, int* s_col,
+                          int* s_from, int* s_pos, int* s_warp) {
+  constexpr int T = kSegBlock;
+  const int k0 = ca / kScanBlock;
+  const int k1 = cb / kScanBlock;
+  int base = 0;
+  for (int kc = k0; kc <= k1; kc += T) {
+    const int k = kc + threadIdx.x;
+    int from = 0;
+    int num = 0;
+    if (k <= k1) {
+      from = max(ca, k * kScanBlock);
+      num = max(min(cb + 1, k * kScanBlock + __ldg(c + k)) - from, 0);
+    }
+    int total;
+    const int pos = base + block_exclusive_scan<T>(num, s_warp, total);
+    s_from[threadIdx.x] = from;
+    s_pos[threadIdx.x] = pos;
+    __syncthreads();
+    assert(base + total <= cap);  // the survivors partition the slots
+    const int runs = min(T, k1 - kc + 1);
+    for (int r = threadIdx.x; r < total && base + r < cap; r += T) {
+      const int x = base + r;
+      const int blk = first_above(s_pos, 0, runs, x) - 1;
+      const int col = s_from[blk] + (x - s_pos[blk]);
+      s_hi[x] = __ldg(hi + col);
+      s_lo[x] = __ldg(lo + col);
+      s_col[x] = col;
+    }
+    base += total;
+    __syncthreads();
+  }
+  return min(base, cap);
+}
+
+// K3d's output slots [a, e) of one row from the m staged survivors (s_hi
+// sorted: a slot's survivor is the first above it), their values read
+// from the stack row src (planes `plane` apart) at s_col: runs of four
+// consecutive slots a thread, aligned to the row; each slot after a run's
+// first probes the previous survivor and the next one and searches only
+// past them, and a survivor's values stay in registers while slots share
+// it.  Each survivor's interval must hold its first slot (the partition
+// check).  Stores float4s where `aligned` and the run is whole.
+__device__ __forceinline__ void expand_staged(
+    const int* s_hi, const int* s_lo, const int* s_col, int m,
+    const float* __restrict__ src, long long plane, float* dst, int a,
+    int e, bool aligned) {
+  for (int r = (a >> 2) + threadIdx.x; 4 * r < e; r += kSegBlock) {
+    const int i0 = 4 * r;
+    int j = -1;
+    float xv = 0.0f, yv = 0.0f, zv = 0.0f;
+    float x[4], y[4], z[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = i0 + u;
+      x[u] = y[u] = z[u] = 0.0f;
+      if (i >= a && i < e) {
+        if (j < 0 || s_hi[j] <= i) {
+          if (j < 0) {
+            j = first_above(s_hi, 0, m, i);
+          } else if (++j < m && s_hi[j] <= i) {
+            j = first_above(s_hi, j + 1, m, i);
+          }
+          assert(j < m && s_lo[j] <= i);  // the interval holds slot i
+          const int col = s_col[j];
+          xv = __ldg(src + col);
+          yv = __ldg(src + plane + col);
+          zv = __ldg(src + 2 * plane + col);
+        }
+        x[u] = xv;
+        y[u] = yv;
+        z[u] = zv;
+      }
+    }
+    if (aligned && i0 >= a && i0 + 4 <= e) {
+      reinterpret_cast<float4*>(dst + i0)[0] =
+          make_float4(x[0], x[1], x[2], x[3]);
+      reinterpret_cast<float4*>(dst + plane + i0)[0] =
+          make_float4(y[0], y[1], y[2], y[3]);
+      reinterpret_cast<float4*>(dst + 2 * plane + i0)[0] =
+          make_float4(z[0], z[1], z[2], z[3]);
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = i0 + u;
+        if (i >= a && i < e) {
+          dst[i] = x[u];
+          dst[plane + i] = y[u];
+          dst[2 * plane + i] = z[u];
+        }
+      }
+    }
+  }
+}
+
+// K3d of the single filter: block c writes the output slots [i0, i1) =
+// [c, c + 1) * kRangeSlots of the row from its stack (cv: (3, len), civ:
+// (2, len), cnt: (nblk,)) where valid[0] (else it exits at once); lanes
+// [n, len) are written 0.  Warps 0 and 1 find the survivors of the first
+// and the last slot, the first stack columns with t_hi above them, by a
+// 32-way search of the t_hi row (sorted, and t_hi[n - 1] = n); the
+// survivors between them, at most kRangeSlots, are staged, the inert
+// columns skipped.
+__global__ void __launch_bounds__(kSegBlock)
+compressed_range_kernel(const float* __restrict__ cv,
+                        const int* __restrict__ civ,
+                        const int* __restrict__ cnt,
+                        const unsigned char* __restrict__ valid,
+                        float* __restrict__ out, int n, int len) {
+  __shared__ int s_hi[kRangeSlots], s_lo[kRangeSlots], s_col[kRangeSlots];
+  __shared__ int s_from[kSegBlock], s_pos[kSegBlock];
+  __shared__ int s_warp[kSegBlock / 32];
+  __shared__ int s_src[2];
+  if (!valid[0]) return;
+  const long long plane = len;
+  if (blockIdx.x == gridDim.x - 1) {  // the padding lanes, if any
+    for (int i = n + threadIdx.x; i < len; i += kSegBlock) {
+      out[i] = 0.0f;
+      out[plane + i] = 0.0f;
+      out[2 * plane + i] = 0.0f;
+    }
+  }
+  const int i0 = blockIdx.x * kRangeSlots;
+  const int i1 = min(n, i0 + kRangeSlots);
+  const int* hi = civ + plane;
+  if (threadIdx.x < 64) {
+    const int col = warp_first_above(hi, n, threadIdx.x < 32 ? i0 : i1 - 1);
+    if ((threadIdx.x & 31) == 0) s_src[threadIdx.x >> 5] = col;
+  }
+  __syncthreads();
+  const int ca = s_src[0];
+  const int cb = s_src[1];
+  const int m = stage_live(civ, hi, cnt, ca, cb, kRangeSlots, s_hi, s_lo,
+                           s_col, s_from, s_pos, s_warp);
+  const bool aligned = (len & 3) == 0 && aligned16(out);
+  expand_staged(s_hi, s_lo, s_col, m, cv, plane, out, i0, i1, aligned);
+}
+
+// K3d in segments (the wide filter's pass B): block (c, s) expands the
+// stack blocks [k0, k1] = [c, c + 1) * kStackWindow of slot s's stack row
+// (cv: (3, b, n), civ: (2, b, n), cnt: (b, nblk)) into row s of out; an
+// idle slot exits at once.  The window's survivors own the output slots
+// [t_run(k0 - 1), t_run(k1)), t_run(k) the last t_hi of block k (0 before
+// block 0), which two loads give, so no window searches global memory.
+// Those loads, the counts and the window's columns go out at once, and
+// the live ones (cnt[k] a block) are staged; a window with no output slot
+// exits when they arrive.
+__global__ void __launch_bounds__(kSegBlock)
+compressed_window_kernel(const float* __restrict__ cv,
                          const int* __restrict__ civ,
+                         const int* __restrict__ cnt,
                          const unsigned char* __restrict__ valid,
-                         float* __restrict__ out, int n, int len, int b) {
+                         float* __restrict__ out, int n, int b) {
+  constexpr int W = kStackWindow;
+  __shared__ int s_hi[W * kScanBlock], s_lo[W * kScanBlock];
+  __shared__ int s_col[W * kScanBlock];
   const int s = blockIdx.y;
   if (!valid[s]) return;
-  const int i = blockIdx.x * kExpandBlock + threadIdx.x;
-  if (i >= len) return;
-  const long long plane = static_cast<long long>(b) * len;
-  const long long row = static_cast<long long>(s) * len;
-  if (i >= n) {
-    out[row + i] = 0.0f;
-    out[plane + row + i] = 0.0f;
-    out[2 * plane + row + i] = 0.0f;
-    return;
+  const int nblk = (n + kScanBlock - 1) / kScanBlock;
+  const int k0 = blockIdx.x * W;
+  const int k1 = min(nblk, k0 + W) - 1;
+  const long long plane = static_cast<long long>(b) * n;
+  const long long row = static_cast<long long>(s) * n;
+  const int* lo = civ + row;
+  const int* hi = civ + plane + row;
+  const int* c = cnt + static_cast<long long>(s) * nblk;
+  // Everything the window reads before its expand, at once: its output
+  // range, its counts, and four columns of t_hi and t_lo a thread from
+  // each of its blocks (an int4 each where the stack is aligned; zeros
+  // past the row).
+  const bool vec = (n & 3) == 0 && aligned16(civ);
+  const int a = k0 == 0 ? 0 : __ldg(hi + k0 * kScanBlock - 1);
+  const int e = __ldg(hi + min(n, (k1 + 1) * kScanBlock) - 1);
+  int num[W];
+  int4 h[W], l[W];
+  const int q = 4 * threadIdx.x;
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    num[w] = k0 + w <= k1 ? min(max(__ldg(c + k0 + w), 0), kScanBlock) : 0;
+    h[w] = load4_of<int4>(hi, (k0 + w) * kScanBlock + q, n, vec);
+    l[w] = load4_of<int4>(lo, (k0 + w) * kScanBlock + q, n, vec);
   }
-  const long long src = row + source_of(civ + plane + row, n, i);
-  assert(__ldg(civ + src) <= i);  // the survivor's interval holds slot i
-  out[row + i] = __ldg(cv + src);
-  out[plane + row + i] = __ldg(cv + plane + src);
-  out[2 * plane + row + i] = __ldg(cv + 2 * plane + src);
+  if (a == e) return;
+  // The live columns (each block's first num[w]) staged in order.
+  int m = 0;
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    const int hv[4] = {h[w].x, h[w].y, h[w].z, h[w].w};
+    const int lv[4] = {l[w].x, l[w].y, l[w].z, l[w].w};
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (q + u < num[w]) {
+        s_hi[m + q + u] = hv[u];
+        s_lo[m + q + u] = lv[u];
+        s_col[m + q + u] = (k0 + w) * kScanBlock + q + u;
+      }
+    }
+    m += num[w];
+  }
+  __syncthreads();
+  const bool aligned = (n & 3) == 0 && aligned16(out);
+  expand_staged(s_hi, s_lo, s_col, m, cv + row, plane, out + row, a, e,
+                aligned);
 }
 
 }  // namespace
@@ -784,7 +1037,9 @@ extern "C" int tpuslam_resample_arrivals(unsigned int* value) {
 // p: (3, b, len) particle rows of b filters; t_hi: (b, len) boundaries in
 // slot order; fids, valid: (b,).  Writes the valid slots' rows of vals:
 // (3, b, len) and iv: (2, b, len), and cnt: (b, ceil(len / 1024)), zero
-// for idle slots.
+// for idle slots.  One slot (the single filter) takes a CUDA block a stack
+// block; more take kCompactWindow stack blocks a CUDA block, so an idle
+// slot's blocks are few.
 extern "C" int tpuslam_resample_compact(const float* p, const int* t_hi,
                                         const int* fids,
                                         const unsigned char* valid,
@@ -793,33 +1048,47 @@ extern "C" int tpuslam_resample_compact(const float* p, const int* t_hi,
   if (len < 1 || b < 1 || b > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((len + kScanBlock - 1) / kScanBlock, b);
-  compact_kernel<<<grid, kScanBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      p, t_hi, fids, valid, vals, iv, cnt, len, b);
+  const int nblk = (len + kScanBlock - 1) / kScanBlock;
+  const int per = b == 1 ? 1 : kCompactWindow;
+  const dim3 grid((nblk + per - 1) / per, b);
+  compact_kernel<<<grid, kCompactThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      p, t_hi, fids, valid, vals, iv, cnt, len, b, per);
   return static_cast<int>(cudaGetLastError());
 }
 
-// cv: (3, b, len), civ: (2, b, len) each slot's stack from the compaction;
-// valid: (b,).  Writes the valid slots' rows of out: (3, b, len), lanes
-// from n on zero.
+// cv: (3, b, len), civ: (2, b, len), cnt: (b, ceil(len / 1024)) each
+// slot's stack from the compaction; valid: (b,).  Writes the valid slots'
+// rows of out: (3, b, len), lanes from n on zero.  One slot (the single
+// filter) takes a block a range of output slots; more take a block a
+// window of stack blocks and a slot, and need n == len.
 extern "C" int tpuslam_resample_expand_compressed(const float* cv,
                                                   const int* civ,
+                                                  const int* cnt,
                                                   const unsigned char* valid,
                                                   float* out, int n, int len,
                                                   int b, void* stream) {
-  if (n < 1 || len < n || b < 1 || b > 65535) {
+  if (n < 1 || len < n || b < 1 || b > 65535 || (b > 1 && n != len)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((len + kExpandBlock - 1) / kExpandBlock, b);
-  expand_compressed_kernel<<<grid, kExpandBlock, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      cv, civ, valid, out, n, len, b);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (b == 1) {
+    const int grid = (n + kRangeSlots - 1) / kRangeSlots;
+    compressed_range_kernel<<<grid, kSegBlock, 0, st>>>(cv, civ, cnt, valid,
+                                                        out, n, len);
+  } else {
+    const int nblk = (n + kScanBlock - 1) / kScanBlock;
+    const dim3 grid((nblk + kStackWindow - 1) / kStackWindow, b);
+    compressed_window_kernel<<<grid, kSegBlock, 0, st>>>(cv, civ, cnt, valid,
+                                                         out, n, b);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 // Resident blocks per SM of kernel `which` (0: K3a in the gated form, 1:
-// K3b of the single filter, 2: K3b in segments, 3: compact, 4: the
-// compressed expand), *name its name; cudaErrorInvalidValue past the last.
+// K3b of the single filter, 2: K3b in segments, 3: K3c, 4: K3d of the
+// single filter, 5: K3d in segments), *name its name;
+// cudaErrorInvalidValue past the last.
 // n is unused.
 extern "C" int tpuslam_occupancy_resample(int which, int n, int* blocks,
                                           const char** name) {
@@ -836,11 +1105,14 @@ extern "C" int tpuslam_occupancy_resample(int which, int n, int* blocks,
       return occupancy(expand_seg_kernel, "K3b expand_seg", kSegBlock, 0,
                        blocks, name);
     case 3:
-      return occupancy(compact_kernel, "K3c compact", kScanBlock, 0, blocks,
-                       name);
+      return occupancy(compact_kernel, "K3c compact", kCompactThreads, 0,
+                       blocks, name);
     case 4:
-      return occupancy(expand_compressed_kernel, "K3d expand_compressed",
-                       kExpandBlock, 0, blocks, name);
+      return occupancy(compressed_range_kernel, "K3d compressed_range",
+                       kSegBlock, 0, blocks, name);
+    case 5:
+      return occupancy(compressed_window_kernel, "K3d compressed_window",
+                       kSegBlock, 0, blocks, name);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -87,8 +87,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
                                         c_int, ptr],
         "tpuslam_resample_compact": [ptr, ptr, ptr, ptr, ptr, ptr, ptr,
                                      c_int, c_int, ptr],
-        "tpuslam_resample_expand_compressed": [ptr, ptr, ptr, ptr, c_int,
-                                               c_int, c_int, ptr],
+        "tpuslam_resample_expand_compressed": [ptr, ptr, ptr, ptr, ptr,
+                                               c_int, c_int, c_int, ptr],
         "tpuslam_pf_batch_step": [ptr, ptr, c_int, c_int, ptr],
         "tpuslam_pf_step_ticket": [ctypes.POINTER(ctypes.c_uint)],
         "tpuslam_wide_boundary": [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,

@@ -31,10 +31,14 @@ the JAX merge's does:
 * :func:`compact_particles` (kernel, K3c): each 1024-lane block's
   survivors, their values and their slot intervals ``[t_lo, t_hi)``, to
   the block's leading columns, and the block's count;
-* :func:`expand_compressed` (kernel, K3d): each output slot's survivor,
-  found by a search of that stack (its ``t_hi`` row is sorted, so the
-  JAX package's gather of the survivors into one list is not needed),
-  and a copy of its values from it.
+* :func:`expand_compressed` (kernel, K3d): each output slot's survivor
+  in that stack and a copy of its values.  The stack's ``t_hi`` row is
+  sorted and block k's survivors own the output slots
+  ``[t_run(k - 1), t_run(k))``, its last ``t_hi`` before and its own, so
+  a block a range of output slots (the single filter) or a window of
+  stack blocks (the wide filter) stages just the live columns it needs,
+  by the counts; the JAX package's gather of the survivors into one list
+  is not needed.
 
 The keywords map to launches so:
 
@@ -543,18 +547,25 @@ def compact_particles_plain(p: torch.Tensor, t: torch.Tensor):
     return vals, iv, cnt
 
 
+def _slots(rows: torch.Tensor) -> int:
+    """The slots of ``(3, len)`` rows (one) or ``(3, b, len)`` rows."""
+    return 1 if rows.dim() == 2 else rows.shape[1]
+
+
 def _launch_compact(p_rows: torch.Tensor, t_hi: torch.Tensor,
                     fids: torch.Tensor, valid: torch.Tensor):
-    """K3c's launch over the slots of ``(3, b, len)`` rows (checked by the
-    caller)."""
-    _, b, length = p_rows.shape
+    """K3c's launch over the slots of ``(3, len)`` (one slot) or
+    ``(3, b, len)`` rows (checked by the caller); the stack takes their
+    shape, so the single filter's launch makes no view."""
+    length, b = p_rows.shape[-1], _slots(p_rows)
     device = p_rows.device
     lib = _build.cuda_library(device)
     with torch.cuda.device(device):
         vals = torch.empty_like(p_rows)
-        iv = torch.empty((2, b, length), dtype=torch.int32, device=device)
-        cnt = torch.empty((b, -(-length // BLOCK)), dtype=torch.int32,
-                          device=device)
+        iv = torch.empty((2,) + p_rows.shape[1:], dtype=torch.int32,
+                         device=device)
+        cnt = torch.empty(p_rows.shape[1:-1] + (-(-length // BLOCK),),
+                          dtype=torch.int32, device=device)
         rc = lib.tpuslam_resample_compact(
             p_rows.data_ptr(), t_hi.data_ptr(), fids.data_ptr(),
             valid.data_ptr(), vals.data_ptr(), iv.data_ptr(),
@@ -597,10 +608,9 @@ def compact_particles(p_rows: torch.Tensor, t_hi: torch.Tensor, *,
     n_pad = p_rows.shape[-1]
     _build.check_tensor("p_rows", p_rows, (3, n_pad), torch.float32, device)
     _build.check_tensor("t_hi", t_hi, (n_pad,), torch.int32, device)
-    vals, iv, cnt = _launch_compact(p_rows[:, None], t_hi[None],
-                                    *_one_slot(gate, device))
+    stack = _launch_compact(p_rows, t_hi, *_one_slot(gate, device))
     compact_launch_count += 1
-    return vals[:, 0], iv[:, 0], cnt[0]
+    return stack
 
 
 def compact_particles_seg_plain(p_rows: torch.Tensor, t_hi: torch.Tensor,
@@ -680,18 +690,26 @@ def _check_stack_seg(vals: torch.Tensor, iv: torch.Tensor,
 
 
 def _launch_expand_compressed(vals: torch.Tensor, iv: torch.Tensor,
-                              valid: torch.Tensor, n: int) -> torch.Tensor:
-    """K3d's launch over the slots of a ``(3, b, len)`` stack (checked by
-    the caller)."""
-    _, b, length = vals.shape
+                              cnt: torch.Tensor | None, valid: torch.Tensor,
+                              n: int) -> torch.Tensor:
+    """K3d's launch over the slots of a ``(3, len)`` (one slot) or
+    ``(3, b, len)`` stack (checked by the caller) and its counts, which
+    the kernels stage the live columns by."""
+    length, b = vals.shape[-1], _slots(vals)
     _check_n(n, length)
     device = vals.device
+    if cnt is None:
+        raise ValueError("K3d on the card reads the stack's counts: pass "
+                         "cnt=, the third output of the compaction")
+    _build.check_tensor("cnt", cnt, vals.shape[1:-1] + (-(-length // BLOCK),),
+                        torch.int32, device)
     lib = _build.cuda_library(device)
     with torch.cuda.device(device):
         out = torch.empty_like(vals)
         rc = lib.tpuslam_resample_expand_compressed(
-            vals.data_ptr(), iv.data_ptr(), valid.data_ptr(), out.data_ptr(),
-            n, length, b, torch.cuda.current_stream(device).cuda_stream)
+            vals.data_ptr(), iv.data_ptr(), cnt.data_ptr(), valid.data_ptr(),
+            out.data_ptr(), n, length, b,
+            torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"resample_expand_compressed kernel launch "
                            f"failed: CUDA error {rc}")
@@ -699,14 +717,19 @@ def _launch_expand_compressed(vals: torch.Tensor, iv: torch.Tensor,
 
 
 def expand_compressed(vals: torch.Tensor, iv: torch.Tensor, n: int, *,
+                      cnt: torch.Tensor | None = None,
                       gate: torch.Tensor | None = None) -> torch.Tensor:
     """K3d: every output slot's survivor in the stack and a copy of its
-    values, one kernel launch (the filter as the one slot of
-    :func:`expand_compressed_seg`'s kernel).
+    values, one kernel launch (a block a range of output slots, which
+    stages the survivors of its range; the segmented form,
+    :func:`expand_compressed_seg`, takes a block a window of stack
+    blocks).
 
     Args:
         vals, iv: the stack from :func:`compact_particles`.
         n: valid particle count.
+        cnt: its ``(ceil(n_pad / BLOCK),)`` counts, required on the card
+            (the plain twin needs none).
         gate: optional ``(2,)`` bool gate (:func:`gated_boundary`): the
             launch writes nothing where it does not fire (a CPU tensor
             ignores it).
@@ -723,10 +746,10 @@ def expand_compressed(vals: torch.Tensor, iv: torch.Tensor, n: int, *,
     n_pad = vals.shape[-1]
     _build.check_tensor("vals", vals, (3, n_pad), torch.float32, device)
     _build.check_tensor("iv", iv, (2, n_pad), torch.int32, device)
-    out = _launch_expand_compressed(vals[:, None], iv[:, None],
+    out = _launch_expand_compressed(vals, iv, cnt,
                                     _one_slot(gate, device)[1], n)
     expand_compressed_launch_count += 1
-    return out[:, 0]
+    return out
 
 
 def expand_compressed_seg_plain(vals: torch.Tensor, iv: torch.Tensor,
@@ -743,14 +766,19 @@ def expand_compressed_seg_plain(vals: torch.Tensor, iv: torch.Tensor,
 
 
 def expand_compressed_seg(vals: torch.Tensor, iv: torch.Tensor,
-                          valid: torch.Tensor) -> torch.Tensor:
+                          valid: torch.Tensor, *,
+                          cnt: torch.Tensor | None = None) -> torch.Tensor:
     """K3d in segments (the wide filter's compressed pass B), one kernel
-    launch: slot s expands its own stack row into its output row.
+    launch: slot s expands its own stack row into its output row, a block
+    a window of stack blocks and a slot (one slot: a block a range of
+    output slots, as :func:`expand_compressed`).
 
     Args:
         vals, iv: a :func:`compact_particles_seg` stack, ``(3, B, n)`` and
             ``(2, B, n)``.
         valid: ``(B,)`` bool, whether slot s serves a firing filter.
+        cnt: the stack's ``(B, ceil(n / BLOCK))`` counts, required on the
+            card (the plain twin needs none).
 
     Returns:
         ``(3, B, n)``: slot s's resampled rows at s, as
@@ -764,7 +792,7 @@ def expand_compressed_seg(vals: torch.Tensor, iv: torch.Tensor,
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
     _check_stack_seg(vals, iv, valid)
-    out = _launch_expand_compressed(vals, iv, valid, vals.shape[-1])
+    out = _launch_expand_compressed(vals, iv, cnt, valid, vals.shape[-1])
     expand_compressed_seg_launch_count += 1
     return out
 
@@ -811,8 +839,8 @@ def _pass2(p_rows: torch.Tensor, t_hi: torch.Tensor, n: int, pass2: str,
         return expand_compressed_plain(vals, iv, n)
     if pass2 == "windowed":
         return resample_expand(p_rows, t_hi, n, gate=gate)
-    vals, iv, _ = compact_particles(p_rows, t_hi, gate=gate)
-    return expand_compressed(vals, iv, n, gate=gate)
+    vals, iv, cnt = compact_particles(p_rows, t_hi, gate=gate)
+    return expand_compressed(vals, iv, n, cnt=cnt, gate=gate)
 
 
 def expand_seg(p_rows: torch.Tensor, t_hi: torch.Tensor, fids: torch.Tensor,
@@ -823,8 +851,8 @@ def expand_seg(p_rows: torch.Tensor, t_hi: torch.Tensor, fids: torch.Tensor,
     rows are equal bit for bit."""
     if pass2 == "windowed":
         return resample_expand_seg(p_rows, t_hi, fids, valid)
-    vals, iv, _ = compact_particles_seg(p_rows, t_hi, fids, valid)
-    return expand_compressed_seg(vals, iv, valid)
+    vals, iv, cnt = compact_particles_seg(p_rows, t_hi, fids, valid)
+    return expand_compressed_seg(vals, iv, valid, cnt=cnt)
 
 
 def _offs_on(offs, device: torch.device) -> torch.Tensor:

@@ -1,8 +1,8 @@
 """What the compiler and the occupancy calculator say about the built
 kernels: each kernel's registers, stack frame and spills (``ptxas -v``,
 kept beside the library by :mod:`tpuslam_torch.ops._build`), the SASS
-opcode counts of K1, K2b, K3a, K4, K5a, K5b and both forms of K3b
-(``cuobjdump -sass`` of the library), those of each such kernel's
+opcode counts of K1, K2b, K3a, K4, K5a, K5b, K3c and both forms of K3b
+and of K3d (``cuobjdump -sass`` of the library), those of each such kernel's
 largest loop (the instructions from a backward branch's target to the
 branch: K1's step loop) and of its body (the instructions before the
 branch to itself that follows the kernel's last ``EXIT``: the
@@ -39,7 +39,8 @@ import subprocess
 SASS_KERNELS = ("ekf_rollout_kernel<1, false", "pf_step_kernel<1, true>",
                 "pf_batch_kernel<1", "wide_boundary_kernel",
                 "wide_stats_kernel<1, true", "expand_seg_kernel",
-                "expand_range_kernel", "boundary_")
+                "expand_range_kernel", "boundary_", "compact_kernel",
+                "compressed_range_kernel", "compressed_window_kernel")
 #: Opcode groups of the count, by the opcode's first dotted part.
 OPCODE_GROUPS = (("LDL/STL", ("LDL", "STL")), ("LDC", ("LDC",)),
                  ("LDG/STG", ("LDG", "STG")), ("LDS/STS", ("LDS", "STS")),

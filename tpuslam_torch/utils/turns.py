@@ -1,5 +1,6 @@
-"""Time K1, the segmented K3b, K5a and the PF kernels that share K1's
-device math of several checkouts of the port on one card, in turns.
+"""Time K1, the segmented K3b, K5a, the merge's compressed pass 2 (K3c,
+K3d) and the PF kernels that share K1's device math of several checkouts
+of the port on one card, in turns.
 
 From the repository root, on a CUDA host::
 
@@ -47,22 +48,36 @@ card's clocks falls on every side.  Each prints one JSON line with:
   the device, both with the gate off too.  Each checkout's boundaries
   are saved, and the run ends by counting the lanes where they differ
   from the first checkout's;
+* K3c and K3d, each single and segmented, firing and idle: the single
+  forms on the single filter's state at 2,097,152 after the merge
+  rollout's 400 steps (``chip_smoke.py`` phase 27's: boundaries at
+  offset 0.5; the gate off for idle), the segmented forms on the
+  segmented K3b's inputs at 0, 240 and 1024 firing and on phase 27's
+  wide state (``main``: the compressed wide rollout's particles after
+  400 steps, K5a's slots on them); each a device time a
+  launch and a digest of the stack (values, intervals, counts; valid
+  slots) and of the expanded rows.  A checkout whose K3d stages by the
+  stack's counts takes them (``cnt=``);
 * the device time a launch and a digest of the outputs of K4 at
   8192 x 1000 and K5b at 1024 x 10,000 (Philox noise, a mixed gate),
   which share ``csrc/fastmath.cuh`` with K1;
 * the single-filter (2,097,152 and 100,000) and wide (1024 x 10,000)
   rollouts' torch ops, device busy time, host wall time and the host's
   wait for the device (``profile_window``'s ``sync_ms``) a step, from a
-  profiled 50-step rollout after a warm-up one; and the single filter's
-  particle-steps a second at 2,097,152, 1,000,000 and 100,000 x 400
-  (CUDA events, median of 3 after one warm-up), in the same turns.
+  profiled 50-step rollout after a warm-up one, at 2,097,152 and
+  1024 x 10,000 also on the compressed merge path
+  (``merge_caps_kw=(("pass2", "compressed"),)``, ``pass2="compressed"``);
+  and the particle-steps a second at 400 steps (CUDA events, median of 3
+  after one warm-up) of the single filter at 2,097,152, 1,000,000 and
+  100,000 and, on both merge paths, at 2,097,152 and of the wide filter
+  at 1024 x 10,000, in the same turns.
 
-K3b and K5b read boundaries: every turn takes those of the first turn
-(saved under this tree's ``build/turns/``), so their digests compare the
-kernels on equal inputs.  Each checkout's own K5a boundaries are saved
-there too, and the run ends by counting the lanes where each checkout's
-differ from the first checkout's.  Equal digests mean equal outputs, bit
-for bit, across checkouts.  Needs a CUDA device.
+K3b, K3c, K3d and K5b read boundaries: every turn takes those of the
+first turn (saved under this tree's ``build/turns/``), so their digests
+compare the kernels on equal inputs. Each checkout's own K5a boundaries
+are saved there too, and the run ends by counting the lanes where each
+checkout's differ from the first checkout's. Equal digests mean equal
+outputs, bit for bit, across checkouts. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -86,6 +101,7 @@ K3_SIZE = K2_SIZES[0]
 K4_SHAPE = (8192, 1000)
 LOOP_STEPS = 50
 RATE_STEPS = 400
+MERGE_KW = (("pass2", "compressed"),)
 SHARE_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "turns"
 
 
@@ -266,6 +282,109 @@ def _k3_forms(rs, dev, p_rows, lw, lse, lse2, offs, fire: bool = True):
                                       device=dev)
 
     return pass1, branch
+
+
+def _takes(fn, name: str) -> bool:
+    """Whether ``fn`` takes a parameter ``name``."""
+    import inspect
+
+    return name in inspect.signature(fn).parameters
+
+
+def _k3cd_state(rs, dev, share: pathlib.Path):
+    """``chip_smoke.py`` phase 27's single-filter stack inputs at
+    :data:`K3_SIZE`: the particle rows after the merge rollout's
+    :data:`RATE_STEPS` steps (generator seed 0) and the boundaries of
+    their weights at offset 0.5.  The first turn saves them; every turn
+    reads them."""
+    import torch
+
+    path = share / "k3cd_inputs.pt"
+    if not path.exists():
+        from tpuslam_torch.filters import PfConfig
+        from tpuslam_torch.ops import pf_fused_init, pf_fused_rollout
+
+        cfg = PfConfig(num_particles=K3_SIZE, weight_mode="log",
+                       resample_method="merge")
+        final, _ = pf_fused_rollout(
+            cfg, torch.Generator(device=dev).manual_seed(0), RATE_STEPS,
+            device=dev)
+        fs = pf_fused_init(cfg, final, device=dev)
+        t_hi = rs.slot_boundaries(torch.exp(fs.log_w - fs.lse), K3_SIZE,
+                                  torch.full((1,), 0.5, device=dev))
+        torch.save((fs.particles.cpu(), t_hi.cpu()), path)
+    return tuple(t.to(dev) for t in torch.load(path))
+
+
+def _k3cd_wide_state(dev, share: pathlib.Path):
+    """``chip_smoke.py`` phase 27's segmented stack inputs at
+    :data:`K3B_SHAPE`: the wide filter's particles after its compressed
+    rollout's :data:`RATE_STEPS` steps (generator seed 0, the gate at
+    1% of n) and K5a's slots on them (offsets from seed 27):
+    ``(particles, t_hi, fids, valid)``.  The first turn saves them; every
+    turn reads them."""
+    import torch
+
+    path = share / "k3cd_wide_inputs.pt"
+    if not path.exists():
+        from tpuslam_torch.filters import PfConfig
+        from tpuslam_torch.ops import pf_batch_cuda as pb
+        from tpuslam_torch.ops import pf_batch_wide_rollout
+
+        b, n = K3B_SHAPE
+        cfg = PfConfig(num_particles=n, weight_mode="log",
+                       ess_threshold_frac=0.01)
+        final, _ = pf_batch_wide_rollout(
+            cfg, torch.Generator(device=dev).manual_seed(0), b, RATE_STEPS,
+            device=dev, pass2="compressed")
+        _, _, fire = pb._gate(cfg, final.lse, final.lse2)
+        offs = torch.rand(b, generator=torch.Generator(
+            device=dev).manual_seed(27), dtype=torch.float32, device=dev)
+        slots = pb.wide_boundary(final.log_w, final.lse, fire, offs)
+        torch.save(tuple(t.cpu() for t in (final.particles, slots.t_hi,
+                                           slots.fids, slots.valid)), path)
+    return tuple(t.to(dev) for t in torch.load(path))
+
+
+def _compressed(rs, device_ms, dev, share, seg, bounds) -> dict:
+    """K3c and K3d of a checkout, single and segmented, firing and idle:
+    device time a launch and digests (the module docstring)."""
+    import torch
+
+    out = {}
+    p_rows, t_hi = _k3cd_state(rs, dev, share)
+    n = K3_SIZE
+    off = torch.zeros(2, dtype=torch.bool, device=dev)
+    stack = rs.compact_particles(p_rows, t_hi)
+    kw = {"cnt": stack[2]} if _takes(rs.expand_compressed, "cnt") else {}
+    out["k3cd_survivors"] = int(stack[2].sum())
+    out["k3c_ms"] = device_ms(lambda: rs.compact_particles(p_rows, t_hi), 50)
+    out["k3c_idle_ms"] = device_ms(
+        lambda: rs.compact_particles(p_rows, t_hi, gate=off), 50)
+    out["k3c_digest"] = _digest(stack)
+    out["k3d_ms"] = device_ms(
+        lambda: rs.expand_compressed(*stack[:2], n, **kw), 50)
+    out["k3d_idle_ms"] = device_ms(
+        lambda: rs.expand_compressed(*stack[:2], n, gate=off, **kw), 50)
+    out["k3d_digest"] = _digest(rs.expand_compressed(*stack[:2], n, **kw))
+    seg_kw = _takes(rs.expand_compressed_seg, "cnt")
+    cases = {n_fire: (seg[n_fire], *bounds[f"k3b_{n_fire}"][:3])
+             for n_fire in K3B_FIRING}
+    cases["main"] = _k3cd_wide_state(dev, share)
+    for n_fire, args in cases.items():
+        valid = args[3]
+        vals, iv, cnt = rs.compact_particles_seg(*args)
+        kw = {"cnt": cnt} if seg_kw else {}
+        out[f"k3cd_seg_{n_fire}_survivors"] = int(cnt.sum())
+        out[f"k3c_seg_{n_fire}_ms"] = device_ms(
+            lambda: rs.compact_particles_seg(*args), 20)
+        out[f"k3c_seg_{n_fire}_digest"] = _digest(vals[:, valid],
+                                                  iv[:, valid], cnt)
+        out[f"k3d_seg_{n_fire}_ms"] = device_ms(
+            lambda: rs.expand_compressed_seg(vals, iv, valid, **kw), 20)
+        out[f"k3d_seg_{n_fire}_digest"] = _digest(
+            rs.expand_compressed_seg(vals, iv, valid, **kw)[:, valid])
+    return out
 
 
 def _ops_a_call(profile_window, fn) -> float:
@@ -470,6 +589,7 @@ def _measure(tree: pathlib.Path, share: pathlib.Path, label: str) -> dict:
     out["k3b_ms"] = device_ms(lambda: rs.resample_expand(p_k3, t_first,
                                                           K3_SIZE), 50)
     out["k3b_digest"] = _digest(rs.resample_expand(p_k3, t_first, K3_SIZE))
+    out.update(_compressed(rs, device_ms, dev, share, seg, bounds))
 
     t_hi, fids, valid, src = bounds["k5b"]
     expanded = rs.resample_expand_seg(parts_w, t_hi, fids, valid)
@@ -492,25 +612,41 @@ def _measure(tree: pathlib.Path, share: pathlib.Path, label: str) -> dict:
 
     wide = PfConfig(num_particles=K3B_SHAPE[1], weight_mode="log",
                     ess_threshold_frac=0.01)
+    def single_run(n, steps, **kw):
+        return pf_fused_rollout(single(n), gen(), steps, device=dev, **kw)
+
+    def wide_run(steps, **kw):
+        return pf_batch_wide_rollout(wide, gen(), K3B_SHAPE[0], steps,
+                                     device=dev, **kw)
+
     for name, fn in (
-            ("single", lambda: pf_fused_rollout(single(K2_SIZES[0]), gen(),
-                                                LOOP_STEPS, device=dev)),
-            ("single_100k", lambda: pf_fused_rollout(
-                single(K2_SIZES[-1]), gen(), LOOP_STEPS, device=dev)),
-            ("wide", lambda: pf_batch_wide_rollout(
-                wide, gen(), K3B_SHAPE[0], LOOP_STEPS, device=dev))):
+            ("single", lambda: single_run(K2_SIZES[0], LOOP_STEPS)),
+            ("single_100k", lambda: single_run(K2_SIZES[-1], LOOP_STEPS)),
+            ("wide", lambda: wide_run(LOOP_STEPS)),
+            ("single_compressed", lambda: single_run(
+                K2_SIZES[0], LOOP_STEPS, merge_caps_kw=MERGE_KW)),
+            ("wide_compressed", lambda: wide_run(LOOP_STEPS,
+                                                 pass2="compressed"))):
         fn()
         got = profile_window(fn, LOOP_STEPS)
         out[f"{name}_ops_a_step"] = got["ops_per_step"]
         out[f"{name}_busy_ms_a_step"] = got["busy_ms"] / LOOP_STEPS
         out[f"{name}_wall_ms_a_step"] = got["wall_ms"] / LOOP_STEPS
         out[f"{name}_sync_ms_a_step"] = got["sync_ms"] / LOOP_STEPS
-    # The single filter's rates at bench.py's sizes, unprofiled.
-    for n in K2_SIZES:
-        seconds = timed(lambda n=n: pf_fused_rollout(
-            single(n), gen(), RATE_STEPS, device=dev), reps=3, warmup=1,
-            device=dev)
-        out[f"single_{n}_rate"] = n * RATE_STEPS / seconds
+    # The rates at bench.py's sizes, unprofiled.
+    b, n_w = K3B_SHAPE
+    rates = [(f"single_{n}", n, lambda n=n: single_run(n, RATE_STEPS))
+             for n in K2_SIZES]
+    rates += [
+        (f"single_compressed_{K2_SIZES[0]}", K2_SIZES[0],
+         lambda: single_run(K2_SIZES[0], RATE_STEPS,
+                            merge_caps_kw=MERGE_KW)),
+        ("wide", b * n_w, lambda: wide_run(RATE_STEPS)),
+        ("wide_compressed", b * n_w,
+         lambda: wide_run(RATE_STEPS, pass2="compressed"))]
+    for name, work, fn in rates:
+        seconds = timed(fn, reps=3, warmup=1, device=dev)
+        out[f"{name}_rate"] = work * RATE_STEPS / seconds
     torch.cuda.synchronize()
     return out
 
