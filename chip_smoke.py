@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths once on one CUDA card: the batched
-EKF, the single-filter, batched and wide particle filters, and the merge
-resample's compressed path.
+EKF, the single-filter, batched and wide particle filters, the merge
+resample's compressed path, and dense graph SLAM.
 
 Run from the repository root with no arguments::
 
@@ -20,7 +20,12 @@ kernels' launch counts set to 0 just before and read just after (and, on
 every particle-filter path, the host synchronisations counted, which must
 be 0: the single filter's merge gates on the device), and times the
 kernels and the plain versions at the main paths' shapes, holding the
-timed outputs to the plain versions' or to their bands.  Each phase
+timed outputs to the plain versions' or to their bands.  Then it runs
+dense graph SLAM, which has no hand-written kernel: the reference course
+(18 frames, 9 landmarks) in float32 against float64 and against the CPU,
+1024 seeds of it batched with each guard (timed, profiled, its statistics
+held to the reference's bands, and repeated bit for bit), and one
+full-history solve of 400 and of 1000 steps.  Each phase
 prints one line; a failing phase raises, so
 the script exits non-zero and prints no result.  The second-to-last
 line is a JSON object describing each kernel; the last line is
@@ -32,6 +37,7 @@ from __future__ import annotations
 
 import json
 import math
+import pathlib
 import subprocess
 import sys
 import time
@@ -134,6 +140,27 @@ K5A_OPS = BOUNDARY_OPS + 6
 # fall under it).
 MERGE_KW = (("pass2", "compressed"),)
 WIDE_STEP_FRAC = 0.08
+
+# Dense graph SLAM on the reference course (reference_course_config: 9
+# landmarks, graph_based_slam.py:900-927): its 18 frames, the seed count
+# the JAX package's users vmap (tests/test_distributional.py:161, the
+# bands of scripts/gen_ref_distributions.py), the first 100 of them held
+# to the "graph" band and a 64-seed 6-frame run to "graph_fast"; the f32
+# result held to f64 at tests/test_graph.py:107-108's bound.  The long
+# solves: 400 steps with the full guard, 1000 with the cheap one.
+GRAPH_FRAMES = 18
+GRAPH_SEEDS = 1024
+GRAPH_BAND_SEEDS = 100
+GRAPH_FAST_SEEDS = 64
+GRAPH_ALONE = 4
+GRAPH_ATOL = 2e-2
+GRAPH_LONG = ((400, "full"), (1000, "cheap"))
+BANDS_FILE = (pathlib.Path(__file__).resolve().parent / "tests" / "fixtures"
+              / "ref_distributions.json")
+# tests/test_distributional.py's check: means within K_SIGMA combined
+# standard errors, spreads within a factor STD_RATIO.
+K_SIGMA = 8.0
+STD_RATIO = 1.75
 
 
 def _require(ok, message) -> None:
@@ -1899,6 +1926,267 @@ def _merge_phases(dev, smi, default_fired: int):
     return entries
 
 
+def _cast_traj(traj, dtype=None, device=None):
+    """The trajectory's float tensors in ``dtype`` on ``device``."""
+    from tpuslam_torch.slam import GraphObservations, SlamTrajectory
+
+    def mv(t):
+        return t.to(device=device, dtype=dtype if t.is_floating_point()
+                    else t.dtype)
+
+    return SlamTrajectory(mv(traj.poses_actu), mv(traj.poses_odom),
+                          GraphObservations(*map(mv, traj.obs)),
+                          GraphObservations(*map(mv, traj.obs_true)))
+
+
+def _seed_traj(traj, k: int):
+    """Seed ``k`` of a batched trajectory."""
+    from tpuslam_torch.slam import GraphObservations, SlamTrajectory
+
+    return SlamTrajectory(traj.poses_actu[k], traj.poses_odom[k],
+                          GraphObservations(*(t[k] for t in traj.obs)),
+                          GraphObservations(*(t[k] for t in traj.obs_true)))
+
+
+def _graph_parity(dev) -> None:
+    """28. One seed of the reference course: the f32 frames on the card
+    against f64 on the card and f32 on the CPU, on the same observations;
+    each frame whose ``is_calc`` differs is printed with its conds."""
+    import torch
+
+    from tpuslam_torch.slam import (SlamSceneConfig, estimate_frames,
+                                    reference_course_config, simulate)
+
+    cfg = reference_course_config(GRAPH_FRAMES)
+    traj = simulate(SlamSceneConfig(), cfg,
+                    torch.Generator(device=dev).manual_seed(7),
+                    GRAPH_FRAMES, device=dev)
+    p32, f32 = estimate_frames(cfg, traj)
+    p64, f64 = estimate_frames(cfg, _cast_traj(traj, torch.float64))
+    pcpu, fcpu = estimate_frames(cfg, _cast_traj(traj, device="cpu"))
+    for p in (p32, p64, pcpu):
+        _require(p.shape == (GRAPH_FRAMES + 1, 3)
+                 and bool(p.isfinite().all()), "graph poses")
+    err64 = float((p32.double() - p64).abs().max())
+    err_cpu = float((p32.cpu() - pcpu).abs().max())
+    _require(err64 <= GRAPH_ATOL, f"graph f32 against f64: {err64}")
+    _require(err_cpu <= GRAPH_ATOL, f"graph card against CPU: {err_cpu}")
+    flips = []
+    for name, other in (("f64", f64), ("cpu", fcpu)):
+        differ = (f32.is_calc.cpu() != other.is_calc.cpu()).nonzero()
+        flips += [f"frame {int(k) + 1} against {name}: is_calc "
+                  f"{bool(f32.is_calc[k])}/{bool(other.is_calc[k])}, cond "
+                  f"{float(f32.cond[k]):.4e}/{float(other.cond[k]):.4e}"
+                  for k in differ[:, 0]]
+    iters_equal = (torch.equal(f32.gn_iters.cpu(), f64.gn_iters.cpu()),
+                   torch.equal(f32.gn_iters.cpu(), fcpu.gn_iters.cpu()))
+    print(f"graph parity, reference course {GRAPH_FRAMES} frames, guard "
+          f"full: f32 on the card against f64 max|dpose| {err64:.3e}, "
+          f"against f32 on the CPU {err_cpu:.3e} (atol {GRAPH_ATOL}); "
+          f"is_calc {int(f32.is_calc.sum())}/{GRAPH_FRAMES} frames; gn_iters "
+          f"equal to f64 {iters_equal[0]}, to the CPU {iters_equal[1]}; "
+          f"is_calc differs: {'; '.join(flips) if flips else 'nowhere'}",
+          flush=True)
+
+
+def _course_stats(cfg, traj, poses, frames):
+    """Per seed: position RMSE at observed times, total and largest
+    per-frame GN iterations (capped), guard failures
+    (tests/test_distributional.py::_graph_course_stats)."""
+    import torch
+
+    from tpuslam_torch.slam import observed_times_mask
+
+    mask = observed_times_mask(traj.obs)
+    e2 = ((poses[..., :2] - traj.poses_actu[..., :2]) ** 2).sum(-1)
+    rmse = torch.sqrt(torch.where(mask, e2, 0.0).sum(-1) / mask.sum(-1))
+    iters = frames.gn_iters.clamp(max=cfg.max_gn_iters)
+    return {"rmse_pos": rmse.double().cpu(),
+            "total_gn_iters": iters.sum(-1).double().cpu(),
+            "max_frame_iters": iters.amax(-1).double().cpu(),
+            "calc_failures": (~frames.is_calc).sum(-1).double().cpu()}
+
+
+def _band_check(section: str, stats: dict, bands: dict) -> list:
+    """``tests/test_distributional.py``'s check of each statistic against
+    the reference's band (the failures' mean only); returns the
+    failures."""
+    ref_all, n_ref = bands[section], bands[section]["n_seeds"]
+    bad = []
+    for name, ours in stats.items():
+        ours = ours.numpy()
+        ref = ref_all[name]
+        m, s = float(ours.mean()), float(ours.std(ddof=1))
+        tol = K_SIGMA * math.sqrt(ref["std"] ** 2 / n_ref + s ** 2 / ours.size)
+        if name == "calc_failures":
+            tol = max(tol, 1.0)
+        elif ref["std"] > 1e-12 and s > 1e-12 and not (
+                1.0 / STD_RATIO <= s / ref["std"] <= STD_RATIO):
+            bad.append(f"{name} std ratio {s / ref['std']:.2f}")
+        if abs(m - ref["mean"]) > tol:
+            bad.append(f"{name} mean {m:.4f} vs {ref['mean']:.4f} +- "
+                       f"{tol:.4f}")
+    return bad
+
+
+def _stats_line(stats: dict) -> str:
+    return ", ".join(f"{k} {float(v.mean()):.4f} (std {float(v.std()):.4f})"
+                     for k, v in stats.items())
+
+
+def _graph_batched(dev, smi) -> None:
+    """29-30. The reference course over GRAPH_SEEDS seeds in one batch,
+    with each guard: a warm-up call and a timed one (CUDA events around
+    the whole rollout), which must agree bit for bit; GN passes and host
+    syncs of the timed call; the first seeds solved alone, which must
+    iterate as in the batch; one GN pass profiled (and, with the cheap
+    guard, the whole rollout); the statistics against the
+    reference's bands (the full guard's first 100 seeds held to "graph";
+    the cheap guard's printed beside it), then GRAPH_FAST_SEEDS of the
+    6-frame course held to "graph_fast"."""
+    import torch
+
+    from tpuslam_torch.slam import (SlamSceneConfig, estimate_frames,
+                                    gn_iteration, reference_course_config,
+                                    slam_rollout, upper_pairs)
+    from tpuslam_torch.utils import count_host_syncs
+
+    with open(BANDS_FILE) as f:
+        bands = json.load(f)
+    scene = SlamSceneConfig()
+    for guard in ("full", "cheap"):
+        cfg = reference_course_config(GRAPH_FRAMES, guard=guard)
+
+        def run(cfg=cfg):
+            return slam_rollout(scene, cfg,
+                                torch.Generator(device=dev).manual_seed(2026),
+                                GRAPH_FRAMES, device=dev, seeds=GRAPH_SEEDS)
+
+        first = run()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with count_host_syncs() as syncs:
+            start.record()
+            traj, poses, frames = run()
+            end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end)
+        _require(torch.equal(first[1], poses)
+                 and torch.equal(first[2].gn_iters, frames.gn_iters),
+                 f"graph {guard}: a repeat run changed the poses")
+        passes = int(frames.gn_iters.amax(dim=0).sum())
+        stats = _course_stats(cfg, traj, poses, frames)
+        band = {k: v[:GRAPH_BAND_SEEDS] for k, v in stats.items()}
+        bad = _band_check("graph", band, bands)
+        if guard == "full":
+            _require(not bad, f"graph band: {bad}")
+        # The cheap guard lets structurally singular frames through (the
+        # JAX package's does too, on the same observations): a few
+        # courses run away.
+        n_away = int((stats["rmse_pos"] > 10.0).sum())
+        # The first seeds alone must get what the batch gave them (held
+        # with the full guard; the cheap one lets singular frames through,
+        # whose updates rounding decides).
+        alone, same = [], True
+        for k in range(GRAPH_ALONE):
+            p1, f1 = estimate_frames(cfg, _seed_traj(traj, k))
+            same &= (torch.equal(f1.gn_iters, frames.gn_iters[k])
+                     and torch.equal(f1.is_calc, frames.is_calc[k]))
+            alone.append(float((p1 - poses[k]).abs().max()))
+        if guard == "full":
+            _require(same and max(alone) <= GRAPH_ATOL,
+                     f"graph seeds alone: {same}, {alone}")
+        print(f"graph batched {GRAPH_SEEDS}x{GRAPH_FRAMES} frames, guard "
+              f"{guard}: {ms:.3f} ms a rollout "
+              f"({GRAPH_SEEDS * GRAPH_FRAMES / ms * 1e3:.4e} seed-frames/s), "
+              f"{passes} GN passes "
+              f"({ms / passes:.3f} ms a pass), {syncs.count} host syncs; "
+              f"repeat bit-equal; seeds 0-{GRAPH_ALONE - 1} alone: is_calc "
+              f"and gn_iters {'equal' if same else 'differ'}, max|dpose| "
+              f"{max(alone):.3e}; "
+              f"{n_away} of {GRAPH_SEEDS} seeds with a "
+              f"position RMSE above 10 m; first {GRAPH_BAND_SEEDS} seeds "
+              f"{_stats_line(band)}: "
+              f"{'; '.join(bad) if bad else 'in the graph band'}; on {smi}",
+              flush=True)
+        # One GN pass of the last frame, profiled: every pass does the same
+        # work.  The whole rollout is profiled with the cheap guard only;
+        # the full guard's looped SVD makes too many events.
+        pairs = upper_pairs(GRAPH_FRAMES + 1, dev)
+        with count_host_syncs() as pass_syncs:
+            gn_iteration(cfg, poses, traj.obs, GRAPH_FRAMES, *pairs)
+        print(f"graph one GN pass of {GRAPH_SEEDS} seeds, guard {guard}: "
+              f"{pass_syncs.count} host syncs inside gn_iteration", flush=True)
+        _profile(f"graph one GN pass {GRAPH_SEEDS} seeds guard {guard}",
+                 lambda: gn_iteration(cfg, poses, traj.obs, GRAPH_FRAMES,
+                                      *pairs), top_n=6)
+        if guard == "cheap":
+            _profile(f"graph batched {GRAPH_SEEDS}x{GRAPH_FRAMES} guard "
+                     f"{guard}", run, top_n=6)
+    n_fast = bands["graph_fast_frames"]
+    cfg = reference_course_config(n_fast)
+    traj, poses, frames = slam_rollout(
+        scene, cfg, torch.Generator(device=dev).manual_seed(5150), n_fast,
+        device=dev, seeds=GRAPH_FAST_SEEDS)
+    stats = _course_stats(cfg, traj, poses, frames)
+    bad = _band_check("graph_fast", stats, bands)
+    _require(not bad, f"graph_fast band: {bad}")
+    print(f"graph batched {GRAPH_FAST_SEEDS}x{n_fast} frames, guard full: "
+          f"{_stats_line(stats)}: in the graph_fast band", flush=True)
+
+
+def _graph_long(dev, smi) -> None:
+    """31. One full-history solve of the course at each GRAPH_LONG length:
+    f32 timed (CUDA events) and held to f64 on the same observations,
+    both calculable."""
+    import torch
+
+    from tpuslam_torch.slam import (SlamSceneConfig, graph_solve,
+                                    reference_course_config, simulate)
+
+    for steps, guard in GRAPH_LONG:
+        cfg = reference_course_config(steps, guard=guard)
+        traj = simulate(SlamSceneConfig(), cfg,
+                        torch.Generator(device=dev).manual_seed(2), steps,
+                        device=dev)
+        out = {}
+        for dtype in (torch.float32, torch.float64):
+            t = _cast_traj(traj, dtype)
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            res = graph_solve(cfg, t.poses_odom, t.obs)
+            end.record()
+            end.synchronize()
+            err = res.poses[:, :2] - t.poses_actu[:, :2]
+            rmse = float(torch.sqrt((err ** 2).sum(-1).mean()))
+            out[dtype] = res
+            print(f"graph solve {steps} steps ({steps + 1} poses), guard "
+                  f"{guard}, {str(dtype)[6:]}: {start.elapsed_time(end):.3f}"
+                  f" ms, is_calc {bool(res.is_calc)}, {int(res.gn_iters)} GN"
+                  f" iterations, delta_sum {float(res.delta_sum):.4e}, cond "
+                  f"{float(res.cond):.4e}, rmse {rmse:.4f} m; on {smi}",
+                  flush=True)
+            _require(bool(res.is_calc), f"graph {steps} {dtype}: not calc")
+        gap = float((out[torch.float32].poses.double()
+                     - out[torch.float64].poses).abs().max())
+        _require(gap <= GRAPH_ATOL, f"graph {steps}: f32 against f64 {gap}")
+        print(f"graph solve {steps} steps: f32 against f64 max|dpose| "
+              f"{gap:.3e} (atol {GRAPH_ATOL})", flush=True)
+
+
+def _graph_phases(dev, smi) -> None:
+    """Dense graph SLAM's phases, in order (no kernel of its own)."""
+    t0 = time.perf_counter()
+    _graph_parity(dev)
+    _graph_batched(dev, smi)
+    _graph_long(dev, smi)
+    print(f"graph phases 28-31: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2078,6 +2366,7 @@ def main() -> int:
     pf_entries, default_fired = _pf_phases(dev, smi)
     pf_entries += _batch_phases(dev, smi)
     pf_entries += _merge_phases(dev, smi, default_fired)
+    _graph_phases(dev, smi)
 
     b, n = FLAGSHIP
     bound_ms, bound_by = _bound(80 * b + 20 * n, EKF_OPS_PER_STEP * b * n,

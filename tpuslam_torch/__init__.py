@@ -1,13 +1,17 @@
-"""tpu-slam-sim's batched EKF and its single-filter, batched and wide
-particle filters in PyTorch, with CUDA kernels.
+"""tpu-slam-sim's batched EKF, its single-filter, batched and wide
+particle filters (with CUDA kernels) and dense graph SLAM, in PyTorch.
 
 A port of the JAX package ``tpuslam`` that mirrors its layout and public
 names; it imports neither JAX nor ``tpuslam``.
 
 Layer map:
-    core/      angle wrap, SE(2) transforms, matmul precision
-    models/    circular process model, observations
+    core/      angle wrap, SE(2) transforms, matmul precision, chi-squared
+               quantiles, error ellipses
+    models/    circular process model, observations, velocity motion
+               model, landmark scan sensor
     filters/   the EKF and the particle filter as plain functions on tensors
+    slam/      dense graph SLAM: edges, H assembly, guarded Gauss-Newton
+               (batched over seeds), the simulated reference course
     metrics/   RMSE / NEES / divergence masks
     ops/       CUDA kernels (csrc/) beside their plain torch versions: the
                EKF rollout, the PF step, the merge resample (boundaries,
@@ -20,6 +24,7 @@ Layer map:
 
 __version__ = "0.1.0"
 
-from tpuslam_torch import core, filters, metrics, models, ops
+from tpuslam_torch import core, filters, metrics, models, ops, slam
 
-__all__ = ["core", "filters", "metrics", "models", "ops", "__version__"]
+__all__ = ["core", "filters", "metrics", "models", "ops", "slam",
+           "__version__"]

@@ -2,9 +2,11 @@
 
 The system has no weights: what a run carries is its config and its
 state (:class:`~tpuslam_torch.filters.EkfState`,
-:class:`~tpuslam_torch.filters.PfState`, and the batched filters'
+:class:`~tpuslam_torch.filters.PfState`, the batched filters'
 :class:`~tpuslam_torch.ops.pf_batch_cuda.PfBatchState` and
-:class:`~tpuslam_torch.ops.pf_batch_cuda.PfBatchWideState`).  These
+:class:`~tpuslam_torch.ops.pf_batch_cuda.PfBatchWideState`, and graph
+SLAM's :class:`~tpuslam_torch.slam.GraphObservations` and
+:class:`~tpuslam_torch.slam.SlamTrajectory`).  These
 helpers read any object with the right fields (the JAX package's configs
 and states are such objects) without importing that package, and
 exchange state as numpy arrays.
@@ -27,15 +29,25 @@ import torch
 
 from tpuslam_torch.filters.ekf import EkfConfig, EkfState
 from tpuslam_torch.filters.pf import PfConfig, PfState
+from tpuslam_torch.models.motion import MotionConfig
+from tpuslam_torch.models.scan_sensor import ScanConfig
 from tpuslam_torch.ops.pf_batch_cuda import PfBatchState, PfBatchWideState
+from tpuslam_torch.slam.frontend import SlamSceneConfig, SlamTrajectory
+from tpuslam_torch.slam.graph import GraphConfig, GraphObservations
 
 
-def _config_from(cls, obj):
+def _config_from(cls, obj, **nested):
+    """``cls`` with the field values of ``obj``; ``nested`` maps a field
+    holding a config to the function that carries that config across."""
     values = {}
     for field in dataclasses.fields(cls):
         value = getattr(obj, field.name)
-        values[field.name] = (tuple(value) if isinstance(value, (list, tuple))
-                              else value)
+        if field.name in nested:
+            value = nested[field.name](value)
+        elif isinstance(value, (list, tuple)):
+            value = tuple(tuple(v) if isinstance(v, (list, tuple)) else v
+                          for v in value)
+        values[field.name] = value
     return cls(**values)
 
 
@@ -47,6 +59,53 @@ def ekf_config_from(obj) -> EkfConfig:
 def pf_config_from(obj) -> PfConfig:
     """The port's :class:`PfConfig` with the field values of ``obj``."""
     return _config_from(PfConfig, obj)
+
+
+def motion_config_from(obj) -> MotionConfig:
+    """The port's :class:`MotionConfig` with the field values of ``obj``."""
+    return _config_from(MotionConfig, obj)
+
+
+def scan_config_from(obj) -> ScanConfig:
+    """The port's :class:`ScanConfig` with the field values of ``obj``."""
+    return _config_from(ScanConfig, obj)
+
+
+def graph_config_from(obj) -> GraphConfig:
+    """The port's :class:`GraphConfig` with the field values of ``obj``,
+    its ``scan`` carried across too."""
+    return _config_from(GraphConfig, obj, scan=scan_config_from)
+
+
+def slam_scene_config_from(obj) -> SlamSceneConfig:
+    """The port's :class:`SlamSceneConfig` with the field values of
+    ``obj``, its ``motion`` carried across too."""
+    return _config_from(SlamSceneConfig, obj, motion=motion_config_from)
+
+
+def graph_observations_from_numpy(obs, *, device: torch.device | str
+                                  ) -> GraphObservations:
+    """:class:`GraphObservations` on ``device`` from any object with
+    array-like ``dist``, ``bearing``, ``orient`` and ``valid`` fields, in
+    the arrays' own dtype (``valid`` as bool)."""
+    def t(name, dtype=None):
+        a = np.asarray(getattr(obs, name))
+        return torch.tensor(a if dtype is None else a.astype(dtype),
+                            device=device)
+
+    return GraphObservations(t("dist"), t("bearing"), t("orient"),
+                             t("valid", bool))
+
+
+def slam_trajectory_from_numpy(traj, *, device: torch.device | str
+                               ) -> SlamTrajectory:
+    """A :class:`SlamTrajectory` on ``device`` from any object with the
+    fields of one (the JAX package's ``simulate`` output)."""
+    return SlamTrajectory(
+        poses_actu=torch.tensor(np.asarray(traj.poses_actu), device=device),
+        poses_odom=torch.tensor(np.asarray(traj.poses_odom), device=device),
+        obs=graph_observations_from_numpy(traj.obs, device=device),
+        obs_true=graph_observations_from_numpy(traj.obs_true, device=device))
 
 
 def _state_from_numpy(cls, state, device):
