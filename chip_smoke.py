@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths once on one CUDA card: the batched
 EKF, the single-filter, batched and wide particle filters, the merge
-resample's compressed path, and dense graph SLAM.
+resample's compressed path, and dense and large-scale graph SLAM.
 
 Run from the repository root with no arguments::
 
@@ -24,8 +24,20 @@ timed outputs to the plain versions' or to their bands.  Then it runs
 dense graph SLAM, which has no hand-written kernel: the reference course
 (18 frames, 9 landmarks) in float32 against float64 and against the CPU,
 1024 seeds of it batched with each guard (timed, profiled, its statistics
-held to the reference's bands, and repeated bit for bit), and one
-full-history solve of 400 and of 1000 steps.  Each phase
+held to the reference's bands, and repeated bit for bit: at 256 seeds
+with the full guard), and one full-history solve of 400 and of 1000
+steps.  Then large-scale graph SLAM, which has no hand-written kernel
+either (phases 32-35): a 200-pose scene solved in float32 on the card
+against float64 on the CPU on each solver path (the tridiagonal Thomas
+solver with factor reuse, one-shot, with ``refactor_every`` 1 and 3, and
+CG), the end-to-end test's scene held to its RMSE bound, the staged
+Thomas solves bit for bit against the one-shot ones; ``bench.py``'s
+``bench_graph_large`` at 10k poses / 1k landmarks, 100k / 1k and 1M /
+100 (the scene and the edge build timed apart, the device edge build
+against the host's, the solve timed with its host syncs counted, repeats
+bit for bit, float64 at 10k, the Thomas factor and one GN iteration timed
+apart with the host clock a chain step, a profile of each at 10k); and
+one CG solve at 10k with its host syncs.  Each phase
 prints one line; a failing phase raises, so
 the script exits non-zero and prints no result.  The second-to-last
 line is a JSON object describing each kernel; the last line is
@@ -150,6 +162,7 @@ WIDE_STEP_FRAC = 0.08
 # solves: 400 steps with the full guard, 1000 with the cheap one.
 GRAPH_FRAMES = 18
 GRAPH_SEEDS = 1024
+GRAPH_REPEAT_SEEDS = 256
 GRAPH_BAND_SEEDS = 100
 GRAPH_FAST_SEEDS = 64
 GRAPH_ALONE = 4
@@ -157,6 +170,58 @@ GRAPH_ATOL = 2e-2
 GRAPH_LONG = ((400, "full"), (1000, "cheap"))
 BANDS_FILE = (pathlib.Path(__file__).resolve().parent / "tests" / "fixtures"
               / "ref_distributions.json")
+# Large-scale graph SLAM (bench.py:191-240, bench_graph_large), its config
+# copied: BASELINE config 5, 10k poses / 1k landmarks (bench.py:621), and
+# the scale-ups 100k / 1k (:631) and 1M / 100 (:641): window = band =
+# super-block 40, course radius radius_frac x poses, odometry noise 0.1, 10
+# GN iterations, exact Jacobians, odom_info (100, 100, 100), the tridiag
+# solver with factor reuse, stall_ratio 0.5, delta_tol 1e-6 x poses; the
+# scan in chunks of 10,000 poses past 10k.  Each row: poses, landmarks,
+# scan_chunk, radius_frac.
+LARGE_SIZES = ((10_000, 1000, None, 0.3), (100_000, 1000, 10_000, 0.3),
+               (1_000_000, 100, 10_000, 0.05))
+LARGE_WINDOW = 40
+LARGE_ODOM_NOISE = 0.1
+LARGE_ODOM_INFO = (100.0, 100.0, 100.0)
+LARGE_STALL = 0.5
+LARGE_TOL_PER_POSE = 1e-6
+LARGE_REPS = 3
+# The 10k solve against the port's float64 solve on the card: position
+# and yaw.
+LARGE_F64_ATOL = (1e-3, 1e-4)
+# RMSE against truth over the odometry's: TestLargeSceneEndToEnd's scene
+# (phase 32) is held below 0.7, as that test holds it.  At the bench's
+# config the ratio is only printed: its stall_ratio stops GN after a few
+# iterations, short of convergence, and its landmarks (a few sightings
+# each, no loop closure) add little to odometry of 0.1 a step, so the
+# JAX package's own ratio there is near 1, on either side of it
+# (tests/test_torch_slam_large.py::TestBenchConfig).  What GN must do
+# there is lower its objective (frozen Omega): held at every size.
+LARGE_RMSE_RATIO = 0.7
+LARGE_E2E_DRAWS = BANDS_FILE.parent / "large_scene_key0.npz"
+# The Thomas factor's least time a super-block of m = 3 x 40 scalars:
+# about 5.7 m^3 float32 operations (the Schur update's two products, the
+# Cholesky, the triangular inverse and the Gram product, the triangular
+# structure taken into account) and 3 m^2 float32 words written (S^-1, W
+# and the coupling block kept for the substitution).  The chain is
+# sequential: reaching this bound would take the parallel work a step
+# does not have.
+THOMAS_OPS_PER_M3 = 5.7
+# Phase 32: TestLargeSceneEndToEnd's scene (poses, landmarks, radius,
+# odometry noise, window), float32 on the card against float64 on the
+# CPU.  The tridiag runs stop at delta_tol 1e-2 x poses, above the float32
+# solve's noise (a first step of ||dx||^2 ~ 1e4 leaves ~1e-2 of float32
+# noise in the second), so both precisions stop at the same iteration.
+# Float32 CG needs about 300 iterations on this system (the 1e4 anchor
+# makes it stiff): with the default 200 its poses part from float64's by
+# up to 2e-2, so the CG run takes 1000 and a fixed LARGE_SMALL_CG_GN
+# iterations (delta_tol 0), and the poses are what it holds.
+LARGE_SMALL = (200, 40, 60.0, 0.3, 30)
+LARGE_SMALL_TOL = 1e-2
+LARGE_SMALL_CG = 1000
+LARGE_SMALL_CG_GN = 4
+LARGE_SMALL_ATOL = 1e-3
+
 # tests/test_distributional.py's check: means within K_SIGMA combined
 # standard errors, spreads within a factor STD_RATIO.
 K_SIGMA = 8.0
@@ -2037,7 +2102,9 @@ def _stats_line(stats: dict) -> str:
 def _graph_batched(dev, smi) -> None:
     """29-30. The reference course over GRAPH_SEEDS seeds in one batch,
     with each guard: a warm-up call and a timed one (CUDA events around
-    the whole rollout), which must agree bit for bit; GN passes and host
+    the whole rollout), which must agree bit for bit (with the full
+    guard the warm-up and a repeat run at GRAPH_REPEAT_SEEDS and agree
+    bit for bit, and the timed call alone runs GRAPH_SEEDS); GN passes and host
     syncs of the timed call; the first seeds solved alone, which must
     iterate as in the batch; one GN pass profiled (and, with the cheap
     guard, the whole rollout); the statistics against the
@@ -2057,12 +2124,22 @@ def _graph_batched(dev, smi) -> None:
     for guard in ("full", "cheap"):
         cfg = reference_course_config(GRAPH_FRAMES, guard=guard)
 
-        def run(cfg=cfg):
+        def run(cfg=cfg, seeds=GRAPH_SEEDS):
             return slam_rollout(scene, cfg,
                                 torch.Generator(device=dev).manual_seed(2026),
-                                GRAPH_FRAMES, device=dev, seeds=GRAPH_SEEDS)
+                                GRAPH_FRAMES, device=dev, seeds=seeds)
 
-        first = run()
+        # The warm-up doubles as the repeat check; with the full guard
+        # both run at GRAPH_REPEAT_SEEDS (the looped SVD makes a
+        # 1024-seed rollout take about 105 s) and the timed call alone
+        # keeps GRAPH_SEEDS.
+        n_repeat = GRAPH_REPEAT_SEEDS if guard == "full" else GRAPH_SEEDS
+        first = run(seeds=n_repeat)
+        if n_repeat != GRAPH_SEEDS:
+            again = run(seeds=n_repeat)
+            _require(torch.equal(first[1], again[1])
+                     and torch.equal(first[2].gn_iters, again[2].gn_iters),
+                     f"graph {guard}: a repeat run changed the poses")
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -2072,9 +2149,10 @@ def _graph_batched(dev, smi) -> None:
             end.record()
         end.synchronize()
         ms = start.elapsed_time(end)
-        _require(torch.equal(first[1], poses)
-                 and torch.equal(first[2].gn_iters, frames.gn_iters),
-                 f"graph {guard}: a repeat run changed the poses")
+        if n_repeat == GRAPH_SEEDS:
+            _require(torch.equal(first[1], poses)
+                     and torch.equal(first[2].gn_iters, frames.gn_iters),
+                     f"graph {guard}: a repeat run changed the poses")
         passes = int(frames.gn_iters.amax(dim=0).sum())
         stats = _course_stats(cfg, traj, poses, frames)
         band = {k: v[:GRAPH_BAND_SEEDS] for k, v in stats.items()}
@@ -2102,7 +2180,8 @@ def _graph_batched(dev, smi) -> None:
               f"({GRAPH_SEEDS * GRAPH_FRAMES / ms * 1e3:.4e} seed-frames/s), "
               f"{passes} GN passes "
               f"({ms / passes:.3f} ms a pass), {syncs.count} host syncs; "
-              f"repeat bit-equal; seeds 0-{GRAPH_ALONE - 1} alone: is_calc "
+              f"repeat at {n_repeat} seeds bit-equal; seeds "
+              f"0-{GRAPH_ALONE - 1} alone: is_calc "
               f"and gn_iters {'equal' if same else 'differ'}, max|dpose| "
               f"{max(alone):.3e}; "
               f"{n_away} of {GRAPH_SEEDS} seeds with a "
@@ -2184,6 +2263,375 @@ def _graph_phases(dev, smi) -> None:
     _graph_batched(dev, smi)
     _graph_long(dev, smi)
     print(f"graph phases 28-31: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
+def _large_cfg(n_poses: int, n_landmarks: int, max_gn_iters: int = 10):
+    """``bench_graph_large``'s GraphConfig (bench.py:206-211)."""
+    from tpuslam_torch.models.scan_sensor import ScanConfig
+    from tpuslam_torch.slam import GraphConfig
+
+    return GraphConfig(
+        max_times=n_poses, num_landmarks=n_landmarks,
+        max_gn_iters=max_gn_iters,
+        scan=ScanConfig(range_m=15.0, angle_rad=math.radians(80.0),
+                        dist_gain=0.05, dir_sigma=math.radians(2.0),
+                        orient_sigma=math.radians(2.0)),
+        exact_jacobians=True)
+
+
+def _rel_odom(poses):
+    """Odometry deltas of a pose track, the yaw wrapped."""
+    import torch
+
+    from tpuslam_torch.core import wrap_angle
+
+    rel = poses[1:] - poses[:-1]
+    return torch.cat([rel[:, :2], wrap_angle(rel[:, 2:3])], dim=1)
+
+
+def _pos_rmse(poses, truth) -> float:
+    return float(((poses[:, :2] - truth[:, :2]) ** 2).sum(-1).mean().sqrt())
+
+
+def _large_system(cfg, poses, obs, edges, band: int, rel_odom, odom_info):
+    """The reuse path's pieces (``slam/large.py``'s own): the constant H
+    (frozen Omega, exact Jacobians, the odometry chain) and ``rhs(poses)``,
+    one GN iteration's rhs rebuild."""
+    from tpuslam_torch.slam import large
+
+    t1 = poses.shape[0]
+    scatter = large.build_banded_scatter(edges, t1, band)
+    om, rel_obs, mask = large.exact_edge_terms(cfg, obs, edges, poses)
+    h_flat, _ = large._constant_h(cfg, poses, om, mask, edges, t1, band,
+                                  rel_odom, odom_info, 0.0, scatter)
+
+    def rhs(p):
+        return large._rhs(p, om, rel_obs, edges, t1, rel_odom, odom_info,
+                          scatter)
+
+    return h_flat, rhs
+
+
+def _large_cost(cfg, poses, poses_init, obs, edges, rel_odom) -> float:
+    """The GN objective the reuse path minimises: the edges' squared
+    residuals weighted by Omega frozen at ``poses_init``, plus the
+    odometry chain's (float64 sums)."""
+    import torch
+
+    from tpuslam_torch.core import wrap_angle
+    from tpuslam_torch.slam.large import exact_edge_terms
+
+    om, rel_obs, _ = exact_edge_terms(cfg, obs, edges, poses_init)
+    rel = poses[edges.t_a] - poses[edges.t_b]
+    err = torch.stack([rel[:, 0] - rel_obs[:, 0], rel[:, 1] - rel_obs[:, 1],
+                       wrap_angle(wrap_angle(rel[:, 2]) - rel_obs[:, 2])],
+                      dim=-1).double()
+    odo = poses[1:] - poses[:-1] - rel_odom
+    odo = torch.cat([odo[:, :2], wrap_angle(odo[:, 2:3])], dim=1).double()
+    info = torch.tensor(LARGE_ODOM_INFO, dtype=torch.float64,
+                        device=poses.device)
+    return float(torch.einsum("ei,eij,ej->", err, om.double(), err)
+                 + (odo * odo * info).sum())
+
+
+def _large_small(dev) -> None:
+    """32. TestLargeSceneEndToEnd's 200-pose scene from the port's
+    ``make_large_scene`` on the card: the tridiag solver with factor
+    reuse, one-shot, with ``refactor_every`` 1 and 3, and CG, in float32
+    on the card against the same calls in float64 on the CPU (equal
+    ``gn_iters``, poses within LARGE_SMALL_ATOL); then the staged solves
+    against the one-shot ones on the card, bit for bit."""
+    import torch
+
+    import numpy as np
+
+    from tpuslam_torch.slam import (EdgeList, GraphObservations,
+                                    graph_solve_banded, make_large_scene,
+                                    make_large_scene_with_noise,
+                                    window_pairs)
+    from tpuslam_torch.slam.tridiag import (band_to_tridiag,
+                                            banded_factor_tridiag_flat,
+                                            banded_resolve_tridiag_flat,
+                                            banded_solve_tridiag_flat,
+                                            block_thomas_factor,
+                                            block_thomas_solve,
+                                            block_thomas_substitute,
+                                            jacobi_prescale, pad_band)
+
+    n, lms, radius, noise, w = LARGE_SMALL
+    info = (1 / noise ** 2,) * 3
+    cfg = _large_cfg(n, lms, max_gn_iters=20)
+    pt, po, obs = make_large_scene(cfg, _gen(dev, 11), n, lms,
+                                   radius=radius, odom_noise=noise,
+                                   device=dev)
+    el = window_pairs(obs.valid, window=w)
+    cpu = (po.double().cpu(),
+           GraphObservations(*(t.double().cpu() for t in obs[:3]),
+                             obs.valid.cpu()),
+           EdgeList(*(t.cpu() for t in el)))
+    tol = dict(delta_tol=LARGE_SMALL_TOL * n)
+    runs = {
+        "tridiag, factor reuse": dict(solver="tridiag", **tol),
+        "tridiag, one-shot": dict(solver="tridiag",
+                                  reuse_factorization=False, **tol),
+        "refactor_every=1": dict(solver="tridiag", relinearize_omega=True,
+                                 refactor_every=1, **tol),
+        "refactor_every=3": dict(solver="tridiag", relinearize_omega=True,
+                                 refactor_every=3, **tol),
+        "cg": dict(solver="cg", cg_iters=LARGE_SMALL_CG, delta_tol=0.0),
+    }
+    lines = []
+    for name, kw in runs.items():
+        c = (_large_cfg(n, lms, max_gn_iters=LARGE_SMALL_CG_GN)
+             if name == "cg" else cfg)
+        r32 = graph_solve_banded(c, po, obs, el, band=w,
+                                 rel_odom=_rel_odom(po), odom_info=info,
+                                 **kw)
+        r64 = graph_solve_banded(c, *cpu, band=w,
+                                 rel_odom=_rel_odom(cpu[0]), odom_info=info,
+                                 **kw)
+        gap = float((r32.poses.double().cpu() - r64.poses).abs().max())
+        it32, it64 = int(r32.gn_iters), int(r64.gn_iters)
+        _require(bool(r32.poses.isfinite().all()) and it32 == it64
+                 and gap <= LARGE_SMALL_ATOL,
+                 f"large {name}: gn_iters {it32}/{it64}, max|dpose| {gap}")
+        cg32, cg64 = int(r32.cg_iters_last), int(r64.cg_iters_last)
+        lines.append(f"{name} {it32} GN iterations (cg {cg32}/{cg64}), "
+                     f"max|dpose| {gap:.3e}, "
+                     f"rmse {_pos_rmse(r32.poses, pt):.4f} m")
+    print(f"large parity, {n} poses / {lms} landmarks, window {w}, f32 on "
+          f"the card against f64 on the CPU (atol {LARGE_SMALL_ATOL}; odometry"
+          f" rmse {_pos_rmse(po, pt):.4f} m): " + "; ".join(lines), flush=True)
+
+    # TestLargeSceneEndToEnd itself: the JAX package's scene (key 0),
+    # rebuilt on the card from its draws, and the test's call.
+    with np.load(LARGE_E2E_DRAWS) as f:
+        draws = [torch.from_numpy(f[k]).to(dev) for k in
+                 ("lm_offsets", "lm_perm", "scan_normals", "odom_normals")]
+    e2e_pt, e2e_po, e2e_obs = make_large_scene_with_noise(
+        cfg, n, lms, *draws, radius=radius, odom_noise=noise)
+    res = graph_solve_banded(
+        cfg, e2e_po, e2e_obs, window_pairs(e2e_obs.valid, window=w), band=w,
+        rel_odom=_rel_odom(e2e_po), odom_info=info)
+    rmse = _pos_rmse(res.poses, e2e_pt)
+    rmse_odo = _pos_rmse(e2e_po, e2e_pt)
+    _require(rmse < LARGE_RMSE_RATIO * rmse_odo,
+             f"large end to end: rmse {rmse} against odometry's {rmse_odo}")
+    print(f"large end to end (TestLargeSceneEndToEnd's scene and call, CG): "
+          f"{int(res.gn_iters)} GN iterations, rmse {rmse:.4f} m against "
+          f"odometry's {rmse_odo:.4f} m (ratio {rmse / rmse_odo:.4f}, below "
+          f"{LARGE_RMSE_RATIO})", flush=True)
+
+    # The staged solves equal the one-shot ones bit for bit on the card.
+    h_flat, rhs = _large_system(cfg, po, obs, el, w, _rel_odom(po), info)
+    b_flat = -rhs(po)
+    fac = banded_factor_tridiag_flat(h_flat, w, w)
+    flat_equal = torch.equal(banded_resolve_tridiag_flat(fac, b_flat, w),
+                             banded_solve_tridiag_flat(h_flat, b_flat, w))
+    h_band = h_flat.reshape(w + 1, 9, n).transpose(1, 2).reshape(
+        w + 1, n, 3, 3)
+    h_band, b_pad = pad_band(h_band, b_flat.T, w)
+    diag, upper = band_to_tridiag(jacobi_prescale(h_band, b_pad)[0], w)
+    gen = _gen(dev, 12)
+    rows = torch.randn((diag.shape[0], diag.shape[1]), generator=gen,
+                       device=dev)
+    rows4 = torch.randn((diag.shape[0], 4, diag.shape[1]), generator=gen,
+                        device=dev)
+    thomas = block_thomas_factor(diag, upper)
+    thomas_equal = all(
+        torch.equal(block_thomas_substitute(thomas, b),
+                    block_thomas_solve(diag, upper, b)) for b in (rows, rows4))
+    _require(flat_equal and thomas_equal,
+             f"large staged solves: flat {flat_equal}, Thomas {thomas_equal}")
+    print(f"large staged solves on the card, {diag.shape[0]} super-blocks of "
+          f"{diag.shape[1]}: factor then resolve equals the one-shot flat "
+          f"solve, factor then substitute equals block_thomas_solve (1 and 4 "
+          f"right-hand sides), bit for bit", flush=True)
+
+
+def _events_ms(call):
+    """``(result, host ms until the call returns, device ms, host syncs)``
+    of one call: CUDA events around it, the host clock until it returns,
+    and the synchronisations made inside it (``utils.count_host_syncs``;
+    none is added around it)."""
+    import torch
+
+    from tpuslam_torch.utils import count_host_syncs
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    with count_host_syncs() as syncs:
+        t0 = time.perf_counter()
+        out = call()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    end.synchronize()
+    return out, host_ms, start.elapsed_time(end), syncs.count
+
+
+def _large_run(dev, smi, n, lms, chunk, radius_frac, main: bool) -> dict:
+    """33-34. One of bench_graph_large's sizes: the scene and the host
+    edge build timed apart, then the solve: one warm-up and LARGE_REPS
+    timed calls at 10k (the main path: the device edge build checked
+    against the host's, every repeat bit-equal to the warm-up, one GN
+    iteration and the factor profiled), one at the scale-ups; host syncs
+    of a timed call; then the factor and one GN iteration (rhs rebuild
+    and substitution) timed apart, with the host clock a chain step."""
+    import torch
+
+    from tpuslam_torch.core import wrap_angle
+    from tpuslam_torch.slam import (GraphObservations, count_window_pairs,
+                                    graph_solve_banded, make_large_scene,
+                                    window_pairs, window_pairs_device)
+    from tpuslam_torch.slam.tridiag import (banded_factor_tridiag_flat,
+                                            banded_resolve_tridiag_flat)
+
+    w = LARGE_WINDOW
+    label = f"large {n} poses / {lms} landmarks"
+    cfg = _large_cfg(n, lms)
+    (pt, po, obs), _, scene_ms, _ = _events_ms(lambda: make_large_scene(
+        cfg, _gen(dev, 0), n, lms, radius=radius_frac * n,
+        odom_noise=LARGE_ODOM_NOISE, scan_chunk=chunk, device=dev))
+    el, _, edges_ms, _ = _events_ms(lambda: window_pairs(obs.valid, window=w))
+    n_edges = el.t_b.shape[0]
+    dev_line = ""
+    if main:
+        n_exact = count_window_pairs(obs.valid, w)
+        (el_d, count), _, dev_ms, _ = _events_ms(
+            lambda: window_pairs_device(obs.valid, w, n_exact))
+
+        def keys(e):
+            k = (e.t_b * n + e.t_a) * lms + e.lm
+            return torch.where(e.valid, k, -1).sort().values
+
+        same = (int(count) == n_exact == n_edges
+                and torch.equal(keys(el_d), keys(el)))
+        _require(same, f"{label}: the device edge build differs from the "
+                 f"host's ({int(count)}, {n_exact}, {n_edges})")
+        dev_line = (f", device build {dev_ms:.3f} ms (the same edge set, "
+                    f"count {int(count)})")
+    print(f"{label}: scene {scene_ms:.3f} ms, host edge build "
+          f"{edges_ms:.3f} ms ({n_edges} edges){dev_line}; on {smi}",
+          flush=True)
+
+    rel = _rel_odom(po)
+
+    def solve():
+        return graph_solve_banded(
+            cfg, po, obs, el, band=w, rel_odom=rel, odom_info=LARGE_ODOM_INFO,
+            solver="tridiag", stall_ratio=LARGE_STALL,
+            delta_tol=LARGE_TOL_PER_POSE * n)
+
+    first = solve()
+    times, syncs = [], []
+    torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(LARGE_REPS if main else 1):
+        res, _, ms, n_syncs = _events_ms(solve)
+        times.append(ms)
+        syncs.append(n_syncs)
+        _require(torch.equal(res.poses, first.poses)
+                 and int(res.gn_iters) == int(first.gn_iters),
+                 f"{label}: a repeat solve changed the poses")
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    iters = int(res.gn_iters)
+    rmse, rmse_odo = _pos_rmse(res.poses, pt), _pos_rmse(po, pt)
+    _require(bool(res.poses.isfinite().all()), f"{label}: non-finite poses")
+    _require(max(syncs) <= iters + 2,
+             f"{label}: {syncs} host syncs for {iters} GN iterations")
+    cost0 = _large_cost(cfg, po, po, obs, el, rel)
+    cost = _large_cost(cfg, res.poses, po, obs, el, rel)
+    _require(cost < cost0, f"{label}: GN objective {cost} from {cost0}")
+    f64_line = ""
+    if main:
+        # The same solve in float64 on the card.
+        obs64 = GraphObservations(*(t.double() for t in obs[:3]), obs.valid)
+        res64 = graph_solve_banded(
+            cfg, po.double(), obs64, el, band=w,
+            rel_odom=_rel_odom(po.double()), odom_info=LARGE_ODOM_INFO,
+            solver="tridiag", stall_ratio=LARGE_STALL,
+            delta_tol=LARGE_TOL_PER_POSE * n)
+        gap = res.poses.double() - res64.poses
+        gap_xy = float(gap[:, :2].abs().max())
+        gap_yaw = float(wrap_angle(gap[:, 2]).abs().max())
+        _require(gap_xy <= LARGE_F64_ATOL[0] and gap_yaw <= LARGE_F64_ATOL[1],
+                 f"{label}: f32 against f64 {gap_xy} m, {gap_yaw} rad")
+        f64_line = (f"; against f64 on the card ({int(res64.gn_iters)} GN "
+                    f"iterations): max|dxy| {gap_xy:.3e} m, max|dyaw| "
+                    f"{gap_yaw:.3e} rad")
+    ms = sorted(times)[len(times) // 2]
+    print(f"{label}: solve {ms:.3f} ms (median of {len(times)}: "
+          f"{', '.join(f'{t:.3f}' for t in times)}), {iters} GN iterations, "
+          f"delta_sum {float(res.delta_sum):.4e}, host syncs {syncs}, "
+          f"repeats bit-equal, rmse {rmse:.4f} m against odometry's "
+          f"{rmse_odo:.4f} m (ratio {rmse / rmse_odo:.4f}), objective "
+          f"{cost:.6e} from the odometry's {cost0:.6e}, peak memory "
+          f"{peak_gib:.2f} GiB{f64_line}; on {smi}", flush=True)
+
+    # The factor and one GN iteration of the reuse path, apart.
+    steps = -(-n // w)
+    h_flat, rhs = _large_system(cfg, po, obs, el, w, rel, LARGE_ODOM_INFO)
+    fac, f_host, f_ms, f_syncs = _events_ms(
+        lambda: banded_factor_tridiag_flat(h_flat, w, w))
+
+    def iteration():
+        return banded_resolve_tridiag_flat(fac, -rhs(po), w)
+
+    _, s_host, s_ms, s_syncs = _events_ms(iteration)
+    _require(f_syncs == 0 and s_syncs == 0,
+             f"{label}: the chain synchronised ({f_syncs}, {s_syncs})")
+    m = 3 * w
+    bound_ms, bound_by = _bound(steps * 3 * m * m * 4,
+                                steps * THOMAS_OPS_PER_M3 * m ** 3)
+    print(f"{label}: Thomas factor {f_ms:.3f} ms ({steps} super-blocks of "
+          f"{m}: {1e3 * f_ms / steps:.2f} us of device and "
+          f"{1e3 * f_host / steps:.2f} us of host a step; bound "
+          f"{bound_ms:.4f} ms, {bound_by}, for work in parallel that the "
+          f"sequential chain does not have), one GN iteration "
+          f"(rhs rebuild + substitution) {s_ms:.3f} ms "
+          f"({1e3 * s_ms / steps:.2f} us of device and "
+          f"{1e3 * s_host / steps:.2f} us of host a super-block, two "
+          f"passes); no host sync in either; on {smi}",
+          flush=True)
+    if main:
+        _profile(f"{label} Thomas factor",
+                 lambda: banded_factor_tridiag_flat(h_flat, w, w), top_n=6)
+        _profile(f"{label} one GN iteration", iteration, top_n=6)
+    return {"h_flat": h_flat, "b_flat": -rhs(po), "iters": iters}
+
+
+def _large_cg(dev, system) -> None:
+    """35. One ``cg_solve_flat`` on phase 33's 10k system: its iterations,
+    time and host syncs (at most ceil(iters / CHECK_EVERY) + 2)."""
+    from tpuslam_torch.core.pcg import CHECK_EVERY
+    from tpuslam_torch.slam.large import cg_solve_flat
+
+    (x, iters), _, ms, syncs = _events_ms(lambda: cg_solve_flat(
+        system["h_flat"], system["b_flat"], LARGE_WINDOW))
+    iters = int(iters)
+    bound = -(-iters // CHECK_EVERY) + 2
+    _require(bool(x.isfinite().all()), "large cg: non-finite solution")
+    _require(syncs <= bound,
+             f"large cg: {syncs} host syncs for {iters} iterations")
+    print(f"large cg_solve_flat at {LARGE_SIZES[0][0]} poses: {iters} "
+          f"iterations in {ms:.3f} ms, {syncs} host syncs (at most "
+          f"{bound}: one read every {CHECK_EVERY} iterations)", flush=True)
+
+
+def _large_phases(dev, smi) -> None:
+    """Large-scale graph SLAM's phases, in order (no kernel of its
+    own)."""
+    t0 = time.perf_counter()
+    _large_small(dev)
+    system = None
+    for k, (n, lms, chunk, radius_frac) in enumerate(LARGE_SIZES):
+        out = _large_run(dev, smi, n, lms, chunk, radius_frac, main=k == 0)
+        if k == 0:
+            system = out
+    _large_cg(dev, system)
+    print(f"large phases 32-35: {time.perf_counter() - t0:.1f} s",
           flush=True)
 
 
@@ -2367,6 +2815,7 @@ def main() -> int:
     pf_entries += _batch_phases(dev, smi)
     pf_entries += _merge_phases(dev, smi, default_fired)
     _graph_phases(dev, smi)
+    _large_phases(dev, smi)
 
     b, n = FLAGSHIP
     bound_ms, bound_by = _bound(80 * b + 20 * n, EKF_OPS_PER_STEP * b * n,

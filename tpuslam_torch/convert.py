@@ -4,9 +4,11 @@ The system has no weights: what a run carries is its config and its
 state (:class:`~tpuslam_torch.filters.EkfState`,
 :class:`~tpuslam_torch.filters.PfState`, the batched filters'
 :class:`~tpuslam_torch.ops.pf_batch_cuda.PfBatchState` and
-:class:`~tpuslam_torch.ops.pf_batch_cuda.PfBatchWideState`, and graph
+:class:`~tpuslam_torch.ops.pf_batch_cuda.PfBatchWideState`, graph
 SLAM's :class:`~tpuslam_torch.slam.GraphObservations` and
-:class:`~tpuslam_torch.slam.SlamTrajectory`).  These
+:class:`~tpuslam_torch.slam.SlamTrajectory`, and the large-scale path's
+:class:`~tpuslam_torch.slam.EdgeList` and
+:class:`~tpuslam_torch.slam.BandedSolveResult`).  These
 helpers read any object with the right fields (the JAX package's configs
 and states are such objects) without importing that package, and
 exchange state as numpy arrays.
@@ -34,6 +36,7 @@ from tpuslam_torch.models.scan_sensor import ScanConfig
 from tpuslam_torch.ops.pf_batch_cuda import PfBatchState, PfBatchWideState
 from tpuslam_torch.slam.frontend import SlamSceneConfig, SlamTrajectory
 from tpuslam_torch.slam.graph import GraphConfig, GraphObservations
+from tpuslam_torch.slam.large import BandedSolveResult, EdgeList
 
 
 def _config_from(cls, obj, **nested):
@@ -106,6 +109,24 @@ def slam_trajectory_from_numpy(traj, *, device: torch.device | str
         poses_odom=torch.tensor(np.asarray(traj.poses_odom), device=device),
         obs=graph_observations_from_numpy(traj.obs, device=device),
         obs_true=graph_observations_from_numpy(traj.obs_true, device=device))
+
+
+def edge_list_from_numpy(edges, *, device: torch.device | str) -> EdgeList:
+    """An :class:`EdgeList` on ``device`` from any object with array-like
+    ``t_b``, ``t_a``, ``lm`` (as int64) and ``valid`` (as bool) fields
+    (the JAX package's ``window_pairs`` output)."""
+    def t(name, dtype):
+        return torch.tensor(np.asarray(getattr(edges, name)).astype(dtype),
+                            device=device)
+
+    return EdgeList(t("t_b", np.int64), t("t_a", np.int64),
+                    t("lm", np.int64), t("valid", bool))
+
+
+def banded_result_to_numpy(res: BandedSolveResult) -> BandedSolveResult:
+    """The same :class:`BandedSolveResult` with each field a numpy
+    array."""
+    return BandedSolveResult(*(t.detach().cpu().numpy() for t in res))
 
 
 def _state_from_numpy(cls, state, device):
