@@ -37,7 +37,18 @@ Thomas solves bit for bit against the one-shot ones; ``bench.py``'s
 against the host's, the solve timed with its host syncs counted, repeats
 bit for bit, float64 at 10k, the Thomas factor and one GN iteration timed
 apart with the host clock a chain step, a profile of each at 10k); and
-one CG solve at 10k with its host syncs.  Each phase
+one CG solve at 10k with its host syncs.  Then the other banded solvers
+(phases 36-38): on the 200-pose scene, the GN with cyclic reduction, with
+the banded Cholesky and with the partitioned Thomas factor (2 and 5
+chunks) in float32 on the card against float64 on the CPU, CR against
+Thomas on random blocks and the partitioned solves against the
+sequential ones in float64; at each of the three sizes, on its H, the
+CR one-shot solve against the Thomas one-shot solve (timed, its repeats
+bit for bit and its gap to float64 at 10k, one solve profiled with its
+launches a level, and a level's SPD solve in its two forms), the
+partitioned factor and resolve at 8, 32 and 128 chunks, and the GN with
+CR and with the best chunk count, held to the Thomas path's poses; and
+one banded Cholesky solve at 10k.  Each phase
 prints one line; a failing phase raises, so
 the script exits non-zero and prints no result.  The second-to-last
 line is a JSON object describing each kernel; the last line is
@@ -221,6 +232,25 @@ LARGE_SMALL_TOL = 1e-2
 LARGE_SMALL_CG = 1000
 LARGE_SMALL_CG_GN = 4
 LARGE_SMALL_ATOL = 1e-3
+# Phases 36-37: the partitioned factor's chunk counts at 200 poses (eight
+# and ten super-blocks of 30 after its padding: chunks of four and of two
+# super-blocks, the reference's m >= 3 and m == 2 branches) and at the
+# bench's sizes (the TPU script's sweep, scripts/tpu_graph1m_phases_r5.py:
+# 133); CR against Thomas on random SPD blocks (float32,
+# tests/test_large_graph.py's bound); the partitioned solves against the
+# sequential in float64, relative to the largest magnitude; the GN's poses
+# against the Thomas path's (the JAX tests' cross-solver bound).
+LARGE_SMALL_PARTS = (2, 5)
+LARGE_PARTS = (8, 32, 128)
+LARGE_CR_BLOCK_ATOL = 1e-4
+LARGE_PART_RTOL = 1e-10
+LARGE_CROSS_ATOL = 2e-2
+# CR's least time: about 10.4 m^3 float32 operations a padded super-block
+# over the levels (an odd block's Cholesky m^3/3, its two triangular
+# solves of 2m + 1 columns 4 m^3, and three products 6 m^3, at level 0 on
+# half the blocks and the levels summing to twice that), and 3 m^2 words
+# of each block's diagonal, coupling and kept factor written once.
+CR_OPS_PER_M3 = 10.4
 
 # tests/test_distributional.py's check: means within K_SIGMA combined
 # standard errors, spreads within a factor STD_RATIO.
@@ -812,16 +842,20 @@ def _pf_timings(dev, smi):
 
 
 def _profile(label: str, call, top_n: int = 4,
-             steps: int | None = None) -> None:
+             steps: int | None = None, levels: int | None = None) -> None:
     """Where one call's time goes (``utils.profile_window``): device busy
-    time over host wall time, the largest device-time entries and, with
-    ``steps``, the torch operations a step."""
+    time over host wall time, the largest device-time entries, with
+    ``steps`` the torch operations a step and with ``levels`` the kernel
+    launches a level."""
     from tpuslam_torch.utils import profile_window
 
     got = profile_window(call, steps)
     wall_ms, busy_ms = got["wall_ms"], got["busy_ms"]
     ops = ("" if steps is None
            else f", {got['ops_per_step']:.1f} torch ops a step")
+    if levels:
+        ops += (f", {got['launches']} kernel launches "
+                f"({got['launches'] / levels:.1f} a level of {levels})")
     print(f"profile {label}: wall {wall_ms:.3f} ms, device busy "
           f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), host waiting "
           f"for the device {got['sync_ms']:.3f} ms{ops}; "
@@ -2335,13 +2369,15 @@ def _large_cost(cfg, poses, poses_init, obs, edges, rel_odom) -> float:
                  + (odo * odo * info).sum())
 
 
-def _large_small(dev) -> None:
+def _large_small(dev) -> dict:
     """32. TestLargeSceneEndToEnd's 200-pose scene from the port's
     ``make_large_scene`` on the card: the tridiag solver with factor
     reuse, one-shot, with ``refactor_every`` 1 and 3, and CG, in float32
     on the card against the same calls in float64 on the CPU (equal
     ``gn_iters``, poses within LARGE_SMALL_ATOL); then the staged solves
-    against the one-shot ones on the card, bit for bit."""
+    against the one-shot ones on the card, bit for bit.  Returns the
+    scene, its CPU float64 copy and its constant H and rhs, which phase
+    36 reuses."""
     import torch
 
     import numpy as np
@@ -2448,6 +2484,8 @@ def _large_small(dev) -> None:
           f"{diag.shape[1]}: factor then resolve equals the one-shot flat "
           f"solve, factor then substitute equals block_thomas_solve (1 and 4 "
           f"right-hand sides), bit for bit", flush=True)
+    return {"cfg": cfg, "pt": pt, "po": po, "obs": obs, "el": el,
+            "cpu": cpu, "h_flat": h_flat, "b_flat": b_flat}
 
 
 def _events_ms(call):
@@ -2479,7 +2517,9 @@ def _large_run(dev, smi, n, lms, chunk, radius_frac, main: bool) -> dict:
     against the host's, every repeat bit-equal to the warm-up, one GN
     iteration and the factor profiled), one at the scale-ups; host syncs
     of a timed call; then the factor and one GN iteration (rhs rebuild
-    and substitution) timed apart, with the host clock a chain step."""
+    and substitution) timed apart, with the host clock a chain step.
+    Returns the scene, its constant H and rhs, and the Thomas path's
+    result and times, which phases 35-38 reuse."""
     import torch
 
     from tpuslam_torch.core import wrap_angle
@@ -2599,7 +2639,11 @@ def _large_run(dev, smi, n, lms, chunk, radius_frac, main: bool) -> dict:
         _profile(f"{label} Thomas factor",
                  lambda: banded_factor_tridiag_flat(h_flat, w, w), top_n=6)
         _profile(f"{label} one GN iteration", iteration, top_n=6)
-    return {"h_flat": h_flat, "b_flat": -rhs(po), "iters": iters}
+    return {"n": n, "label": label, "cfg": cfg, "pt": pt, "po": po,
+            "obs": obs, "el": el, "rel": rel, "h_flat": h_flat,
+            "b_flat": -rhs(po), "iters": iters, "poses": res.poses,
+            "solve_ms": ms, "cost0": cost0, "factor_ms": f_ms,
+            "iteration_ms": s_ms}
 
 
 def _large_cg(dev, system) -> None:
@@ -2620,19 +2664,304 @@ def _large_cg(dev, system) -> None:
           f"{bound}: one read every {CHECK_EVERY} iterations)", flush=True)
 
 
+def _solvers_small(dev, small) -> None:
+    """36. The other banded solvers on phase 32's 200-pose scene: the GN
+    with ``solver="cr"``, with ``solver="cholesky"`` and on the reuse path
+    with each of LARGE_SMALL_PARTS, float32 on the card against float64
+    on the CPU (equal ``gn_iters``, poses within LARGE_SMALL_ATOL);
+    ``block_cr_solve`` against ``block_thomas_solve`` on a random SPD
+    block-tridiagonal system; the partitioned factor and substitution
+    against the sequential ones in float64 on the card."""
+    import torch
+
+    from tpuslam_torch.slam import block_cr_solve, graph_solve_banded
+    from tpuslam_torch.slam.tridiag import (
+        banded_factor_tridiag_flat, banded_resolve_tridiag_flat,
+        block_thomas_factor_partitioned, block_thomas_solve,
+        block_thomas_substitute_partitioned)
+
+    n, lms, radius, noise, w = LARGE_SMALL
+    info = (1 / noise ** 2,) * 3
+    cfg, po, obs, el, cpu = (small[k] for k in
+                             ("cfg", "po", "obs", "el", "cpu"))
+    tol = dict(delta_tol=LARGE_SMALL_TOL * n)
+    runs = {"cr": dict(solver="cr"), "cholesky": dict(solver="cholesky")}
+    for c in LARGE_SMALL_PARTS:
+        runs[f"tridiag n_parts={c}"] = dict(solver="tridiag", n_parts=c)
+    lines = []
+    for name, kw in runs.items():
+        r32, host_ms, ms, _ = _events_ms(lambda: graph_solve_banded(
+            cfg, po, obs, el, band=w, rel_odom=_rel_odom(po), odom_info=info,
+            **kw, **tol))
+        r64 = graph_solve_banded(cfg, *cpu, band=w,
+                                 rel_odom=_rel_odom(cpu[0]), odom_info=info,
+                                 **kw, **tol)
+        gap = float((r32.poses.double().cpu() - r64.poses).abs().max())
+        it32, it64 = int(r32.gn_iters), int(r64.gn_iters)
+        _require(bool(r32.poses.isfinite().all()) and it32 == it64
+                 and gap <= LARGE_SMALL_ATOL,
+                 f"large {name}: gn_iters {it32}/{it64}, max|dpose| {gap}")
+        lines.append(f"{name} {it32} GN iterations, max|dpose| {gap:.3e}, "
+                     f"{ms:.3f} ms ({host_ms:.3f} ms of host)")
+    print(f"banded solvers at {n} poses / {lms} landmarks, window {w}, f32 on "
+          f"the card against f64 on the CPU (atol {LARGE_SMALL_ATOL}): "
+          + "; ".join(lines), flush=True)
+
+    # CR against Thomas on 256 random SPD blocks of 3 x 40 (10k poses'
+    # super-block count after CR's padding), float32: the JAX test's
+    # system of 6 x 6 blocks, its noise scaled by sqrt(6 / m) to keep the
+    # same spectra.
+    gen = _gen(dev, 13)
+    nb, m = 256, 3 * LARGE_WINDOW
+    scale = math.sqrt(6 / m)
+    q = 0.1 * scale * torch.randn((nb, m, m), generator=gen, device=dev)
+    diag = 4.0 * torch.eye(m, device=dev) + q + q.mT
+    upper = 0.2 * scale * torch.randn((nb - 1, m, m), generator=gen,
+                                      device=dev)
+    rows = torch.randn((nb, m), generator=gen, device=dev)
+    cr_gap = float((block_cr_solve(diag, upper, rows)
+                    - block_thomas_solve(diag, upper, rows)).abs().max())
+    _require(cr_gap <= LARGE_CR_BLOCK_ATOL,
+             f"block_cr_solve against block_thomas_solve: {cr_gap}")
+
+    # The partitioned factor against the sequential one, float64: on 24
+    # random blocks of 3 x 40 in 2, 4 and 12 chunks, and on the scene's
+    # flat system with each of LARGE_SMALL_PARTS.
+    d64, u64, rows64 = (t[:24].double() for t in (diag, upper, rows))
+    u64 = u64[:23]
+    x_seq = block_thomas_solve(d64, u64, rows64)
+    part_gap = 0.0
+    for c in (2, 4, 12):
+        x = block_thomas_substitute_partitioned(
+            block_thomas_factor_partitioned(d64, u64, c), rows64)
+        part_gap = max(part_gap, float((x - x_seq).abs().max())
+                       / float(x_seq.abs().max()))
+    h64, b64 = small["h_flat"].double(), small["b_flat"].double()
+    x_seq = banded_resolve_tridiag_flat(
+        banded_factor_tridiag_flat(h64, w, w), b64, w)
+    for c in LARGE_SMALL_PARTS:
+        x = banded_resolve_tridiag_flat(
+            banded_factor_tridiag_flat(h64, w, w, n_parts=c), b64, w)
+        part_gap = max(part_gap, float((x - x_seq).abs().max())
+                       / float(x_seq.abs().max()))
+    _require(part_gap <= LARGE_PART_RTOL,
+             f"the partitioned solves part from the sequential: {part_gap}")
+    print(f"block_cr_solve against block_thomas_solve, {nb} blocks of {m}, "
+          f"f32 on the card: max|dx| {cr_gap:.3e} (atol "
+          f"{LARGE_CR_BLOCK_ATOL}); the partitioned factor and substitution "
+          f"against the sequential ones, f64 on the card (24 blocks of {m} in "
+          f"2, 4 and 12 chunks; phase 32's flat system in "
+          f"{', '.join(map(str, LARGE_SMALL_PARTS))}): max|dx| "
+          f"{part_gap:.3e} of the largest (at most {LARGE_PART_RTOL})",
+          flush=True)
+
+
+def _cho_solve_forms(dev, nb: int) -> None:
+    """A CR level's solve at level 0's shapes (``nb`` odd blocks of 3 x
+    40, 2 m + 1 right-hand sides): ``torch.cholesky_solve`` against the
+    two batched ``solve_triangular`` calls that ``slam/cyclic.py`` makes,
+    each profiled once (device ms, kernel launches) after a warm-up;
+    their results agree."""
+    import torch
+
+    from tpuslam_torch.slam.cyclic import _cho_solve
+    from tpuslam_torch.slam.tridiag import cholesky_nan
+    from tpuslam_torch.utils import profile_window
+
+    m = 3 * LARGE_WINDOW
+    gen = _gen(dev, 14)
+    q = torch.randn((nb, m, m), generator=gen, device=dev)
+    chol = cholesky_nan(q @ q.mT + m * torch.eye(m, device=dev))
+    y = torch.randn((nb, m, 2 * m + 1), generator=gen, device=dev)
+    out = {}
+    forms = {"torch.cholesky_solve": lambda: torch.cholesky_solve(y, chol),
+             "two solve_triangular": lambda: _cho_solve(chol, y)}
+    parts = []
+    for name, fn in forms.items():
+        out[name] = fn()
+        got = profile_window(fn)
+        parts.append(f"{name} {got['busy_ms']:.3f} ms of device, "
+                     f"{got['launches']} kernel launches")
+    gap = float((out["torch.cholesky_solve"]
+                 - out["two solve_triangular"]).abs().max())
+    _require(gap <= 1e-3 * float(out["torch.cholesky_solve"].abs().max()),
+             f"the two SPD solves part: {gap}")
+    print(f"CR level 0's solve at {nb} x {m} x {2 * m + 1}: "
+          + "; ".join(parts) + f"; max|dx| {gap:.3e}", flush=True)
+
+
+def _solvers_large(dev, smi, system: dict, main: bool) -> None:
+    """37. Cyclic reduction and the partitioned factor on phases 33-34's
+    constant H and rhs at one of bench_graph_large's sizes: the CR
+    one-shot solve against the Thomas one-shot solve (a warm-up and
+    LARGE_REPS timed calls at 10k, the repeats bit-equal, its gap to
+    float64 held, one solve profiled; one call above), the partitioned
+    factor and resolve at each of LARGE_PARTS, and the GN with
+    ``solver="cr"`` and on the reuse path with the best of LARGE_PARTS,
+    each held to the Thomas path's poses, syncs and objective."""
+    import torch
+
+    from tpuslam_torch.core import wrap_angle
+    from tpuslam_torch.slam import graph_solve_banded
+    from tpuslam_torch.slam.cyclic import (_pick_super_size,
+                                           banded_solve_cr_flat)
+    from tpuslam_torch.slam.tridiag import (banded_factor_tridiag_flat,
+                                            banded_resolve_tridiag_flat,
+                                            banded_solve_tridiag_flat)
+
+    w, n, label = LARGE_WINDOW, system["n"], system["label"]
+    h_flat, b_flat = system["h_flat"], system["b_flat"]
+    ss = _pick_super_size(w, n)
+    n_sup = -(-n // ss)
+    n_pad = 1 << max(n_sup - 1, 0).bit_length()
+    levels = n_pad.bit_length() - 1
+
+    x_th, th_host, th_ms, _ = _events_ms(
+        lambda: banded_solve_tridiag_flat(h_flat, b_flat, w))
+    if main:
+        first = banded_solve_cr_flat(h_flat, b_flat, w)
+    times = []
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(LARGE_REPS if main else 1):
+        x_cr, cr_host, ms, syncs = _events_ms(
+            lambda: banded_solve_cr_flat(h_flat, b_flat, w))
+        times.append(ms)
+        _require(syncs == 0, f"{label}: CR synchronised {syncs} times")
+        _require(not main or torch.equal(x_cr, first),
+                 f"{label}: a repeat CR solve changed its solution")
+    peak = torch.cuda.max_memory_allocated(dev)
+    _require(bool(x_cr.isfinite().all()), f"{label}: non-finite CR solution")
+    gap = float((x_cr - x_th).abs().max())
+    ms = sorted(times)[len(times) // 2]
+    bound_ms, bound_by = _bound(
+        n_pad * 3 * (3 * ss) ** 2 * 4,
+        n_pad * CR_OPS_PER_M3 * (3 * ss) ** 3)
+    f64_line = ""
+    if main:
+        x64 = banded_solve_cr_flat(h_flat.double(), b_flat.double(), w)
+        d = x_cr.double() - x64
+        gap_xy, gap_yaw = (float(d[:, :2].abs().max()),
+                           float(d[:, 2].abs().max()))
+        _require(gap_xy <= LARGE_F64_ATOL[0] and gap_yaw <= LARGE_F64_ATOL[1],
+                 f"{label}: CR f32 against f64 {gap_xy} m, {gap_yaw} rad")
+        f64_line = (f"; against its f64 solve max|dxy| {gap_xy:.3e} m, "
+                    f"max|dyaw| {gap_yaw:.3e} rad; repeats bit-equal")
+    print(f"{label}: CR one-shot {ms:.3f} ms (median of {len(times)}: "
+          f"{', '.join(f'{t:.3f}' for t in times)}; {cr_host:.3f} ms of host; "
+          f"S {ss}, {n_sup} super-blocks padded to {n_pad}, {levels} levels; "
+          f"peak {peak / 2 ** 30:.2f} GiB, {(peak - base) / 2 ** 30:.2f} above "
+          f"the {base / 2 ** 30:.2f} held before; bound {bound_ms:.4f} ms, "
+          f"{bound_by}) against the Thomas one-shot {th_ms:.3f} ms "
+          f"({th_host:.3f} ms of host); max|x_cr - x_thomas| {gap:.3e}"
+          f"{f64_line}; on {smi}", flush=True)
+    if main:
+        _profile(f"{label} CR one-shot",
+                 lambda: banded_solve_cr_flat(h_flat, b_flat, w), top_n=6,
+                 levels=levels)
+        _cho_solve_forms(dev, n_pad // 2)
+
+    # The partitioned factor and one resolve at each chunk count.
+    best, parts = None, []
+    iters = system["iters"]
+    for c in LARGE_PARTS:
+        fac, f_host, f_ms, f_syncs = _events_ms(
+            lambda: banded_factor_tridiag_flat(h_flat, w, w, n_parts=c))
+        x, r_host, r_ms, r_syncs = _events_ms(
+            lambda: banded_resolve_tridiag_flat(fac, b_flat, w))
+        m = fac.factor.chunk.invs.shape[0] + 1
+        del fac
+        steps = (m - 1) + 2 * max(m - 2, 0) + c
+        p_gap = float((x - x_th).abs().max())
+        _require(bool(x.isfinite().all()) and f_syncs == 0 and r_syncs == 0,
+                 f"{label}: partitioned C={c}: finite {bool(x.isfinite().all())}"
+                 f", syncs {f_syncs}, {r_syncs}")
+        total = f_ms + iters * r_ms
+        if best is None or total < best[1]:
+            best = (c, total)
+        parts.append(f"C={c} ({m} super-blocks a chunk): factor {f_ms:.3f} ms "
+                     f"({1e3 * f_host / steps:.2f} us of host a chain step, "
+                     f"{steps} steps), resolve {r_ms:.3f} ms "
+                     f"({1e3 * r_host / (2 * (m - 1) + c):.2f} us of host a "
+                     f"step), max|x - x_thomas| {p_gap:.3e}")
+    print(f"{label}: partitioned Thomas (the sequential factor "
+          f"{system['factor_ms']:.3f} ms, a GN iteration "
+          f"{system['iteration_ms']:.3f} ms): " + "; ".join(parts)
+          + f"; on {smi}", flush=True)
+
+    # The GN with CR and on the reuse path with the best chunk count.
+    cfg, po, obs, el, rel = (system[k] for k in
+                             ("cfg", "po", "obs", "el", "rel"))
+    lines = []
+    for name, kw in (("cr", dict(solver="cr")),
+                     (f"tridiag n_parts={best[0]}",
+                      dict(solver="tridiag", n_parts=best[0]))):
+        res, _, g_ms, g_syncs = _events_ms(lambda: graph_solve_banded(
+            cfg, po, obs, el, band=w, rel_odom=rel, odom_info=LARGE_ODOM_INFO,
+            stall_ratio=LARGE_STALL, delta_tol=LARGE_TOL_PER_POSE * n, **kw))
+        g_iters = int(res.gn_iters)
+        d = res.poses - system["poses"]
+        g_gap = max(float(d[:, :2].abs().max()),
+                    float(wrap_angle(d[:, 2]).abs().max()))
+        cost = _large_cost(cfg, res.poses, po, obs, el, rel)
+        _require(bool(res.poses.isfinite().all()) and g_syncs <= g_iters + 2
+                 and g_gap <= LARGE_CROSS_ATOL and cost < system["cost0"],
+                 f"{label} GN {name}: {g_iters} iterations, {g_syncs} syncs, "
+                 f"max|dpose| {g_gap} from Thomas's, objective {cost} from "
+                 f"{system['cost0']}")
+        lines.append(f"{name} {g_ms:.3f} ms, {g_iters} GN iterations, "
+                     f"{g_syncs} host syncs, max|dpose| {g_gap:.3e} from "
+                     f"Thomas's, objective {cost:.6e}")
+    print(f"{label}: GN (Thomas with factor reuse {system['solve_ms']:.3f} ms,"
+          f" {iters} GN iterations; objective from {system['cost0']:.6e}): "
+          + "; ".join(lines) + f"; on {smi}", flush=True)
+
+
+def _cholesky_large(dev, smi, system: dict) -> None:
+    """38. One ``banded_solve_direct_flat`` on phase 33's 10k system: its
+    time, the host's time a row, its host syncs (none) and its gap to the
+    Thomas solution."""
+    from tpuslam_torch.slam.cholesky import banded_solve_direct_flat
+    from tpuslam_torch.slam.tridiag import banded_solve_tridiag_flat
+
+    w, n, label = LARGE_WINDOW, system["n"], system["label"]
+    h_flat, b_flat = system["h_flat"], system["b_flat"]
+    x_th = banded_solve_tridiag_flat(h_flat, b_flat, w)
+    x, host_ms, ms, syncs = _events_ms(
+        lambda: banded_solve_direct_flat(h_flat, b_flat, w))
+    gap = float((x - x_th).abs().max())
+    _require(bool(x.isfinite().all()) and syncs == 0,
+             f"{label}: banded Cholesky finite {bool(x.isfinite().all())}, "
+             f"{syncs} syncs")
+    print(f"{label}: banded Cholesky {ms:.3f} ms ({1e3 * host_ms / n:.2f} us "
+          f"of host a row, {n} rows, two passes), no host sync, "
+          f"max|x - x_thomas| {gap:.3e}; on {smi}", flush=True)
+
+
 def _large_phases(dev, smi) -> None:
     """Large-scale graph SLAM's phases, in order (no kernel of its
     own)."""
     t0 = time.perf_counter()
-    _large_small(dev)
-    system = None
+    small = _large_small(dev)
+    t_new = time.perf_counter()
+    _solvers_small(dev, small)
+    new_s = time.perf_counter() - t_new
+    # Phase 37 runs on each size's scene and H right after phases 33-34
+    # built them, so only the 10k scene is held while a larger one runs.
     for k, (n, lms, chunk, radius_frac) in enumerate(LARGE_SIZES):
         out = _large_run(dev, smi, n, lms, chunk, radius_frac, main=k == 0)
+        t_new = time.perf_counter()
+        _solvers_large(dev, smi, out, main=k == 0)
+        new_s += time.perf_counter() - t_new
         if k == 0:
             system = out
+        del out
     _large_cg(dev, system)
-    print(f"large phases 32-35: {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    t_new = time.perf_counter()
+    _cholesky_large(dev, smi, system)
+    new_s += time.perf_counter() - t_new
+    print(f"large phases 32-38: {time.perf_counter() - t0:.1f} s, of which "
+          f"the other banded solvers' phases 36-38 {new_s:.1f} s", flush=True)
 
 
 def main() -> int:

@@ -333,8 +333,15 @@ def test_refusals(rng):
         ttri.band_to_tridiag(_t(_band_of(h_flat, 4)), 3)
     with pytest.raises(ValueError, match="not a multiple"):
         ttri.band_to_tridiag(_t(_band_of(h_flat, 4)), 5)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        ttri.banded_factor_tridiag_flat(_t(h_flat), 4, 8, n_parts=3)
+    # The partitioned factor: three chunks of two super-blocks of 4.
+    fac = ttri.banded_factor_tridiag_flat(_t(h_flat), 4, 4, n_parts=3)
+    assert isinstance(fac.factor, ttri.PartitionedThomasFactor)
+    assert fac.factor.chunk.invs.shape == (1, 3, 12, 12)
+    assert np.isfinite(fac.factor.red.invs.numpy()).all()
+    diag, upper = ttri._flat_to_tridiag(_t(h_flat), 4, 4)
+    with pytest.raises(ValueError, match="blocked"):
+        ttri.block_thomas_factor_partitioned(diag, upper, 3,
+                                             inv_impl="blocked")
 
 
 # --- The GN loops on the JAX package's scene -----------------------------
@@ -349,10 +356,9 @@ GN_RUNS = {
 }
 
 
-@pytest.fixture(scope="module")
-def scene():
+def jax_scene():
     """The JAX package's 100-pose scene (key 3, ``TestFactorReuse``'s) as
-    numpy, its host edge list, and float64 JAX solves of each GN run."""
+    numpy, and its host edge list."""
     cfg = _cfg(T1, LMS, max_gn_iters=10, exact_jacobians=True)
     pt, po, obs = jax.jit(lambda k: jlarge.make_large_scene(
         cfg, k, T1, LMS, radius=40.0, odom_noise=NOISE))(jax.random.key(3))
@@ -360,26 +366,40 @@ def scene():
     obs = jax.tree_util.tree_map(np.asarray, obs)
     el = jlarge.window_pairs(obs.valid, window=WINDOW)
     el = jax.tree_util.tree_map(np.asarray, el)
+    return {"cfg": cfg, "pt": pt, "po": po, "obs": obs, "el": el}
 
-    def solve(runs):
-        def fn(po, obs, el):
-            rel = po[1:] - po[:-1]
-            rel = rel.at[:, 2].set(jwrap(rel[:, 2]))
-            return {name: jlarge.graph_solve_banded(
-                cfg, po, obs, el, band=WINDOW, rel_odom=rel,
-                odom_info=(1 / NOISE ** 2,) * 3, solver="tridiag", **kw)
-                for name, kw in runs.items()}
-        return jax.jit(fn)
 
-    want32 = jax.tree_util.tree_map(
-        np.asarray, solve({"reuse": {}})(po, obs, el))["reuse"]
-    with _x64():
-        obs64 = type(obs)(*(a.astype(np.float64) for a in obs[:3]),
-                          obs.valid)
-        want64 = jax.tree_util.tree_map(
-            np.asarray, solve(GN_RUNS)(po.astype(np.float64), obs64, el))
-    return {"cfg": cfg, "pt": pt, "po": po, "obs": obs, "el": el,
-            "want32": want32, "want64": want64}
+def jax_gn(scene, runs: dict, x64: bool) -> dict:
+    """JAX's GN solves of ``scene`` with the odometry chain, one a run
+    (its keywords over ``solver="tridiag"``), in one ``jax.jit``, as
+    numpy; float64 with ``x64``."""
+    def fn(po, obs, el):
+        rel = po[1:] - po[:-1]
+        rel = rel.at[:, 2].set(jwrap(rel[:, 2]))
+        return {name: jlarge.graph_solve_banded(
+            scene["cfg"], po, obs, el, band=WINDOW, rel_odom=rel,
+            odom_info=(1 / NOISE ** 2,) * 3, **{"solver": "tridiag", **kw})
+            for name, kw in runs.items()}
+
+    po, obs = scene["po"], scene["obs"]
+    with contextlib.ExitStack() as stack:
+        if x64:
+            stack.enter_context(_x64())
+            po = po.astype(np.float64)
+            obs = type(obs)(*(a.astype(np.float64) for a in obs[:3]),
+                            obs.valid)
+        return jax.tree_util.tree_map(
+            np.asarray, jax.jit(fn)(po, obs, scene["el"]))
+
+
+@pytest.fixture(scope="module")
+def scene():
+    """:func:`jax_scene` with float32 and float64 JAX solves of each GN
+    run."""
+    out = jax_scene()
+    out["want32"] = jax_gn(out, {"reuse": {}}, x64=False)["reuse"]
+    out["want64"] = jax_gn(out, GN_RUNS, x64=True)
+    return out
 
 
 def _port_args(scene, dtype):

@@ -1,5 +1,6 @@
 """Large-scale graph SLAM: windowed edges, banded information matrix,
-PCG and the super-block Thomas solver, 10k+ poses.
+and its solvers (PCG, the super-block Thomas chain, cyclic reduction and
+the banded Cholesky), 10k+ poses.
 
 Port of ``tpuslam/slam/large.py``.  Sightings of one landmark pair up
 only within a time window ``W``, so H is block-banded with ``W + 1``
@@ -27,10 +28,10 @@ Differences from the JAX package, none of them in the numbers:
   ``max_gn_iters`` synchronisations.  The Thomas chain and the PCG loop
   inside it read nothing (PCG: its condition every
   :data:`~tpuslam_torch.core.pcg.CHECK_EVERY` iterations).
-* **Solvers.**  ``"tridiag"`` and ``"cg"`` are ported; ``"cr"``,
-  ``"cholesky"`` and ``n_parts`` raise ``NotImplementedError``, and an
-  unknown solver name raises ``ValueError`` (the JAX package runs CG for
-  any name it does not know).
+* **Solvers.**  ``"cg"``, ``"tridiag"`` (with ``n_parts``, the
+  partitioned factor), ``"cr"`` and ``"cholesky"``, as in the JAX
+  package; an unknown solver name raises ``ValueError`` (the JAX package
+  runs CG for any name it does not know).
 * **RNG at the module edge.**  :func:`make_large_scene` draws from a
   ``torch.Generator``; :func:`make_large_scene_with_noise` takes the
   draws.
@@ -53,10 +54,11 @@ from tpuslam_torch.core.angles import wrap_angle
 from tpuslam_torch.core.pcg import pcg
 from tpuslam_torch.core.precision import highest_matmul_precision
 from tpuslam_torch.core.se2 import BASE_ANG
+from tpuslam_torch.slam.cholesky import banded_solve_direct_flat
+from tpuslam_torch.slam.cyclic import banded_solve_cr_flat
 from tpuslam_torch.slam.graph import (GraphConfig, GraphObservations,
                                       _inv3x3, _measurement_cov_world)
-from tpuslam_torch.slam.tridiag import (_no_parts,
-                                        banded_factor_tridiag_flat,
+from tpuslam_torch.slam.tridiag import (banded_factor_tridiag_flat,
                                         banded_resolve_tridiag_flat,
                                         banded_solve_tridiag_flat)
 
@@ -789,13 +791,12 @@ class BandedSolveResult(typing.NamedTuple):
     cg_iters_last: torch.Tensor
 
 
+_SOLVERS = ("cg", "tridiag", "cr", "cholesky")
+
+
 def _check_solver(solver: str) -> None:
-    if solver in ("cr", "cholesky"):
-        raise NotImplementedError(
-            f"solver {solver!r} is not ported yet: ROADMAP.md section 1, "
-            "item 4 (the other banded solvers)")
-    if solver not in ("cg", "tridiag"):
-        raise ValueError(f"unknown solver {solver!r}: 'tridiag' or 'cg'")
+    if solver not in _SOLVERS:
+        raise ValueError(f"unknown solver {solver!r}: one of {_SOLVERS}")
 
 
 @highest_matmul_precision
@@ -819,9 +820,12 @@ def graph_solve_banded(cfg: GraphConfig, poses_init,
     Args are the JAX package's:
         rel_odom: optional ``(T1-1, 3)`` odometry deltas; adds a
             consecutive-pose motion chain with information ``odom_info``.
-        solver: ``"cg"`` (block-Jacobi PCG, matrix-free) or ``"tridiag"``
-            (super-block Thomas).  ``"cr"`` and ``"cholesky"`` raise
-            ``NotImplementedError``; any other name ``ValueError``.
+        solver: ``"cg"`` (block-Jacobi PCG, matrix-free),
+            ``"tridiag"`` (super-block Thomas), ``"cr"`` (super-block
+            cyclic reduction, :func:`~tpuslam_torch.slam.cyclic.
+            banded_solve_cr_flat`) or ``"cholesky"`` (the banded 3x3
+            Cholesky, :func:`~tpuslam_torch.slam.cholesky.
+            banded_solve_direct_flat`); any other name ``ValueError``.
         relinearize_omega: recompute the measurement information from
             the current estimates each GN iteration (the reference's
             behaviour); default False freezes it at the initial guess.
@@ -839,7 +843,13 @@ def graph_solve_banded(cfg: GraphConfig, poses_init,
         refactor_every: with ``relinearize_omega=True`` (and exact
             Jacobians, ``"tridiag"``), refresh Omega and the factor only
             every k-th iteration.
-        n_parts: raises ``NotImplementedError``.
+        n_parts: partition the Thomas factor and substitution into
+            that many chunks batched together
+            (:func:`~tpuslam_torch.slam.tridiag.
+            block_thomas_factor_partitioned`): chains of depth N /
+            n_parts plus a reduced chain of n_parts.  The reuse path
+            only (``ValueError`` otherwise); the poses agree with the
+            sequential factor's to rounding.
 
     Host synchronisations: one to group the edges
     (:func:`build_banded_scatter`) and one a GN iteration; with
@@ -851,7 +861,6 @@ def graph_solve_banded(cfg: GraphConfig, poses_init,
                          "damping subtracts from diag(H) and degrades "
                          "conditioning")
     _check_solver(solver)
-    _no_parts(n_parts)
     can_reuse = (solver == "tridiag" and cfg.exact_jacobians
                  and not relinearize_omega)
     if reuse_factorization is None:
@@ -877,10 +886,13 @@ def graph_solve_banded(cfg: GraphConfig, poses_init,
                 "Omega use reuse_factorization instead)")
     t1 = poses_init.shape[0]
     tol = cfg.delta_sum_threshold if delta_tol is None else delta_tol
+    if n_parts is not None and not reuse_factorization:
+        raise ValueError("n_parts (partitioned Thomas) is implemented "
+                         "on the reuse_factorization path only")
     if reuse_factorization:
         return _graph_solve_banded_reuse(
             cfg, poses_init, obs, edges, band, rel_odom, odom_info,
-            damping, super_size, tol, stall_ratio)
+            damping, super_size, tol, stall_ratio, n_parts)
     if refactor_every is not None:
         return _graph_solve_banded_relin_reuse(
             cfg, poses_init, obs, edges, band, rel_odom, odom_info,
@@ -899,10 +911,14 @@ def graph_solve_banded(cfg: GraphConfig, poses_init,
                 h_flat, b_flat, poses, rel_odom, odom_info)
             kept = torch.ones_like(kept)  # the chain constrains every pose
         h_flat = _damped(h_flat, damping)
+        cg_it = None
         if solver == "tridiag":
             delta = banded_solve_tridiag_flat(h_flat, -b_flat, band,
                                               super_size=super_size)
-            cg_it = None
+        elif solver == "cr":
+            delta = banded_solve_cr_flat(h_flat, -b_flat, band)
+        elif solver == "cholesky":
+            delta = banded_solve_direct_flat(h_flat, -b_flat, band)
         else:
             delta, cg_it = cg_solve_flat(h_flat, -b_flat, band, cg_iters,
                                          cg_tol)
@@ -916,7 +932,7 @@ def _damped(h_flat, damping: float):
     if not damping:
         return h_flat
     h_flat = h_flat.clone()
-    h_flat[[0, 4, 8]] *= 1.0 + damping
+    h_flat[0:9:4] *= 1.0 + damping  # the diagonal rows, without a sync
     return h_flat
 
 
@@ -994,19 +1010,20 @@ def _graph_solve_banded_reuse(cfg: GraphConfig, poses_init,
                               obs: GraphObservations, edges: EdgeList,
                               band: int, rel_odom, odom_info,
                               damping: float, super_size: int | None,
-                              tol, stall_ratio: float | None):
+                              tol, stall_ratio: float | None,
+                              n_parts: int | None):
     """Factor-reuse GN, the constant-H fast path of
-    :func:`graph_solve_banded`: H is assembled and Thomas-factored once;
-    each iteration rebuilds only the rhs and substitutes.  The same
-    values as the one-shot path, which factors the same H each
-    iteration."""
+    :func:`graph_solve_banded`: H is assembled and Thomas-factored once
+    (in ``n_parts`` chunks where given); each iteration rebuilds only
+    the rhs and substitutes.  The same values as the one-shot path,
+    which factors the same H each iteration."""
     t1 = poses_init.shape[0]
     ss = max(band, 1) if super_size is None else super_size
     scatter = build_banded_scatter(edges, t1, band)
     om, rel_obs, mask = exact_edge_terms(cfg, obs, edges, poses_init)
     h_flat, kept = _constant_h(cfg, poses_init, om, mask, edges, t1, band,
                                rel_odom, odom_info, damping, scatter)
-    fac = banded_factor_tridiag_flat(h_flat, band, ss)
+    fac = banded_factor_tridiag_flat(h_flat, band, ss, n_parts=n_parts)
 
     def step(poses, iters):
         b_flat = _rhs(poses, om, rel_obs, edges, t1, rel_odom, odom_info,

@@ -1,11 +1,10 @@
 """Super-block tridiagonal solver for banded H.
 
-Port of ``tpuslam/slam/tridiag.py`` without the partitioned (SPIKE)
-variant.  The block-banded matrix is re-tiled into a block-TRIDIAGONAL
-system of dense super-blocks of ``S`` poses (``3S x 3S`` scalars,
-``S >= band``), so the whole band fits in a diagonal block and one
-coupling block, and block-Thomas elimination solves it in ``T1 / S``
-sequential steps of dense ``3S x 3S`` algebra.
+Port of ``tpuslam/slam/tridiag.py``.  The block-banded matrix is
+re-tiled into a block-TRIDIAGONAL system of dense super-blocks of ``S``
+poses (``3S x 3S`` scalars, ``S >= band``), so the whole band fits in a
+diagonal block and one coupling block, and block-Thomas elimination
+solves it in ``T1 / S`` sequential steps of dense ``3S x 3S`` algebra.
 
 The chain runs as eager torch: one Python step a super-block, each a few
 cuBLAS products, a cuSOLVER Cholesky and a triangular solve.  Nothing in
@@ -18,11 +17,21 @@ right-hand sides ride as ``(K, m)`` rows.  :func:`block_thomas_solve` is
 so the staged solve equals the one-shot solve bit for bit, as in the
 reference.
 
+The partitioned factor (:func:`block_thomas_factor_partitioned`, the
+reference's single-chip SPIKE variant) cuts the chain into ``C`` chunks:
+three batched chains of depth ``N / C`` over the chunks and one reduced
+chain of depth ``C`` over their interfaces, each step the same algebra
+batched over ``C``.  The reference's ``inv_impl="blocked"`` (closed-form
+3x3 panels that kept XLA:TPU's Cholesky from serialising over the batch,
+measured slower there) is refused by name; the batched inverse is
+cuSOLVER's batched Cholesky and cuBLAS's batched triangular solve.
+
 A matrix that is not positive definite: JAX's Cholesky returns NaN, and
 ``torch.linalg.cholesky`` would raise, which reads the device.
 ``torch.linalg.cholesky_ex`` does not check; where its ``info`` is not 0
 the factor is set to NaN on the device, so "a NaN factor means the
 prescaled system lost PD-ness" holds here too, with no synchronisation.
+In a batch, only the matrices whose ``info`` is not 0 become NaN.
 
 The flat path (:func:`banded_solve_tridiag_flat` and the factor/resolve
 pair) takes the ``((band+1)*9, T1)`` storage of ``large.py``.  The JAX
@@ -92,6 +101,14 @@ def band_to_tridiag(h_band, super_size: int):
     return diag, up[:-1]
 
 
+def cholesky_nan(a):
+    """Lower Cholesky factor of ``a`` (``(..., M, M)``), unchecked: the
+    matrices that are not positive definite get a NaN factor, as JAX's
+    Cholesky gives them, with no host read."""
+    chol, info = torch.linalg.cholesky_ex(a)
+    return chol.masked_fill((info != 0)[..., None, None], float("nan"))
+
+
 class ThomasFactor(typing.NamedTuple):
     """Reusable block-Thomas factorization (see :func:`block_thomas_factor`).
 
@@ -124,10 +141,7 @@ def block_thomas_factor(diag, upper) -> ThomasFactor:
         w = torch.matmul(inv_prev, u_prev, out=ws[k])  # S_{k-1}^-1 U_{k-1}
         s = diag[k] - u_prev.mT @ w
         s = 0.5 * (s + s.mT)
-        chol, info = torch.linalg.cholesky_ex(s)
-        # JAX's Cholesky gives NaN for a matrix that is not PD.
-        chol = chol.masked_fill(info != 0, float("nan"))
-        li = torch.linalg.solve_triangular(chol, eye, upper=False)
+        li = torch.linalg.solve_triangular(cholesky_nan(s), eye, upper=False)
         inv_prev = torch.matmul(li.mT, li, out=invs[k])  # S_k^-1
         u_prev = up[k]
     return ThomasFactor(invs=invs, ws=ws, up=up)
@@ -175,6 +189,173 @@ def block_thomas_solve(diag, upper, b):
         ``(N, M)`` (or ``(N, K, M)``) solution.
     """
     return block_thomas_substitute(block_thomas_factor(diag, upper), b)
+
+
+class PartitionedThomasFactor(typing.NamedTuple):
+    """Partitioned (SPIKE-style) block-Thomas factor of ``C`` chunks of
+    ``m`` blocks (see :func:`block_thomas_factor_partitioned`).
+
+    ``chunk``'s fields are time-major, ``(m-1, C, M, M)``: the chunks'
+    interior factors.  ``red`` is the reduced interface system's factor
+    (C blocks); ``b_cpl[c]`` couples chunk c's last interior block to its
+    interface, ``c_cpl[c]`` the interface to chunk c+1 (zero for the
+    last chunk).
+    """
+
+    chunk: ThomasFactor
+    red: ThomasFactor
+    b_cpl: torch.Tensor  # (C, M, M)
+    c_cpl: torch.Tensor  # (C, M, M)
+
+
+def _batched_inv_spd(a):
+    """Batched SPD inverse by Cholesky (the Thomas factor's per-step
+    chain: symmetrise, Cholesky, triangular inverse ``li``, ``li^T
+    li``)."""
+    eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
+    chol = cholesky_nan(0.5 * (a + a.mT))
+    li = torch.linalg.solve_triangular(chol, eye.expand(a.shape),
+                                       upper=False)
+    return li.mT @ li
+
+
+def _rowmat(rows, mats):
+    """Batched row vector times matrix: ``(C, M) @ (C, M, M) -> (C,
+    M)``."""
+    return (rows.unsqueeze(-2) @ mats).squeeze(-2)
+
+
+@highest_matmul_precision
+def block_thomas_factor_partitioned(diag, upper, n_parts: int,
+                                    inv_impl: str = "lax"
+                                    ) -> PartitionedThomasFactor:
+    """Factor the N-block chain as ``n_parts`` chunks of ``m = N /
+    n_parts >= 2`` blocks (the chunks' interiors ``u_c``, each chunk's
+    last block ``s_c`` its interface; ``B_c`` couples interior m-2 to
+    ``s_c``, ``C_c`` couples ``s_c`` to chunk c+1's interior 0):
+
+      Ahat_c = A_sc - B_c^T Dm_c B_c - C_c D0_{c+1} C_c^T
+      Uhat_c = -C_c G_{c+1} B_{c+1}
+
+    with ``Dm = [T^-1]_{m-2,m-2}`` (the chunk factor's last Schur
+    inverse), ``D0 = [T^-1]_{0,0}`` (a reverse Schur recursion) and ``G
+    = [T^-1]_{0,m-2}`` (the backward chain ``x_j = -inv_j U_j
+    x_{j+1}``).  Each of the three chains has depth m-1 or m-2 and is
+    batched over the chunks; the reduced system is a sequential
+    :func:`block_thomas_factor` of C blocks.
+
+    ``inv_impl`` must be ``"lax"`` (the reference's default and only
+    portable form); ``"blocked"`` and any other name raise
+    ``ValueError``.
+    """
+    if inv_impl == "blocked":
+        raise ValueError(
+            "inv_impl='blocked' is an XLA:TPU layout workaround that "
+            "measured slower there and is not ported; use 'lax'")
+    if inv_impl != "lax":
+        raise ValueError(f"unknown inv_impl {inv_impl!r}: 'lax'")
+    n, m_blk = diag.shape[0], diag.shape[1]
+    c = n_parts
+    if n % c:
+        raise ValueError(f"N={n} not a multiple of n_parts={c}")
+    m = n // c
+    if m < 2:
+        raise ValueError(f"n_parts={c} leaves m={m} < 2 blocks/chunk")
+    zero = diag.new_zeros((1, m_blk, m_blk))
+    up_r = torch.cat([upper, zero], dim=0).reshape(c, m, m_blk, m_blk)
+    diag_r = diag.reshape(c, m, m_blk, m_blk)
+    # Time-major interiors: every chain below steps the within-chunk
+    # axis with the chunks as its batch.
+    a_int = diag_r[:, :m - 1].transpose(0, 1)
+    a_if = diag_r[:, m - 1]  # (C, M, M) interface diagonals
+    u_int = up_r[:, :m - 2].transpose(0, 1)  # (m-2, C, M, M)
+    b_cpl = up_r[:, m - 2]
+    c_cpl = up_r[:, m - 1]  # zero for the last chunk
+    up_x = torch.cat([u_int, zero.expand(1, c, m_blk, m_blk)], dim=0)
+
+    # The chunks' factors: block_thomas_factor's recursion, batched.
+    invs = a_int.new_empty(a_int.shape)
+    ws = a_int.new_empty(a_int.shape)
+    inv_prev = torch.eye(m_blk, dtype=diag.dtype,
+                         device=diag.device).expand(c, m_blk, m_blk)
+    u_prev = zero.expand(c, m_blk, m_blk)
+    for k in range(m - 1):
+        w = torch.matmul(inv_prev, u_prev, out=ws[k])
+        inv_prev = invs[k] = _batched_inv_spd(a_int[k] - u_prev.mT @ w)
+        u_prev = up_x[k]
+    dm = invs[-1]  # [T^-1]_{m-2,m-2}
+
+    # D0 = [T^-1]_{0,0} by the reverse Schur recursion (carry only).
+    s0 = a_int[-1]
+    for j in range(m - 3, -1, -1):
+        s0 = a_int[j] - u_int[j] @ _batched_inv_spd(s0) @ u_int[j].mT
+        s0 = 0.5 * (s0 + s0.mT)
+    d0 = _batched_inv_spd(s0)
+
+    # G = [T^-1]_{0,m-2} by x_j = -inv_j U_j x_{j+1}, x_{m-2} = Dm.
+    g_cor = dm
+    for j in range(m - 3, -1, -1):
+        g_cor = -(invs[j] @ (u_int[j] @ g_cor))
+
+    # Chunk C-1's d0_next is chunk 0's, finite and multiplied by its
+    # zero c_cpl.
+    d0_next = torch.roll(d0, -1, dims=0)
+    ahat = (a_if - b_cpl.mT @ dm @ b_cpl
+            - c_cpl @ d0_next @ c_cpl.mT)
+    ahat = 0.5 * (ahat + ahat.mT)
+    uhat = -(c_cpl[:-1] @ g_cor[1:] @ b_cpl[1:])
+    return PartitionedThomasFactor(
+        chunk=ThomasFactor(invs=invs, ws=ws, up=up_x),
+        red=block_thomas_factor(ahat, uhat), b_cpl=b_cpl, c_cpl=c_cpl)
+
+
+def _sub_batched(chunk: ThomasFactor, g_tm):
+    """:func:`block_thomas_substitute` batched over the chunks,
+    time-major: ``g_tm`` ``(m-1, C, M)`` rows, the solution in the same
+    layout."""
+    invs, ws, up = chunk
+    ys = g_tm.new_empty(g_tm.shape)
+    y_prev = g_tm.new_zeros(g_tm.shape[1:])
+    for k in range(g_tm.shape[0]):
+        y_prev = ys[k] = g_tm[k] - _rowmat(y_prev, ws[k])
+    xs = g_tm.new_empty(g_tm.shape)
+    x_next = g_tm.new_zeros(g_tm.shape[1:])
+    for k in range(g_tm.shape[0] - 1, -1, -1):
+        x_next = xs[k] = _rowmat(ys[k] - _rowmat(x_next, up[k].mT),
+                                 invs[k])
+    return xs
+
+
+@highest_matmul_precision
+def block_thomas_substitute_partitioned(fac: PartitionedThomasFactor, b):
+    """Solve with a :class:`PartitionedThomasFactor`: two batched chunk
+    substitutions (depth m-1) around the reduced solve (depth C).  ``b``
+    is ``(N, M)`` rows; returns ``(N, M)``."""
+    c = fac.b_cpl.shape[0]
+    m = fac.chunk.invs.shape[0] + 1
+    m_blk = b.shape[-1]
+    g = b.reshape(c, m, m_blk)
+    g_int = g[:, :m - 1].transpose(0, 1)  # (m-1, C, M)
+    r = _sub_batched(fac.chunk, g_int)
+    # bhat_c = f_c - r_c[m-2] B_c - r_{c+1}[0] C_c^T (the row forms of
+    # B^T x and C x); chunk C-1's r_next0 is chunk 0's, times its zero
+    # c_cpl.
+    r_next0 = torch.roll(r[0], -1, dims=0)
+    bhat = (g[:, m - 1] - _rowmat(r[m - 2], fac.b_cpl)
+            - _rowmat(r_next0, fac.c_cpl.mT))
+    s = block_thomas_substitute(fac.red, bhat)  # (C, M)
+    # g' = g - e_{m-2} B_c s_c - e_0 C_{c-1}^T s_{c-1}; chunk 0 has no
+    # left neighbour.
+    corr_last = _rowmat(s, fac.b_cpl.mT)
+    corr_first = _rowmat(torch.roll(s, 1, dims=0),
+                         torch.roll(fac.c_cpl, 1, dims=0))
+    corr_first[0] = 0.0
+    g2 = g_int.clone()
+    g2[m - 2] += -corr_last
+    g2[0] += -corr_first
+    u = _sub_batched(fac.chunk, g2)
+    x = torch.cat([u.transpose(0, 1), s[:, None]], dim=1)  # (C, m, M)
+    return x.reshape(c * m, m_blk)
 
 
 def pad_band(h_band, b, multiple: int):
@@ -304,7 +485,9 @@ def pad_flat(h_flat, b_flat, multiple: int):
     pad = (-t1) % multiple
     if pad:
         h_flat = torch.nn.functional.pad(h_flat, (0, pad))
-        h_flat[[0, 4, 8], t1:] = 1.0
+        # Rows 0, 4 and 8 (the diagonal entries) by a strided slice: a
+        # list index would copy it to the device and synchronise.
+        h_flat[0:9:4, t1:] = 1.0
         b_flat = torch.nn.functional.pad(b_flat, (0, pad))
     return h_flat, b_flat
 
@@ -326,18 +509,11 @@ def super_rows_to_flat(x, super_size: int):
 
 class TridiagFlatFactor(typing.NamedTuple):
     """Reusable factorization of a flat banded system (prescale + Thomas
-    factor); solve new right-hand sides with
+    factor, sequential or partitioned); solve new right-hand sides with
     :func:`banded_resolve_tridiag_flat`."""
 
-    factor: ThomasFactor
+    factor: ThomasFactor | PartitionedThomasFactor
     s: torch.Tensor  # (3, T_pad) Jacobi prescale rows
-
-
-def _no_parts(n_parts) -> None:
-    if n_parts is not None:
-        raise NotImplementedError(
-            "n_parts (the partitioned Thomas factor) is not ported yet: "
-            "ROADMAP.md section 1, item 4 (the other banded solvers)")
 
 
 @highest_matmul_precision
@@ -347,16 +523,22 @@ def banded_factor_tridiag_flat(h_flat, band: int,
                                ) -> TridiagFlatFactor:
     """Factor a flat banded system once for many right-hand sides: pad,
     Jacobi prescale, super-block densification and
-    :func:`block_thomas_factor`.  ``n_parts`` raises
-    ``NotImplementedError``."""
-    _no_parts(n_parts)
+    :func:`block_thomas_factor`, or with ``n_parts``
+    :func:`block_thomas_factor_partitioned` (the trajectory then padded
+    to a ``super_size * n_parts`` multiple; the solution agrees with the
+    sequential factor's to rounding, not bit for bit)."""
     if super_size is None:
         super_size = max(band, 1)
+    quantum = super_size * n_parts if n_parts else super_size
     zeros = h_flat.new_zeros((3, h_flat.shape[1]))
-    h_flat, b_pad = pad_flat(h_flat, zeros, super_size)
+    h_flat, b_pad = pad_flat(h_flat, zeros, quantum)
     h_s, _, s = _flat_prescale(h_flat, b_pad, band)
     diag, upper = _flat_to_tridiag(h_s, band, super_size)
-    return TridiagFlatFactor(factor=block_thomas_factor(diag, upper), s=s)
+    if n_parts:
+        fac = block_thomas_factor_partitioned(diag, upper, n_parts)
+    else:
+        fac = block_thomas_factor(diag, upper)
+    return TridiagFlatFactor(factor=fac, s=s)
 
 
 @highest_matmul_precision
@@ -368,7 +550,10 @@ def banded_resolve_tridiag_flat(fac: TridiagFlatFactor, b_flat,
     t_pad = fac.s.shape[1]
     b_flat = torch.nn.functional.pad(b_flat, (0, t_pad - t1))
     b_sup = flat_rows_to_super(b_flat * fac.s, super_size)
-    x = block_thomas_substitute(fac.factor, b_sup)
+    if isinstance(fac.factor, PartitionedThomasFactor):
+        x = block_thomas_substitute_partitioned(fac.factor, b_sup)
+    else:
+        x = block_thomas_substitute(fac.factor, b_sup)
     x3 = super_rows_to_flat(x, super_size) * fac.s
     return x3.T[:t1]
 

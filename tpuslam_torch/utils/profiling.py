@@ -92,8 +92,10 @@ def profile_window(call, steps: int | None = None) -> dict:
     summed), ``sync_ms`` (the host's time inside the runtime calls that
     wait for the device: :data:`_WAITS`, the closing synchronise left
     out), ``top`` (``(name, ms)`` of every entry with device time,
-    largest first) and, with ``steps``, ``ops_per_step``: the ``aten::``
-    events that no other ``aten::`` event encloses, over ``steps``.
+    largest first), ``launches`` (the host's kernel-launch calls,
+    ``cudaLaunchKernel``, ``cuLaunchKernel`` and their variants) and,
+    with ``steps``, ``ops_per_step``: the ``aten::`` events that no other
+    ``aten::`` event encloses, over ``steps``.
     """
     if not torch.cuda.is_available():
         raise RuntimeError("profile_window() needs a CUDA device")
@@ -114,8 +116,11 @@ def profile_window(call, steps: int | None = None) -> dict:
             by_name[evt.key] = by_name.get(evt.key, 0.0) + us
             if evt.device_type != torch.autograd.DeviceType.CPU:
                 busy_us += us
+    launches = sum(1 for evt in prof.events()
+                   if evt.device_type == torch.autograd.DeviceType.CPU
+                   and "LaunchKernel" in evt.name)
     out = {"wall_ms": wall_ms, "busy_ms": busy_us / 1e3,
-           "sync_ms": sync_us / 1e3,
+           "sync_ms": sync_us / 1e3, "launches": launches,
            "top": [(k, v / 1e3) for k, v in
                    sorted(by_name.items(), key=lambda kv: -kv[1])]}
     if steps:
