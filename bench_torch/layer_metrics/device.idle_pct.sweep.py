@@ -1,0 +1,5 @@
+"""The EKF sweep's device idle share: the part of the traced segment in
+which no operation ran on the device (launch, parameters and readback
+between sweeps), in percent."""
+
+from benchlib.readers import idle_pct as read  # noqa: F401

@@ -1,0 +1,7 @@
+"""K1's share of its roofline: the least time the card could take for
+one launch (``roofline/k1.py``, against the H100's published peaks) over
+the mean launch time in the traced segment, in percent."""
+
+
+def read(ctx):
+    return ctx.roofline_share("k1")

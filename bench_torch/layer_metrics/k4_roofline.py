@@ -1,0 +1,7 @@
+"""K4's share of its roofline: the least time the card could take for
+one launch (``roofline/k4.py``, against the H100's published peaks) over
+the mean launch time in the traced segment, in percent."""
+
+
+def read(ctx):
+    return ctx.roofline_share("k4")
