@@ -846,7 +846,8 @@ def _profile(label: str, call, top_n: int = 4,
     """Where one call's time goes (``utils.profile_window``): device busy
     time over host wall time, the largest device-time entries, with
     ``steps`` the torch operations a step and with ``levels`` the kernel
-    launches a level."""
+    launches a level, then the program's spans (count, total and self
+    time)."""
     from tpuslam_torch.utils import profile_window
 
     got = profile_window(call, steps)
@@ -861,6 +862,11 @@ def _profile(label: str, call, top_n: int = 4,
           f"for the device {got['sync_ms']:.3f} ms{ops}; "
           + "; ".join(f"{k[:40]} {v:.3f} ms" for k, v in got["top"][:top_n]),
           flush=True)
+    if got["spans"]:
+        print(f"spans {label}: " + "; ".join(
+            f"{k} {v['count']} x, {v['total_ms']:.3f} ms (self "
+            f"{v['self_ms']:.3f})" for k, v in got["spans"].items()),
+            flush=True)
 
 
 def _pf_profile(dev) -> None:

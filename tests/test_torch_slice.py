@@ -28,7 +28,7 @@ import tpuslam_torch.filters as tf
 import tpuslam_torch.metrics as tm
 from tpuslam_torch.entry import entry
 from tpuslam_torch.ops import ekf_fused_rollout
-from tpuslam_torch.utils import steps_per_second, timed
+from tpuslam_torch.utils import device_ms, profile_window, timed
 
 PKG_DIR = pathlib.Path(tpuslam_torch.__file__).parent
 
@@ -122,4 +122,6 @@ def test_timing_needs_a_card():
     with pytest.raises(RuntimeError, match="CUDA"):
         timed(lambda: None)
     with pytest.raises(RuntimeError, match="CUDA"):
-        steps_per_second(lambda: None, work_items=1)
+        device_ms(lambda: None, 1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        profile_window(lambda: None)

@@ -1,0 +1,154 @@
+"""The program's spans (``utils/profiling.py::span``): recorded only while
+a profiler records, named ``tpuslam.<layer>.<part>``, nested by call
+structure, and leaving every output as it is.  CPU only: the plain paths
+run the same loops and spans as the card's."""
+
+import pytest
+import torch
+
+from tpuslam_torch.filters.ekf import EkfConfig
+from tpuslam_torch.filters.pf import PfConfig
+from tpuslam_torch.ops import ekf_cuda, pf_batch_cuda, pf_cuda
+from tpuslam_torch.utils import profiling
+
+STEPS = 5
+
+
+def _profiled(fn):
+    """``(fn(), events)`` with ``fn`` run under a CPU profiler."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with torch.profiler.profile(activities=acts) as prof:
+        out = fn()
+    return out, list(prof.events())
+
+
+def _named(events, name):
+    return sorted((e for e in events if e.name == name),
+                  key=lambda e: e.time_range.start)
+
+
+def _ancestors(event):
+    names, e = [], event.cpu_parent
+    while e is not None:
+        names.append(e.name)
+        e = e.cpu_parent
+    return names
+
+
+def _flat(out):
+    """Every tensor of a nested output, in order."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, (tuple, list)):
+        return [t for part in out for t in _flat(part)]
+    return []
+
+
+def _ekf():
+    return ekf_cuda.ekf_fused_rollout(EkfConfig(), 2**40 + 7, 64, STEPS,
+                                      with_nees=True, device="cpu")
+
+
+def _pf_batch():
+    cfg = PfConfig(num_particles=32, weight_mode="log")
+    return pf_batch_cuda.pf_batch_rollout(
+        cfg, torch.Generator().manual_seed(3), 4, STEPS, device="cpu")
+
+
+def _pf_fused(method="merge"):
+    cfg = PfConfig(num_particles=64, weight_mode="log",
+                   resample_method=method)
+    return pf_cuda.pf_fused_rollout(cfg, torch.Generator().manual_seed(5),
+                                    STEPS, device="cpu")
+
+
+def test_span_without_a_profiler_is_the_shared_no_op():
+    assert not torch.autograd.profiler._is_profiler_enabled
+    off = profiling.span("tpuslam.ekf.rollout")
+    assert off is profiling.span("tpuslam.pf.step")
+    with off as entered:
+        assert entered is None
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        assert profiling.span("tpuslam.pf.step") is not off
+
+
+def test_ekf_rollout_records_one_span():
+    _, events = _profiled(_ekf)
+    assert len(_named(events, "tpuslam.ekf.rollout")) == 1
+    # The plain path launches nothing: no parameters or launch span.
+    assert not _named(events, "tpuslam.ekf.launch")
+
+
+def test_truth_table_span_only_where_the_table_is_built():
+    cfg = EkfConfig()
+    ekf_cuda._TABLES.pop((cfg, 7, torch.device("cpu")), None)
+    built, events = _profiled(lambda: ekf_cuda.truth_table(cfg, 7, "cpu"))
+    assert len(_named(events, "tpuslam.ekf.truth_table")) == 1
+    kept, events = _profiled(lambda: ekf_cuda.truth_table(cfg, 7, "cpu"))
+    assert kept is built
+    assert not _named(events, "tpuslam.ekf.truth_table")
+
+
+def _check_loop(events, layer, steps):
+    """One ``rollout``, one ``prepare`` inside it that ends before the
+    first ``step``, and ``steps`` steps inside the rollout, in order."""
+    (rollout,) = _named(events, f"tpuslam.{layer}.rollout")
+    (prepare,) = _named(events, f"tpuslam.{layer}.prepare")
+    step = _named(events, f"tpuslam.{layer}.step")
+    assert len(step) == steps
+    assert prepare.cpu_parent.name == rollout.name
+    assert prepare.time_range.end <= step[0].time_range.start
+    for e in step:
+        assert e.cpu_parent.name == rollout.name
+        assert rollout.time_range.start <= e.time_range.start
+        assert e.time_range.end <= rollout.time_range.end
+    for a, b in zip(step, step[1:]):
+        assert a.time_range.end <= b.time_range.start
+    return step
+
+
+def test_pf_batch_rollout_spans():
+    _, events = _profiled(_pf_batch)
+    _check_loop(events, "pf_batch", STEPS)
+
+
+@pytest.mark.parametrize("method", ["merge", "search"])
+def test_pf_fused_rollout_spans(method):
+    _, events = _profiled(lambda: _pf_fused(method))
+    _check_loop(events, "pf", STEPS)
+    resample = _named(events, "tpuslam.pf.resample")
+    assert len(resample) == STEPS
+    for e in resample:
+        assert _ancestors(e)[:2] == ["tpuslam.pf.step", "tpuslam.pf.rollout"]
+
+
+@pytest.mark.parametrize("run", [_ekf, _pf_batch, _pf_fused],
+                         ids=["ekf", "pf_batch", "pf_fused"])
+def test_outputs_equal_with_the_profiler_on_and_off(run):
+    off = _flat(run())
+    on, events = _profiled(run)
+    assert any(e.name.startswith(profiling.SPAN_PREFIX) for e in events)
+    on = _flat(on)
+    assert len(on) == len(off) > 0
+    for a, b in zip(on, off):
+        assert torch.equal(a, b)
+
+
+def test_span_totals_count_and_self_time():
+    _, events = _profiled(_pf_batch)
+    got = profiling.span_totals(events)
+    assert {k: v["count"] for k, v in got.items()} == {
+        "tpuslam.pf_batch.rollout": 1, "tpuslam.pf_batch.prepare": 1,
+        "tpuslam.pf_batch.step": STEPS}
+    rollout = got["tpuslam.pf_batch.rollout"]
+    inside = (got["tpuslam.pf_batch.prepare"]["total_ms"]
+              + got["tpuslam.pf_batch.step"]["total_ms"])
+    assert rollout["self_ms"] == pytest.approx(rollout["total_ms"] - inside,
+                                               abs=1e-9)
+    for row in got.values():
+        assert 0.0 <= row["self_ms"] <= row["total_ms"]
+    # No child spans: self time is all of it.
+    step = got["tpuslam.pf_batch.step"]
+    assert step["self_ms"] == pytest.approx(step["total_ms"])
+    assert list(got)[0] == "tpuslam.pf_batch.rollout"

@@ -14,6 +14,12 @@ Dispatch is by device: a CPU device runs the plain version; a CUDA device
 launches the kernel or raises.  There is no fallback from one to the
 other.
 
+Spans (:func:`~tpuslam_torch.utils.profiling.span`, recorded only while a
+profiler records): ``tpuslam.ekf.rollout`` around
+:func:`ekf_fused_rollout`; inside its launch ``tpuslam.ekf.params`` (the
+round keys and the constants) and ``tpuslam.ekf.launch`` (the kernel
+call); ``tpuslam.ekf.truth_table`` where a truth table is built.
+
 Noise: with ``noise_on`` and no ``normals``, the normals come by
 Box-Muller from Philox4x32-10 keyed by ``seed``, with the counter
 ``(rollout index, step, draw, 0)``.  A step's five normals are, in order,
@@ -44,6 +50,7 @@ from tpuslam_torch.filters.ekf import EkfConfig, EkfState
 from tpuslam_torch.ops import _build
 from tpuslam_torch.ops.fastmath import (normals_from_bits, philox4x32,
                                         philox_round_keys, sincos_rad)
+from tpuslam_torch.utils.profiling import span
 
 #: Launches of the CUDA kernel since this count was last set to 0.
 launch_count = 0
@@ -103,17 +110,18 @@ def truth_table(cfg: EkfConfig, n_steps: int,
     key = (cfg, n_steps, device)
     tbl = _TABLES.get(key)
     if tbl is None:
-        vdt, wdt = cfg.vel * cfg.dt, cfg.yaw_rate * cfg.dt
-        t0, t1, t2 = torch.tensor(cfg.x0, dtype=torch.float32,
-                                  device=device).unbind()
-        rows = []
-        for _ in range(n_steps):
-            t0 = t0 + vdt * torch.cos(t2)
-            t1 = t1 + vdt * torch.sin(t2)
-            t2 = wrap_angle(t2 + wdt)
-            rows.append(torch.stack([t0, t1, t2, torch.cos(t2),
-                                     torch.sin(t2)]))
-        tbl = _TABLES[key] = torch.stack(rows).contiguous()
+        with span("tpuslam.ekf.truth_table"):
+            vdt, wdt = cfg.vel * cfg.dt, cfg.yaw_rate * cfg.dt
+            t0, t1, t2 = torch.tensor(cfg.x0, dtype=torch.float32,
+                                      device=device).unbind()
+            rows = []
+            for _ in range(n_steps):
+                t0 = t0 + vdt * torch.cos(t2)
+                t1 = t1 + vdt * torch.sin(t2)
+                t2 = wrap_angle(t2 + wdt)
+                rows.append(torch.stack([t0, t1, t2, torch.cos(t2),
+                                         torch.sin(t2)]))
+            tbl = _TABLES[key] = torch.stack(rows).contiguous()
     return tbl
 
 
@@ -318,17 +326,20 @@ def _launch(cfg: EkfConfig, seed: int, batch: int, n_steps: int, mode: int,
         state = torch.empty((9, batch), **f32)
         cov = torch.empty((9, batch), **f32)
         err = torch.empty((2, batch), **f32)
-        rk0, rk1 = philox_round_keys(seed & _MASK32,
-                                     (seed >> 32) & _MASK32)
-        params = _EkfParams(batch=batch, n_steps=n_steps,
-                            rk0=(ctypes.c_uint32 * _ROUNDS)(*rk0),
-                            rk1=(ctypes.c_uint32 * _ROUNDS)(*rk1),
-                            **_constants(cfg))
-        rc = lib.tpuslam_ekf_rollout(
-            tbl.data_ptr(), None if normals is None else normals.data_ptr(),
-            state.data_ptr(), cov.data_ptr(), err.data_ptr(),
-            ctypes.addressof(params), mode, int(with_nees),
-            torch.cuda.current_stream(device).cuda_stream)
+        with span("tpuslam.ekf.params"):
+            rk0, rk1 = philox_round_keys(seed & _MASK32,
+                                         (seed >> 32) & _MASK32)
+            params = _EkfParams(batch=batch, n_steps=n_steps,
+                                rk0=(ctypes.c_uint32 * _ROUNDS)(*rk0),
+                                rk1=(ctypes.c_uint32 * _ROUNDS)(*rk1),
+                                **_constants(cfg))
+        with span("tpuslam.ekf.launch"):
+            rc = lib.tpuslam_ekf_rollout(
+                tbl.data_ptr(),
+                None if normals is None else normals.data_ptr(),
+                state.data_ptr(), cov.data_ptr(), err.data_ptr(),
+                ctypes.addressof(params), mode, int(with_nees),
+                torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ekf_rollout kernel launch failed: CUDA error "
                            f"{rc}")
@@ -362,16 +373,18 @@ def ekf_fused_rollout(cfg: EkfConfig, seed: int, batch: int, n_steps: int,
         for the per-rollout RMSE).  With ``with_nees=True``,
         ``(EkfState, sum_sq_err, sum_nees)``.
     """
-    device = _build.resolve_device(device)
-    seed = int(seed)
-    if device.type == "cpu":
-        return ekf_fused_rollout_plain(cfg, seed, batch, n_steps, noise_on,
-                                       with_nees, normals, device=device)
-    if device.type != "cuda":
-        raise ValueError(f"unsupported device {device}")
-    _check(batch, n_steps, normals, device)
-    return _launch(cfg, seed, batch, n_steps, _mode(noise_on, normals),
-                   with_nees, normals, device)
+    with span("tpuslam.ekf.rollout"):
+        device = _build.resolve_device(device)
+        seed = int(seed)
+        if device.type == "cpu":
+            return ekf_fused_rollout_plain(cfg, seed, batch, n_steps,
+                                           noise_on, with_nees, normals,
+                                           device=device)
+        if device.type != "cuda":
+            raise ValueError(f"unsupported device {device}")
+        _check(batch, n_steps, normals, device)
+        return _launch(cfg, seed, batch, n_steps, _mode(noise_on, normals),
+                       with_nees, normals, device)
 
 
 def ekf_fused_sweeps(cfg: EkfConfig, seed: int, n_sweeps: int, batch: int,

@@ -45,6 +45,12 @@ the rollout's device, or from the caller.  The seeds follow the JAX
 rollouts: ``1``, then ``+7919`` a step (batched) or
 ``+max(7919, B * ceil(n / 1024))`` (wide).
 
+Spans (:func:`~tpuslam_torch.utils.profiling.span`, recorded only while a
+profiler records): :func:`pf_batch_rollout` records
+``tpuslam.pf_batch.rollout`` around the call, ``tpuslam.pf_batch.prepare``
+from its start to the step loop and ``tpuslam.pf_batch.step`` around each
+step, one K4 launch.
+
 Host synchronisation: none a step.  The gate, the slot compaction and the
 kernels' arguments stay on the device, and no wrapper reads a device
 value on the host (``utils/profiling.py::count_host_syncs`` counts what
@@ -68,6 +74,7 @@ from tpuslam_torch.ops.fastmath import philox4x32
 from tpuslam_torch.ops.pf_cuda import (_MODE_PHILOX, _constants, _mode,
                                        _observe, _predict_loglik,
                                        _truth_tables)
+from tpuslam_torch.utils.profiling import span
 
 #: Launches of each CUDA kernel since its count was last set to 0.
 launch_count = 0  # K4
@@ -536,45 +543,55 @@ def pf_batch_rollout(cfg: PfConfig, generator: torch.Generator | None,
         steps (``x_true (T, 3)``, ``x_est (T, B, 3)``, ``ess (T, B)``,
         ...).
     """
-    device = _rollout_device(generator, device)
-    if n_steps < 1:
-        raise ValueError(f"n_steps {n_steps} must be positive")
-    if device.type == "cuda":
-        _build.cuda_library(device)
-    state = pf_batch_init(cfg, batch, device=device) if state0 is None \
-        else state0
-    b, n = state.log_w.shape
-    x_tbl, z_clean = _truth_tables(cfg, state, n_steps, state0 is None)
-    noise = _obs_noise(cfg, generator, (n_steps, b), obs_noise, device)
-    z_all = (z_clean[:, None] + noise).contiguous()  # (T, B, L, 2)
-    if offs is not None:
-        offs = _draw(None, (n_steps, b), offs, device, "offsets")
-    # Every step writes its outputs straight into the stacked buffers, and
-    # the particles and log weights alternate between two buffers: a step
-    # is one launch and nothing else.
-    f32 = dict(dtype=torch.float32, device=device)
-    outs = PfBatchRows(
-        particles=None, log_w=None, lse=torch.empty((n_steps, b), **f32),
-        lse2=torch.empty((n_steps, b), **f32),
-        x_est=torch.empty((n_steps, b, 3), **f32),
-        ess=torch.empty((n_steps, b), **f32),
-        resampled=torch.empty((n_steps, b), dtype=torch.bool, device=device),
-        bad=torch.empty((n_steps, b), dtype=torch.bool, device=device),
-        sel=None)
-    bufs = [(torch.empty((3, b, n), **f32), torch.empty((b, n), **f32))
-            for _ in range(2)]
-    p, lw, lse, lse2 = state.particles, state.log_w, state.lse, state.lse2
-    seed = SEED0
-    for k in range(n_steps):
-        p_out, lw_out = bufs[k % 2]
-        row = PfBatchRows(p_out, lw_out, *(t[k] for t in outs[2:8]), None)
-        pf_batch_step_rows(cfg, seed, p, lw, lse, lse2, z_all[k], noise_on,
-                           None, None if offs is None else offs[k], out=row)
-        p, lw, lse, lse2 = p_out, lw_out, row.lse, row.lse2
-        seed += SEED_STEP
-    final = PfBatchState(x_tbl[-1], p, lw, lse, lse2)
-    return final, PfBatchOut(x_tbl, outs.x_est, outs.ess, outs.lse,
-                             outs.resampled, outs.bad)
+    with span("tpuslam.pf_batch.rollout"):
+        with span("tpuslam.pf_batch.prepare"):
+            device = _rollout_device(generator, device)
+            if n_steps < 1:
+                raise ValueError(f"n_steps {n_steps} must be positive")
+            if device.type == "cuda":
+                _build.cuda_library(device)
+            state = pf_batch_init(cfg, batch, device=device) \
+                if state0 is None else state0
+            b, n = state.log_w.shape
+            x_tbl, z_clean = _truth_tables(cfg, state, n_steps,
+                                           state0 is None)
+            noise = _obs_noise(cfg, generator, (n_steps, b), obs_noise,
+                               device)
+            z_all = (z_clean[:, None] + noise).contiguous()  # (T, B, L, 2)
+            if offs is not None:
+                offs = _draw(None, (n_steps, b), offs, device, "offsets")
+            # Every step writes its outputs straight into the stacked
+            # buffers, and the particles and log weights alternate between
+            # two buffers: a step is one launch and nothing else.
+            f32 = dict(dtype=torch.float32, device=device)
+            b_rows = dict(dtype=torch.bool, device=device)
+            outs = PfBatchRows(
+                particles=None, log_w=None,
+                lse=torch.empty((n_steps, b), **f32),
+                lse2=torch.empty((n_steps, b), **f32),
+                x_est=torch.empty((n_steps, b, 3), **f32),
+                ess=torch.empty((n_steps, b), **f32),
+                resampled=torch.empty((n_steps, b), **b_rows),
+                bad=torch.empty((n_steps, b), **b_rows), sel=None)
+            bufs = [(torch.empty((3, b, n), **f32),
+                     torch.empty((b, n), **f32)) for _ in range(2)]
+            p, lw = state.particles, state.log_w
+            lse, lse2 = state.lse, state.lse2
+            seed = SEED0
+        for k in range(n_steps):
+            with span("tpuslam.pf_batch.step"):
+                p_out, lw_out = bufs[k % 2]
+                row = PfBatchRows(p_out, lw_out,
+                                  *(t[k] for t in outs[2:8]), None)
+                pf_batch_step_rows(cfg, seed, p, lw, lse, lse2, z_all[k],
+                                   noise_on, None,
+                                   None if offs is None else offs[k],
+                                   out=row)
+                p, lw, lse, lse2 = p_out, lw_out, row.lse, row.lse2
+                seed += SEED_STEP
+        final = PfBatchState(x_tbl[-1], p, lw, lse, lse2)
+        return final, PfBatchOut(x_tbl, outs.x_est, outs.ess, outs.lse,
+                                 outs.resampled, outs.bad)
 
 
 # ---------------------------------------------------------------------------

@@ -36,6 +36,13 @@ there, every step, and do nothing where it is off, so the loop makes no
 host synchronisation.  The other methods (``search``, the default,
 ``hist``, ``systematic``) resample with torch ops on the host's decision:
 one synchronisation a step, counted in :data:`sync_count`.
+
+Spans (:func:`~tpuslam_torch.utils.profiling.span`, recorded only while a
+profiler records): the rollout records ``tpuslam.pf.rollout`` around the
+call, ``tpuslam.pf.prepare`` from its start to the step loop,
+``tpuslam.pf.step`` around each step and, inside a step,
+``tpuslam.pf.resample`` around the resample (the merge, or another method
+on the host's gate).
 """
 
 from __future__ import annotations
@@ -55,6 +62,7 @@ from tpuslam_torch.models.process import circular_step
 from tpuslam_torch.ops import _build, resample_cuda
 from tpuslam_torch.ops.fastmath import (normals_from_bits, philox4x32,
                                         sincos_rad)
+from tpuslam_torch.utils.profiling import span
 
 #: Launches of the CUDA kernel since this count was last set to 0.
 launch_count = 0
@@ -529,12 +537,13 @@ def _step(cfg: PfConfig, fs: PfFusedState, x_true: torch.Tensor,
     method on the host's), then the stats pass and the estimate.
     Returns the next state and the merge's ``(2,)`` device gate (None for
     the other methods)."""
-    if cfg.resample_method == "merge":
-        p_alt, gate = _resample_gated(cfg, fs, offs, plain, merge_kw)
-        particles, log_w, flag = fs.particles, fs.log_w, 0.0
-    else:
-        particles, log_w, flag = _resample_on_host(cfg, fs, offs)
-        p_alt = gate = None
+    with span("tpuslam.pf.resample"):
+        if cfg.resample_method == "merge":
+            p_alt, gate = _resample_gated(cfg, fs, offs, plain, merge_kw)
+            particles, log_w, flag = fs.particles, fs.log_w, 0.0
+        else:
+            particles, log_w, flag = _resample_on_host(cfg, fs, offs)
+            p_alt = gate = None
     # The lazy NaN->uniform reset and the restart after a resample ride the
     # kernel's read of log_w.
     particles, log_w, stats = _step_rows(
@@ -686,27 +695,30 @@ def _truth_tables(cfg: PfConfig, fs: PfFusedState, n_steps: int,
 
 def _rollout(cfg, generator, n_steps, state0, noise_on, device, offs,
              obs_noise, plain, merge_caps_kw, gates):
-    device = _build.resolve_device(device)
-    if n_steps < 1:
-        raise ValueError(f"n_steps {n_steps} must be positive")
-    merge_kw = resample_cuda.merge_options(merge_caps_kw)
-    if device.type == "cuda" and not plain:
-        _build.cuda_library(device)
-    fs = pf_fused_init(cfg, state0, device=device)
-    x_tbl, z_clean = _truth_tables(cfg, fs, n_steps, state0 is None)
-    offs, obs_noise = _draws(cfg, generator, n_steps, offs, obs_noise,
-                             device)
-    z_all = (z_clean + obs_noise).contiguous()
-    seed = SEED0
-    x_est = []
-    for k in range(n_steps):
-        fs, gate = _step(cfg, fs, x_tbl[k], z_all[k], seed, offs[k],
-                         noise_on, None, plain, merge_kw)
-        x_est.append(fs.x_est)
-        if gates is not None:
-            gates.append(gate)
-        seed += SEED_STEP
-    return pf_fused_to_state(cfg, fs), (x_tbl, torch.stack(x_est))
+    with span("tpuslam.pf.rollout"):
+        with span("tpuslam.pf.prepare"):
+            device = _build.resolve_device(device)
+            if n_steps < 1:
+                raise ValueError(f"n_steps {n_steps} must be positive")
+            merge_kw = resample_cuda.merge_options(merge_caps_kw)
+            if device.type == "cuda" and not plain:
+                _build.cuda_library(device)
+            fs = pf_fused_init(cfg, state0, device=device)
+            x_tbl, z_clean = _truth_tables(cfg, fs, n_steps, state0 is None)
+            offs, obs_noise = _draws(cfg, generator, n_steps, offs,
+                                     obs_noise, device)
+            z_all = (z_clean + obs_noise).contiguous()
+            seed = SEED0
+            x_est = []
+        for k in range(n_steps):
+            with span("tpuslam.pf.step"):
+                fs, gate = _step(cfg, fs, x_tbl[k], z_all[k], seed, offs[k],
+                                 noise_on, None, plain, merge_kw)
+                x_est.append(fs.x_est)
+                if gates is not None:
+                    gates.append(gate)
+                seed += SEED_STEP
+        return pf_fused_to_state(cfg, fs), (x_tbl, torch.stack(x_est))
 
 
 def pf_fused_rollout(cfg: PfConfig, generator: torch.Generator | None,

@@ -1,5 +1,10 @@
-"""Timing on the card with CUDA events, and a count of host
-synchronisations.
+"""Spans on the profiler's clock, timing on the card with CUDA events, and
+a count of host synchronisations.
+
+:func:`span` marks a part of the program's host path (names start
+``tpuslam.``) as an event of the running ``torch.profiler`` session, on
+the clock of its device events; with no profiler recording it costs one
+flag check and records nothing.
 
 :func:`timed` records an event pair on the device's current stream
 around each call, so it measures the device's time from the first
@@ -11,7 +16,7 @@ time.
 
 :func:`profile_window` reads one call through ``torch.profiler``: the
 device's busy time against the host's wall time, the largest device-time
-entries, and the torch operations a step.
+entries, the torch operations a step and the program's spans.
 
 :func:`count_host_syncs` counts the operations inside a block that make
 the host wait for the card (``.item()``, ``.tolist()``, a blocking copy
@@ -25,6 +30,55 @@ import time
 import warnings
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+#: Every span's name starts with this.
+SPAN_PREFIX = "tpuslam."
+
+# The cheaper of torch's two recorders, where the installed torch has it;
+# both put the span in the profiler's own trace.
+_RECORD = getattr(torch._C._profiler, "_RecordFunctionFast",
+                  torch.profiler.record_function)
+
+
+# The span of a run with no profiler recording: one shared object that
+# does nothing.
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context that records ``name`` (``tpuslam.<layer>.<part>``) as a
+    span of the running profiler, nested in the spans open around it; with
+    no profiler recording, one shared object that records nothing."""
+    if _autograd_profiler._is_profiler_enabled:
+        return _RECORD(name)
+    return _NO_SPAN
+
+
+def span_totals(events) -> dict:
+    """``{name: {"count", "total_ms", "self_ms"}}`` of the :func:`span`
+    events among a profiler's ``events()``, largest total first.  A span's
+    self time is its duration less that of the spans directly inside it.
+    """
+    host = sorted((e for e in events if e.name.startswith(SPAN_PREFIX)
+                   and e.device_type == torch.autograd.DeviceType.CPU),
+                  key=lambda e: (e.thread, e.time_range.start,
+                                 -e.time_range.end))
+    out, open_spans = {}, []
+    for e in host:
+        start, end = e.time_range.start, e.time_range.end
+        while open_spans and (open_spans[-1][0] != e.thread
+                              or open_spans[-1][1] <= start):
+            open_spans.pop()
+        row = out.setdefault(e.name, {"count": 0, "total_ms": 0.0,
+                                      "self_ms": 0.0})
+        row["count"] += 1
+        row["total_ms"] += (end - start) / 1e3
+        row["self_ms"] += (end - start) / 1e3
+        if open_spans:
+            out[open_spans[-1][2]]["self_ms"] -= (end - start) / 1e3
+        open_spans.append((e.thread, end, e.name))
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]["total_ms"]))
 
 
 def timed(fn, *args, reps: int = 5, warmup: int = 1,
@@ -69,14 +123,6 @@ def device_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def steps_per_second(fn, *args, work_items: int, reps: int = 5,
-                     warmup: int = 1,
-                     device: torch.device | str = "cuda") -> float:
-    """``work_items`` over the median time of ``fn(*args)``."""
-    return work_items / timed(fn, *args, reps=reps, warmup=warmup,
-                              device=device)
-
-
 #: The runtime calls in which the host waits for the device: a copy to
 #: the host (``.item()``, ``.tolist()``) and the stream synchronise
 #: behind it.
@@ -91,11 +137,12 @@ def profile_window(call, steps: int | None = None) -> dict:
     op's entry repeats the time of the kernels it launched, so ops are not
     summed), ``sync_ms`` (the host's time inside the runtime calls that
     wait for the device: :data:`_WAITS`, the closing synchronise left
-    out), ``top`` (``(name, ms)`` of every entry with device time,
-    largest first), ``launches`` (the host's kernel-launch calls,
+    out), ``top`` (``(name, ms)`` of every entry with device time but
+    the program's spans, largest first), ``launches`` (the host's kernel-launch calls,
     ``cudaLaunchKernel``, ``cuLaunchKernel`` and their variants) and,
     with ``steps``, ``ops_per_step``: the ``aten::`` events that no other
-    ``aten::`` event encloses, over ``steps``.
+    ``aten::`` event encloses, over ``steps``; and ``spans``, the program's
+    spans by name (:func:`span_totals`).
     """
     if not torch.cuda.is_available():
         raise RuntimeError("profile_window() needs a CUDA device")
@@ -112,7 +159,7 @@ def profile_window(call, steps: int | None = None) -> dict:
         if evt.key in _WAITS:
             sync_us += evt.cpu_time_total
         us = getattr(evt, "self_device_time_total", 0.0)
-        if us > 0:
+        if us > 0 and not evt.key.startswith(SPAN_PREFIX):
             by_name[evt.key] = by_name.get(evt.key, 0.0) + us
             if evt.device_type != torch.autograd.DeviceType.CPU:
                 busy_us += us
@@ -122,7 +169,8 @@ def profile_window(call, steps: int | None = None) -> dict:
     out = {"wall_ms": wall_ms, "busy_ms": busy_us / 1e3,
            "sync_ms": sync_us / 1e3, "launches": launches,
            "top": [(k, v / 1e3) for k, v in
-                   sorted(by_name.items(), key=lambda kv: -kv[1])]}
+                   sorted(by_name.items(), key=lambda kv: -kv[1])],
+           "spans": span_totals(prof.events())}
     if steps:
         n_ops = sum(1 for evt in prof.events()
                     if evt.name.startswith("aten::")
