@@ -249,6 +249,141 @@ def test_params_struct_mirrors_cuda_source():
     assert ctypes.sizeof(ekf_cuda._EkfParams) == 8 + 4 + 2 * 10 * 4 + 18 * 4 + 4
 
 
+OTHER_CFG = EkfConfig(dt=0.05, radius_m=7.5, yaw_rate=math.radians(14.0),
+                      q_std=(0.2, 0.15, math.radians(0.5)), r_std=(0.5, 0.7),
+                      q_act_std=(0.3, 0.1, 0.01), r_act_std=(1.5, 0.5),
+                      x0=(7.5, 0.0, 1.2), p0_std=(0.02, 0.03, 0.4))
+TWO_WORD_SEED = (0x1234ABCD << 32) | 0x9E37
+
+
+@pytest.fixture
+def stand_in(monkeypatch):
+    """The launch path on the CPU: an empty plan cache and counters, and a
+    stand-in library whose entry records its arguments (``calls``) and
+    launches nothing; the CUDA stream and device queries answer for the
+    CPU device (index None)."""
+    calls = []
+
+    def rollout(*args):
+        calls.append(args)
+        return 0
+
+    lib = type("StandInLibrary", (), {})()
+    lib.tpuslam_ekf_rollout = rollout
+    monkeypatch.setattr(ekf_cuda, "_PLANS", {})
+    monkeypatch.setattr(ekf_cuda, "plan_builds", 0)
+    monkeypatch.setattr(ekf_cuda, "launch_count", 0)
+    monkeypatch.setattr(_build, "cuda_library", lambda device: lib)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda index: 77, raising=False)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
+    return calls
+
+
+@pytest.mark.parametrize("n_steps", [7, 400])
+@pytest.mark.parametrize("cfg", [CFG, OTHER_CFG], ids=["default", "other"])
+def test_plan_params_equal_the_per_call_struct(stand_in, cfg, n_steps):
+    """The plan's template is, field for field and as float32, the struct
+    a launch built on every call before plans (here with the round keys
+    zeroed); ``batch`` and the round keys are left 0 for the entry."""
+    plan = ekf_cuda._plan(cfg, n_steps, torch.device("cpu"))
+    zero = [0] * 10
+    want = ekf_cuda._EkfParams(batch=8192, n_steps=n_steps,
+                               rk0=(ctypes.c_uint32 * 10)(*zero),
+                               rk1=(ctypes.c_uint32 * 10)(*zero),
+                               **ekf_cuda._constants(cfg))
+    got = plan.params
+    assert got.batch == 0 and got.n_steps == n_steps
+    assert list(got.rk0) == list(got.rk1) == zero
+    constants = ekf_cuda._constants(cfg)
+    for name, _ in ekf_cuda._EkfParams._fields_[4:]:
+        assert getattr(got, name) == getattr(want, name), name
+        assert getattr(got, name) == float(np.float32(constants[name])), name
+    want.batch = 0
+    assert bytes(got) == bytes(want)
+    assert plan.params_ptr == ctypes.addressof(got)
+    assert plan.table is ekf_cuda.truth_table(cfg, n_steps, "cpu")
+    assert plan.table_ptr == plan.table.data_ptr()
+
+
+def test_plan_built_once_per_cfg_steps_and_device(stand_in):
+    """Plans are cached by (cfg, n_steps, device), not by batch or seed;
+    ``plan_builds`` counts the builds and ``launch_count`` the launches,
+    and no call writes the template."""
+    cpu = torch.device("cpu")
+    for cfg in (CFG, OTHER_CFG):
+        for n_steps in (4, 5):
+            for batch, seed in ((8, 1), (24, 2), (8, TWO_WORD_SEED)):
+                ekf_cuda._launch(cfg, seed, batch, n_steps, 1, True, None,
+                                 cpu)
+    assert ekf_cuda.plan_builds == len(ekf_cuda._PLANS) == 4
+    assert ekf_cuda.launch_count == len(stand_in) == 12
+    plan = ekf_cuda._PLANS[(CFG, 4, cpu)]
+    template = bytes(plan.params)
+    ekf_cuda._launch(CFG, TWO_WORD_SEED, 24, 4, 1, False, None, cpu)
+    assert bytes(plan.params) == template
+    assert ekf_cuda.plan_builds == 4
+
+
+def test_launch_arguments_and_output_views(stand_in):
+    """Each launch passes the plan's table and template, its own batch,
+    the seed's two words, mode, NEES flag and the current stream; the
+    state, covariance and accumulator pointers are rows 0, 9 and 18 of
+    one fresh ``(20, batch)`` buffer, and the returned views read those
+    rows."""
+    cpu, batch, n_steps = torch.device("cpu"), 24, 4
+    normals = torch.zeros((n_steps, 5, batch))
+    outs = [ekf_cuda._launch(CFG, TWO_WORD_SEED, batch, n_steps, 2, True,
+                             normals, cpu) for _ in range(2)]
+    plan = ekf_cuda._PLANS[(CFG, n_steps, cpu)]
+    row = 4 * batch
+    for (final, err, nees), args in zip(outs, stand_in):
+        base = final.x_true.data_ptr()
+        assert args == (plan.table_ptr, normals.data_ptr(), base,
+                        base + 9 * row, base + 18 * row, plan.params_ptr,
+                        batch, 0x9E37, 0x1234ABCD, 2, 1, 77)
+        assert final.x_true.untyped_storage().nbytes() == 20 * row
+        assert final.x_dr.data_ptr() == base + 3 * row
+        assert final.x_hat.data_ptr() == base + 6 * row
+        assert final.cov.data_ptr() == base + 9 * row
+        assert (err.data_ptr(), nees.data_ptr()) == (base + 18 * row,
+                                                     base + 19 * row)
+        assert final.x_true.shape == final.x_hat.shape == (batch, 3)
+        assert final.cov.shape == (batch, 3, 3)
+        assert err.shape == nees.shape == (batch,)
+    # A fresh buffer each call: a caller may keep every call's outputs.
+    assert outs[0][0].x_true.data_ptr() != outs[1][0].x_true.data_ptr()
+    final, err = ekf_cuda._launch(CFG, 5, batch, n_steps, 0, False, None, cpu)
+    assert stand_in[-1][1] is None and stand_in[-1][6:11] == (batch, 5, 0,
+                                                              0, 0)
+
+
+def test_rollout_entry_mirrors_declared_argtypes():
+    """The C entry's parameters, in order, are the ``argtypes`` that
+    ``_build`` declares for it."""
+    src = (_build.CSRC_DIR / "ekf_rollout.cu").read_text()
+    params = re.search(r'extern "C" int tpuslam_ekf_rollout\((.*?)\)\s*\{',
+                       src, re.S).group(1)
+    ctypes_of = {"const float*": ctypes.c_void_p, "float*": ctypes.c_void_p,
+                 "const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+                 "long long": ctypes.c_longlong, "uint32_t": ctypes.c_uint32,
+                 "int": ctypes.c_int}
+    words = [p.split() for p in params.split(",")]
+    assert [w[-1] for w in words] == [
+        "tbl", "normals", "state", "cov", "err", "params", "batch",
+        "seed_lo", "seed_hi", "mode", "with_nees", "stream"]
+
+    class Functions:
+        def __getattr__(self, name):
+            fn = type("Function", (), {})()
+            setattr(self, name, fn)
+            return fn
+
+    entry = _build._declare(Functions()).tpuslam_ekf_rollout
+    assert entry.argtypes == [ctypes_of[" ".join(w[:-1])] for w in words]
+    assert entry.restype is ctypes.c_int
+
+
 def test_build_flags_and_sources():
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags

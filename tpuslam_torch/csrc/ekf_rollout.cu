@@ -310,13 +310,22 @@ void launch(bool with_nees, dim3 grid, cudaStream_t stream, const float* tbl,
 
 }  // namespace
 
-// C entry point for ctypes.  Launches on `stream` and returns
-// cudaGetLastError() (0 when the launch was accepted); never synchronises.
+// C entry point for ctypes.  `params` is a filled template (every field
+// but `batch` and the round keys), which stays read-only: the entry copies
+// it, sets `batch` and folds the Philox key (seed_lo, seed_hi) into the
+// round keys, then launches on `stream` and returns cudaGetLastError() (0
+// when the launch was accepted); never synchronises.
 extern "C" int tpuslam_ekf_rollout(const float* tbl, const float* normals,
                                    float* state, float* cov, float* err,
-                                   const void* params, int mode, int with_nees,
-                                   void* stream) {
-  const EkfParams& p = *static_cast<const EkfParams*>(params);
+                                   const void* params, long long batch,
+                                   uint32_t seed_lo, uint32_t seed_hi,
+                                   int mode, int with_nees, void* stream) {
+  EkfParams p = *static_cast<const EkfParams*>(params);
+  p.batch = batch;
+  for (int r = 0; r < kPhiloxRounds; ++r) {
+    p.rk0[r] = seed_lo + static_cast<uint32_t>(r) * tpuslam::kPhiloxW0;
+    p.rk1[r] = seed_hi + static_cast<uint32_t>(r) * tpuslam::kPhiloxW1;
+  }
   if (p.batch < 1 || p.n_steps < 1 || mode < 0 || mode > 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

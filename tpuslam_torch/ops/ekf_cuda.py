@@ -14,11 +14,18 @@ Dispatch is by device: a CPU device runs the plain version; a CUDA device
 launches the kernel or raises.  There is no fallback from one to the
 other.
 
+A launch reuses one plan per ``(cfg, n_steps, device)``: the kernel
+library, the truth table and the kernel's parameters filled from the
+config.  A call adds only its own: the batch and seed (the library's
+entry folds the seed into the Philox round keys), a fresh output buffer
+and the current stream.
+
 Spans (:func:`~tpuslam_torch.utils.profiling.span`, recorded only while a
 profiler records): ``tpuslam.ekf.rollout`` around
 :func:`ekf_fused_rollout`; inside its launch ``tpuslam.ekf.params`` (the
-round keys and the constants) and ``tpuslam.ekf.launch`` (the kernel
-call); ``tpuslam.ekf.truth_table`` where a truth table is built.
+plan lookup, the stream and the output buffer) and ``tpuslam.ekf.launch``
+(the kernel call); ``tpuslam.ekf.plan`` where a plan is built, holding
+``tpuslam.ekf.truth_table`` where a truth table is built.
 
 Noise: with ``noise_on`` and no ``normals``, the normals come by
 Box-Muller from Philox4x32-10 keyed by ``seed``, with the counter
@@ -42,6 +49,7 @@ noise on.
 from __future__ import annotations
 
 import ctypes
+import typing
 
 import torch
 
@@ -49,11 +57,15 @@ from tpuslam_torch.core.angles import wrap_angle
 from tpuslam_torch.filters.ekf import EkfConfig, EkfState
 from tpuslam_torch.ops import _build
 from tpuslam_torch.ops.fastmath import (normals_from_bits, philox4x32,
-                                        philox_round_keys, sincos_rad)
+                                        sincos_rad)
 from tpuslam_torch.utils.profiling import span
 
 #: Launches of the CUDA kernel since this count was last set to 0.
 launch_count = 0
+#: Launch plans built since this count was last set to 0; over the same
+#: launches, ``1 - plan_builds / launch_count`` is the plan cache's hit
+#: share.
+plan_builds = 0
 
 _MODE_OFF, _MODE_PHILOX, _MODE_NORMALS = 0, 1, 2
 _MASK32 = 0xFFFFFFFF
@@ -62,6 +74,9 @@ _ROUNDS = 10  # Philox4x32-10's rounds, a round key each
 # Truth tables by (cfg, n_steps, device): one small tensor per
 # configuration, built once on the device.
 _TABLES: dict = {}
+# Launch plans (:class:`_Plan`) by the same key, so neither cache grows
+# with the batch.
+_PLANS: dict = {}
 
 
 class _EkfParams(ctypes.Structure):
@@ -73,6 +88,18 @@ class _EkfParams(ctypes.Structure):
         (name, ctypes.c_float) for name in (
             "vdt", "wdt", "q0", "q1", "q2", "r0sq", "r1sq", "qa0", "qa1",
             "qa2", "ra0", "ra1", "x0", "x1", "x2", "p00", "p11", "p22")]
+
+
+class _Plan(typing.NamedTuple):
+    """What a launch for one ``(cfg, n_steps, device)`` needs besides its
+    batch, seed, outputs and stream."""
+
+    rollout: typing.Callable[..., int]  # the library's tpuslam_ekf_rollout
+    table: torch.Tensor  # the truth table, kept alive for table_ptr
+    table_ptr: int
+    index: int | None  # the device's CUDA index
+    params: _EkfParams  # read-only template: batch and round keys 0
+    params_ptr: int
 
 
 def _constants(cfg: EkfConfig) -> dict:
@@ -315,36 +342,54 @@ def ekf_fused_rollout_plain(cfg: EkfConfig, seed: int, batch: int,
     return _finish(state, cov, torch.stack([acc, acc_n]), with_nees)
 
 
+def _plan(cfg: EkfConfig, n_steps: int, device: torch.device) -> _Plan:
+    """The launch plan of ``(cfg, n_steps, device)``, built at its first
+    launch: the kernel library (raises where CUDA is not available), the
+    truth table, and the parameters from :func:`_constants`, rounded to
+    float32 once by ``ctypes``."""
+    global plan_builds
+    key = (cfg, n_steps, device)
+    plan = _PLANS.get(key)
+    if plan is None:
+        with span("tpuslam.ekf.plan"):
+            lib = _build.cuda_library(device)
+            tbl = truth_table(cfg, n_steps, device)
+            params = _EkfParams(n_steps=n_steps, **_constants(cfg))
+            plan = _PLANS[key] = _Plan(
+                lib.tpuslam_ekf_rollout, tbl, tbl.data_ptr(), device.index,
+                params, ctypes.addressof(params))
+        plan_builds += 1
+    return plan
+
+
 def _launch(cfg: EkfConfig, seed: int, batch: int, n_steps: int, mode: int,
             with_nees: bool, normals: torch.Tensor | None,
             device: torch.device):
     global launch_count
-    lib = _build.cuda_library(device)
-    with torch.cuda.device(device):
-        tbl = truth_table(cfg, n_steps, device)
-        f32 = dict(dtype=torch.float32, device=device)
-        state = torch.empty((9, batch), **f32)
-        cov = torch.empty((9, batch), **f32)
-        err = torch.empty((2, batch), **f32)
-        with span("tpuslam.ekf.params"):
-            rk0, rk1 = philox_round_keys(seed & _MASK32,
-                                         (seed >> 32) & _MASK32)
-            params = _EkfParams(batch=batch, n_steps=n_steps,
-                                rk0=(ctypes.c_uint32 * _ROUNDS)(*rk0),
-                                rk1=(ctypes.c_uint32 * _ROUNDS)(*rk1),
-                                **_constants(cfg))
-        with span("tpuslam.ekf.launch"):
-            rc = lib.tpuslam_ekf_rollout(
-                tbl.data_ptr(),
+    with span("tpuslam.ekf.params"):
+        plan = _plan(cfg, n_steps, device)
+        stream = torch._C._cuda_getCurrentRawStream(plan.index)
+        # One fresh buffer a call, rows 0:9 the state, 9:18 the
+        # covariance, 18:20 the accumulators; the views are taken after
+        # the launch, which reads only their addresses.
+        out = torch.empty((20, batch), dtype=torch.float32, device=device)
+    with span("tpuslam.ekf.launch"):
+        ptr, row = out.data_ptr(), 4 * batch
+        args = (plan.table_ptr,
                 None if normals is None else normals.data_ptr(),
-                state.data_ptr(), cov.data_ptr(), err.data_ptr(),
-                ctypes.addressof(params), mode, int(with_nees),
-                torch.cuda.current_stream(device).cuda_stream)
+                ptr, ptr + 9 * row, ptr + 18 * row, plan.params_ptr, batch,
+                seed & _MASK32, (seed >> 32) & _MASK32, mode,
+                int(with_nees), stream)
+        if torch.cuda.current_device() == plan.index:
+            rc = plan.rollout(*args)
+        else:
+            with torch.cuda.device(plan.index):
+                rc = plan.rollout(*args)
     if rc != 0:
         raise RuntimeError(f"ekf_rollout kernel launch failed: CUDA error "
                            f"{rc}")
     launch_count += 1
-    return _finish(state, cov, err, with_nees)
+    return _finish(out[0:9], out[9:18], out[18:20], with_nees)
 
 
 def ekf_fused_rollout(cfg: EkfConfig, seed: int, batch: int, n_steps: int,

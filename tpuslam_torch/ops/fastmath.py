@@ -13,7 +13,7 @@ functions in ``csrc/fastmath.cuh``, which the EKF kernel inlines:
   (Salmon et al., SC'11) on int64 tensors holding 32-bit words.  It gives
   the kernel's random bits bit for bit, so the plain EKF rollout draws
   the kernel's noise stream; :func:`philox_round_keys` is its key
-  schedule, which the EKF kernel takes folded.
+  schedule, which the EKF kernel's C entry folds the same way.
 """
 
 from __future__ import annotations

@@ -19,7 +19,10 @@ card's clocks falls on every side.  Each prints one JSON line with:
   BASELINE (8192 x 400; 20 calls queued behind a sleep kernel) shapes;
 * K1's largest kernel-minus-plain difference with noise off (1024 x 50)
   and with injected normals (4096 x 64), ``chip_smoke.py``'s phase 3 and
-  4 shapes, and a digest of the kernel's outputs there;
+  4 shapes, and a digest of the kernel's outputs there; a digest of its
+  outputs in each mode (noise off, Philox, injected normals), with and
+  without NEES, at 8192 x 400 (Philox seed 1) and 8192 x 401 (a seed
+  with both key words);
 * the wide resample's prerequisites at 1024 x 10,000 with 0, 240 and
   1024 filters firing: K5a with the torch work it needs before it (the
   slot compaction and, before K5a took them in, the quantized prefixes
@@ -94,6 +97,8 @@ import sys
 
 FLAGSHIP = (8_388_608, 1600)
 BASELINE = (8192, 400)
+K1_ODD = (8192, 401)
+K1_TWO_WORD_SEED = (0x1234ABCD << 32) | 0x9E37
 K3B_SHAPE = (1024, 10_000)
 K3B_FIRING = (0, 240, 1024)
 K2_SIZES = (2_097_152, 1_000_000, 100_000)
@@ -495,6 +500,18 @@ def _measure(tree: pathlib.Path, share: pathlib.Path, label: str) -> dict:
                                              with_nees=True, device=dev)
     out["k1_normals_err"] = _ekf_gap(kern, plain)
     out["k1_normals_digest"] = _digest(*kern[0], *kern[1:])
+    # Every mode with and without NEES at BASELINE (Philox seed 1) and at
+    # an odd step count (a seed with both key words in play).
+    for (b, n), seed in ((BASELINE, 1), (K1_ODD, K1_TWO_WORD_SEED)):
+        normals = torch.randn((n, 5, b), generator=gen, device=dev)
+        for mode, kw in (("off", dict(noise_on=False)), ("philox", {}),
+                         ("normals", dict(normals=normals))):
+            for nees in (False, True):
+                kern = ekf_cuda.ekf_fused_rollout(cfg, seed, b, n,
+                                                  with_nees=nees, device=dev,
+                                                  **kw)
+                out[f"k1_{mode}_{b}x{n}{'_nees' * nees}_digest"] = _digest(
+                    *kern[0], *kern[1:])
 
     # K5a: each checkout's own boundaries, timed with the torch work
     # before them; K3b and K5b then read the first turn's.
