@@ -301,6 +301,51 @@ def _compare(kernel, plain, *, atol_state, rtol_cov, atol_cov):
     return worst
 
 
+def _k1_both_forms(cfg, seed, b, n, dev, tol, *, noise_on=True,
+                   with_nees=False, normals=None):
+    """K1 at ``b`` rollouts, which takes its small-batch form (four lanes
+    a rollout), and at the smallest batch that takes the one-thread form,
+    each held to the plain version at ``tol`` (:func:`_compare`'s
+    keywords).  The small launch's output words must equal the large
+    launch's first ``b`` rollouts' (a rollout's Philox stream does not
+    depend on the batch; injected ``normals`` are given for the large
+    batch and the small launch takes their first ``b`` columns).  Each
+    launch must add one to ``launch_count``, and one to
+    ``lanes_launch_count`` in the small-batch form only.  Returns the
+    largest gap to the plain version and both launches' outputs."""
+    import torch
+
+    from tpuslam_torch.ops import ekf_cuda
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    large = ekf_cuda.LANES_BELOW_PER_SM * sms
+    worst, outs = 0.0, []
+    for batch, lanes in ((b, 4), (large, 1)):
+        _require(ekf_cuda.k1_lanes(batch, sms) == lanes,
+                 f"k1_lanes({batch}, {sms}) is not {lanes}")
+        kw = dict(noise_on=noise_on, with_nees=with_nees, device=dev)
+        if normals is not None:
+            kw["normals"] = normals[:, :, :batch].contiguous()
+        counts = (ekf_cuda.launch_count + 1,
+                  ekf_cuda.lanes_launch_count + (lanes > 1))
+        kern = ekf_cuda.ekf_fused_rollout(cfg, seed, batch, n, **kw)
+        _require((ekf_cuda.launch_count, ekf_cuda.lanes_launch_count)
+                 == counts, f"K1 {batch}x{n}: launch_count "
+                 f"{ekf_cuda.launch_count}, lanes_launch_count "
+                 f"{ekf_cuda.lanes_launch_count}, want {counts}")
+        plain = ekf_cuda.ekf_fused_rollout_plain(cfg, seed, batch, n, **kw)
+        worst = max(worst, _compare(kern, plain, **tol))
+        outs.append(kern)
+    small, big = ([t.contiguous().view(torch.int32)
+                   for t in (*out[0], *out[1:])] for out in outs)
+    for name, s, g in zip(("x_true", "x_dr", "x_hat", "cov", "sq_err",
+                           "nees"), small, big):
+        _require(torch.equal(s, g[:b]),
+                 f"K1 {b}x{n}: small-batch form's {name} differs from the "
+                 f"one-thread form's first {b} rollouts")
+    return worst, outs
+
+
 def _k1_floors(clock_mhz: float) -> dict | None:
     """2b. K1's floors at :data:`FLAGSHIP` from its step loop's SASS
     (``kernel_report.floors_ms``): the issue floor and each pipe's.  The
@@ -3010,53 +3055,53 @@ def main() -> int:
     k1_floors = _k1_floors(clock_mhz)
 
     # 3. Noise-free parity (the JAX package's on-chip gate: atol 1e-4 after
-    # 50 steps, accumulator below 1e-6).
-    before = ekf_cuda.launch_count
+    # 50 steps, accumulator below 1e-6).  Phases 3 and 4 run each shape in
+    # both of K1's forms (:func:`_k1_both_forms`), with NEES and without.
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    large = ekf_cuda.LANES_BELOW_PER_SM * sms
     b, n = 1024, 50
-    kern = ekf_cuda.ekf_fused_rollout(cfg, 0, b, n, noise_on=False,
-                                      device=dev)
-    plain = ekf_cuda.ekf_fused_rollout_plain(cfg, 0, b, n, noise_on=False,
-                                             device=dev)
-    torch.cuda.synchronize()
-    _require(ekf_cuda.launch_count == before + 1, "launch not counted")
-    err_free = _compare(kern, plain, atol_state=1e-4, rtol_cov=0.0,
-                        atol_cov=1e-4)
-    _require(float(kern[1].abs().max()) < 1e-6, "noise-free accumulator")
-    print(f"parity noise-free {b}x{n}: max|kernel-plain| {err_free:.3e} "
-          "(atol 1e-4), max|err| "
-          f"{float(kern[1].abs().max()):.3e} (< 1e-6)", flush=True)
+    err_free, max_acc = 0.0, 0.0
+    for nees in (False, True):
+        gap, outs = _k1_both_forms(
+            cfg, 0, b, n, dev, dict(atol_state=1e-4, rtol_cov=0.0,
+                                    atol_cov=1e-4),
+            noise_on=False, with_nees=nees)
+        err_free = max(err_free, gap)
+        max_acc = max(max_acc, *(float(out[1].abs().max()) for out in outs))
+    _require(max_acc < 1e-6, f"noise-free accumulator {max_acc}")
+    print(f"parity noise-free {b}x{n} (small-batch form) and {large}x{n} "
+          f"(one-thread), NEES off and on: max|kernel-plain| "
+          f"{err_free:.3e} (atol 1e-4), max|err| {max_acc:.3e} (< 1e-6); "
+          f"the small-batch words equal the one-thread form's",
+          flush=True)
 
     # 4. Noise on, same normals into both (tolerance from FMA contraction and
     # polynomial-sincos rounding: atol 1e-3 on poses, 1e-4 relative on cov),
-    # then the Philox stream itself at the entry point's shape.
+    # then the Philox stream itself at the entry point's shape (one-thread
+    # form) and at an odd step count: the last step's yaw normal is the
+    # first of its own pair, whose second goes unused.
+    tol = dict(atol_state=1e-3, rtol_cov=1e-4, atol_cov=1e-7)
     b, n = 4096, 64
     gen = torch.Generator(device=dev).manual_seed(2024)
-    normals = torch.randn((n, 5, b), generator=gen, device=dev)
-    err_nrm = _compare(
-        ekf_cuda.ekf_fused_rollout(cfg, 0, b, n, normals=normals,
-                                   with_nees=True, device=dev),
-        ekf_cuda.ekf_fused_rollout_plain(cfg, 0, b, n, normals=normals,
-                                         with_nees=True, device=dev),
-        atol_state=1e-3, rtol_cov=1e-4, atol_cov=1e-7)
-    b, n = entry_mod.BATCH, entry_mod.N_STEPS
-    err_philox = _compare(
-        ekf_cuda.ekf_fused_rollout(cfg, 5, b, n, device=dev),
-        ekf_cuda.ekf_fused_rollout_plain(cfg, 5, b, n, device=dev),
-        atol_state=1e-3, rtol_cov=1e-4, atol_cov=1e-7)
-    # An odd step count: the last step's yaw normal is the first of its
-    # own pair, whose second goes unused.
+    normals = torch.randn((n, 5, large), generator=gen, device=dev)
     b_odd, n_odd = ODD_SHAPE
-    err_odd = _compare(
-        ekf_cuda.ekf_fused_rollout(cfg, 6, b_odd, n_odd, with_nees=True,
-                                   device=dev),
-        ekf_cuda.ekf_fused_rollout_plain(cfg, 6, b_odd, n_odd,
-                                         with_nees=True, device=dev),
-        atol_state=1e-3, rtol_cov=1e-4, atol_cov=1e-7)
-    err_philox = max(err_philox, err_odd)
+    err_nrm, err_philox = 0.0, 0.0
+    for nees in (False, True):
+        err_nrm = max(err_nrm, _k1_both_forms(
+            cfg, 0, b, n, dev, tol, with_nees=nees, normals=normals)[0])
+        err_philox = max(err_philox, _k1_both_forms(
+            cfg, 6, b_odd, n_odd, dev, tol, with_nees=nees)[0])
+    b_e, n_e = entry_mod.BATCH, entry_mod.N_STEPS
+    err_philox = max(err_philox, _compare(
+        ekf_cuda.ekf_fused_rollout(cfg, 5, b_e, n_e, device=dev),
+        ekf_cuda.ekf_fused_rollout_plain(cfg, 5, b_e, n_e, device=dev),
+        **tol))
     torch.cuda.synchronize()
-    print(f"parity noise-on: injected normals 4096x64 max|kernel-plain| "
-          f"{err_nrm:.3e}, Philox {b}x{n} and {b_odd}x{n_odd} (odd steps) "
-          f"{err_philox:.3e} (atol 1e-3 poses, rtol 1e-4 cov)", flush=True)
+    print(f"parity noise-on, both forms, NEES off and on: injected normals "
+          f"{b}x{n} and {large}x{n} max|kernel-plain| {err_nrm:.3e}; "
+          f"Philox {b_odd}x{n_odd} and {large}x{n_odd} (odd steps), "
+          f"{b_e}x{n_e} {err_philox:.3e} (atol 1e-3 poses, rtol 1e-4 cov); "
+          f"the small-batch words equal the one-thread form's", flush=True)
 
     # 5. Philox noise bands.
     b, n = BASELINE

@@ -1,5 +1,6 @@
 """K1's launch path on a CUDA card: the current stream, the plan cache's
-key, and the seed's two key words folded by the library's entry.
+key, the seed's two key words folded by the library's entry, and the
+small-batch form's outputs against the one-thread form's, word for word.
 
 Every test needs a card and skips without one (the kernel has no CPU
 mode); on a card run them with
@@ -103,3 +104,45 @@ def test_philox_mode_draws_the_seed_stream(dev, shape, with_nees):
     assert bool(((a - c).abs() <= 1e-7 + 1e-4 * c.abs()).all())
     for a, c in zip(drawn[1:], fed[1:]):
         assert bool(((a - c).abs() <= 1e-6 + 1e-4 * c.abs()).all())
+
+
+def _words(out):
+    return [t.contiguous().view(torch.int32) for t in _tensors(out)]
+
+
+@pytest.mark.parametrize("n_steps", [1, 2, 7, 64, 401])
+@pytest.mark.parametrize("with_nees", [False, True])
+@pytest.mark.parametrize("mode", ["off", "philox", "normals"])
+def test_small_batch_form_equals_the_one_thread_form(dev, mode, with_nees,
+                                                     n_steps):
+    """A rollout's Philox stream does not depend on the batch, so rollouts
+    0..B-1 of a launch in the small-batch form (four lanes a rollout) give
+    the same output words as those rollouts of a launch large enough for
+    the one-thread form; with injected normals, the large launch's first
+    B columns hold the small launch's.  B = 1000 is no multiple of a
+    block's 32 rollouts.  ``lanes_launch_count`` counts the small launch
+    only."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    small, large = 1000, ekf_cuda.LANES_BELOW_PER_SM * sms
+    assert ekf_cuda.k1_lanes(small, sms) == 4
+    assert ekf_cuda.k1_lanes(large, sms) == 1
+    kw = {"off": dict(noise_on=False), "philox": {}, "normals": {}}[mode]
+    gen = torch.Generator(device=dev).manual_seed(n_steps)
+    normals = torch.randn((n_steps, 5, large), generator=gen, device=dev)
+
+    def launch(b):
+        if mode == "normals":
+            kw["normals"] = normals[:, :, :b].contiguous()
+        return ekf_cuda.ekf_fused_rollout(CFG, TWO_WORD_SEED, b, n_steps,
+                                          with_nees=with_nees, device=dev,
+                                          **kw)
+
+    lanes = ekf_cuda.lanes_launch_count
+    got = launch(small)
+    assert ekf_cuda.lanes_launch_count == lanes + 1
+    want = launch(large)
+    assert ekf_cuda.lanes_launch_count == lanes + 1
+    torch.cuda.synchronize(dev)
+    for name, g, w in zip(["x_true", "x_dr", "x_hat", "cov", "sq_err",
+                           "nees"], _words(got), _words(want)):
+        assert torch.equal(g, w[:small]), name

@@ -169,6 +169,9 @@ def test_floors_of_a_loop():
     ("void (anonymous namespace)::ekf_rollout_kernel<1, false>(const float "
      "*, const float *, float *, float *, float *, (anonymous namespace)"
      "::EkfParams)", "ekf_rollout_kernel<1, false"),
+    ("void (anonymous namespace)::ekf_rollout_kernel_lanes<1, true>(const "
+     "float *, const float *, float *, float *, float *, (anonymous "
+     "namespace)::EkfParams)", "ekf_rollout_kernel_lanes<1, true"),
     ("void <unnamed>::expand_seg_kernel(const float *, const int *, const "
      "int *, const unsigned char *, float *, int, int)", "expand_seg_kernel"),
     ("void <unnamed>::wide_boundary_kernel(const float *, const float *, "
@@ -190,9 +193,10 @@ def test_floors_of_a_loop():
      "compressed_window_kernel"),
 ])
 def test_report_counts_k1_and_the_segmented_expand(demangled, prefix):
-    """K1 in the flagship's mode, the segmented K3b, K5a, the single
-    filter's K3a and K3b, and K3c and both forms of K3d are among the
-    kernels whose opcodes (and loops) the report prints."""
+    """K1 in the flagship's mode and its small-batch form in the
+    sweep's, the segmented K3b, K5a, the single filter's K3a and K3b,
+    and K3c and both forms of K3d are among the kernels whose opcodes
+    (and loops) the report prints."""
     assert prefix in kr.SASS_KERNELS
     assert kr._short(demangled).startswith(prefix)
     others = [p for p in kr.SASS_KERNELS if p != prefix]

@@ -254,6 +254,7 @@ OTHER_CFG = EkfConfig(dt=0.05, radius_m=7.5, yaw_rate=math.radians(14.0),
                       q_act_std=(0.3, 0.1, 0.01), r_act_std=(1.5, 0.5),
                       x0=(7.5, 0.0, 1.2), p0_std=(0.02, 0.03, 0.4))
 TWO_WORD_SEED = (0x1234ABCD << 32) | 0x9E37
+H100_SMS = 132
 
 
 @pytest.fixture
@@ -261,7 +262,7 @@ def stand_in(monkeypatch):
     """The launch path on the CPU: an empty plan cache and counters, and a
     stand-in library whose entry records its arguments (``calls``) and
     launches nothing; the CUDA stream and device queries answer for the
-    CPU device (index None)."""
+    CPU device (index None), the SM count for an H100's 132."""
     calls = []
 
     def rollout(*args):
@@ -273,6 +274,8 @@ def stand_in(monkeypatch):
     monkeypatch.setattr(ekf_cuda, "_PLANS", {})
     monkeypatch.setattr(ekf_cuda, "plan_builds", 0)
     monkeypatch.setattr(ekf_cuda, "launch_count", 0)
+    monkeypatch.setattr(ekf_cuda, "lanes_launch_count", 0)
+    monkeypatch.setattr(ekf_cuda, "_sm_count", lambda device: H100_SMS)
     monkeypatch.setattr(_build, "cuda_library", lambda device: lib)
     monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
                         lambda index: 77, raising=False)
@@ -304,6 +307,7 @@ def test_plan_params_equal_the_per_call_struct(stand_in, cfg, n_steps):
     assert plan.params_ptr == ctypes.addressof(got)
     assert plan.table is ekf_cuda.truth_table(cfg, n_steps, "cpu")
     assert plan.table_ptr == plan.table.data_ptr()
+    assert plan.sm_count == H100_SMS
 
 
 def test_plan_built_once_per_cfg_steps_and_device(stand_in):
@@ -327,10 +331,10 @@ def test_plan_built_once_per_cfg_steps_and_device(stand_in):
 
 def test_launch_arguments_and_output_views(stand_in):
     """Each launch passes the plan's table and template, its own batch,
-    the seed's two words, mode, NEES flag and the current stream; the
-    state, covariance and accumulator pointers are rows 0, 9 and 18 of
-    one fresh ``(20, batch)`` buffer, and the returned views read those
-    rows."""
+    the seed's two words, mode, NEES flag, K1's lanes a rollout and the
+    current stream; the state, covariance and accumulator pointers are
+    rows 0, 9 and 18 of one fresh ``(20, batch)`` buffer, and the
+    returned views read those rows."""
     cpu, batch, n_steps = torch.device("cpu"), 24, 4
     normals = torch.zeros((n_steps, 5, batch))
     outs = [ekf_cuda._launch(CFG, TWO_WORD_SEED, batch, n_steps, 2, True,
@@ -341,7 +345,7 @@ def test_launch_arguments_and_output_views(stand_in):
         base = final.x_true.data_ptr()
         assert args == (plan.table_ptr, normals.data_ptr(), base,
                         base + 9 * row, base + 18 * row, plan.params_ptr,
-                        batch, 0x9E37, 0x1234ABCD, 2, 1, 77)
+                        batch, 0x9E37, 0x1234ABCD, 2, 1, 4, 77)
         assert final.x_true.untyped_storage().nbytes() == 20 * row
         assert final.x_dr.data_ptr() == base + 3 * row
         assert final.x_hat.data_ptr() == base + 6 * row
@@ -354,8 +358,44 @@ def test_launch_arguments_and_output_views(stand_in):
     # A fresh buffer each call: a caller may keep every call's outputs.
     assert outs[0][0].x_true.data_ptr() != outs[1][0].x_true.data_ptr()
     final, err = ekf_cuda._launch(CFG, 5, batch, n_steps, 0, False, None, cpu)
-    assert stand_in[-1][1] is None and stand_in[-1][6:11] == (batch, 5, 0,
-                                                              0, 0)
+    assert stand_in[-1][1] is None and stand_in[-1][6:12] == (batch, 5, 0,
+                                                              0, 0, 4)
+
+
+@pytest.mark.parametrize("sm_count", [132, 114, 78, 1])
+def test_k1_lanes_rule(sm_count):
+    """K1's form from the batch and the SM count alone: the small-batch
+    form (4 lanes a rollout) below the threshold, a thread a rollout from
+    it up, never other than the 1 or 4 lanes that the library's entry
+    launches, and never more lanes for a larger batch."""
+    limit = ekf_cuda.LANES_BELOW_PER_SM * sm_count
+    batches = sorted({1, 2, 63, 64, 1000, 8192, 8193, 65_536, 131_072,
+                      1 << 20, 8_388_608, limit - 1, limit})
+    lanes = [ekf_cuda.k1_lanes(b, sm_count) for b in batches]
+    assert set(lanes) <= {1, 4}
+    assert lanes == sorted(lanes, reverse=True)
+    assert ekf_cuda.k1_lanes(1, sm_count) == 4
+    assert ekf_cuda.k1_lanes(limit - 1, sm_count) == 4
+    assert ekf_cuda.k1_lanes(limit, sm_count) == 1
+
+
+def test_k1_lanes_at_the_benchmark_shapes():
+    """On an H100's 132 SMs the flagship's 8,388,608 rollouts run a
+    thread a rollout and the 8192-rollout sweep the small-batch form."""
+    assert ekf_cuda.k1_lanes(8_388_608, H100_SMS) == 1
+    assert ekf_cuda.k1_lanes(8192, H100_SMS) == 4
+
+
+def test_lanes_launch_count_follows_the_rule(stand_in, monkeypatch):
+    """Each launch passes the rule's lanes, and ``lanes_launch_count``
+    counts the launches that the rule sends to the small-batch form."""
+    monkeypatch.setattr(ekf_cuda, "_sm_count", lambda device: 2)
+    cpu, limit = torch.device("cpu"), 2 * ekf_cuda.LANES_BELOW_PER_SM
+    for batch in (8, limit - 1, limit, 3 * limit):
+        ekf_cuda._launch(CFG, 1, batch, 3, 1, False, None, cpu)
+    assert [args[11] for args in stand_in] == [4, 4, 1, 1]
+    assert ekf_cuda.launch_count == 4
+    assert ekf_cuda.lanes_launch_count == 2
 
 
 def test_rollout_entry_mirrors_declared_argtypes():
@@ -371,7 +411,7 @@ def test_rollout_entry_mirrors_declared_argtypes():
     words = [p.split() for p in params.split(",")]
     assert [w[-1] for w in words] == [
         "tbl", "normals", "state", "cov", "err", "params", "batch",
-        "seed_lo", "seed_hi", "mode", "with_nees", "stream"]
+        "seed_lo", "seed_hi", "mode", "with_nees", "lanes", "stream"]
 
     class Functions:
         def __getattr__(self, name):

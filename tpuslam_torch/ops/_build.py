@@ -77,7 +77,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     signatures = {
         "tpuslam_ekf_rollout": [ptr, ptr, ptr, ptr, ptr, ptr,
                                 ctypes.c_longlong, ctypes.c_uint32,
-                                ctypes.c_uint32, c_int, c_int, ptr],
+                                ctypes.c_uint32, c_int, c_int, c_int, ptr],
         "tpuslam_pf_step": [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, c_int,
                             c_int, ptr, ptr, ptr],
         "tpuslam_resample_boundary": [ptr, ptr, ptr, c_float, ptr, ptr, ptr,

@@ -15,10 +15,16 @@ launches the kernel or raises.  There is no fallback from one to the
 other.
 
 A launch reuses one plan per ``(cfg, n_steps, device)``: the kernel
-library, the truth table and the kernel's parameters filled from the
-config.  A call adds only its own: the batch and seed (the library's
-entry folds the seed into the Philox round keys), a fresh output buffer
-and the current stream.
+library, the truth table, the kernel's parameters filled from the config
+and the device's SM count.  A call adds only its own: the batch and seed
+(the library's entry folds the seed into the Philox round keys), a fresh
+output buffer and the current stream.
+
+K1 has two forms of one computation, with the same output words: a
+thread a rollout, and the small-batch form, four lanes of a warp a
+rollout, for batches that leave most of the card's warp schedulers
+empty at a thread a rollout.  :func:`k1_lanes` picks the form from the
+batch and the SM count.
 
 Spans (:func:`~tpuslam_torch.utils.profiling.span`, recorded only while a
 profiler records): ``tpuslam.ekf.rollout`` around
@@ -66,8 +72,18 @@ launch_count = 0
 #: launches, ``1 - plan_builds / launch_count`` is the plan cache's hit
 #: share.
 plan_builds = 0
+#: Launches of K1's small-batch form (four lanes a rollout) since this
+#: count was last set to 0: its share of ``launch_count`` is how often
+#: that form runs.
+lanes_launch_count = 0
 
 _MODE_OFF, _MODE_PHILOX, _MODE_NORMALS = 0, 1, 2
+#: K1 takes its small-batch form below this many rollouts an SM, so that
+#: no SM holds more than three of its 32-rollout blocks (12 warps).  On an
+#: H100 at 400 steps it beats the one-thread form up to 12,288 rollouts
+#: (240 against 280 us with NEES) and loses from 14,336 (305 against
+#: 280), where some SMs hold four.
+LANES_BELOW_PER_SM = 96
 _MASK32 = 0xFFFFFFFF
 _ROUNDS = 10  # Philox4x32-10's rounds, a round key each
 
@@ -100,6 +116,15 @@ class _Plan(typing.NamedTuple):
     index: int | None  # the device's CUDA index
     params: _EkfParams  # read-only template: batch and round keys 0
     params_ptr: int
+    sm_count: int  # the device's streaming multiprocessors
+
+
+def k1_lanes(batch: int, sm_count: int) -> int:
+    """The lanes a rollout of K1's form for ``batch`` rollouts on a card
+    of ``sm_count`` SMs: 4 (the small-batch form) below
+    :data:`LANES_BELOW_PER_SM` rollouts an SM, else 1.  Both forms give
+    the same output words."""
+    return 4 if batch < LANES_BELOW_PER_SM * sm_count else 1
 
 
 def _constants(cfg: EkfConfig) -> dict:
@@ -342,11 +367,15 @@ def ekf_fused_rollout_plain(cfg: EkfConfig, seed: int, batch: int,
     return _finish(state, cov, torch.stack([acc, acc_n]), with_nees)
 
 
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _plan(cfg: EkfConfig, n_steps: int, device: torch.device) -> _Plan:
     """The launch plan of ``(cfg, n_steps, device)``, built at its first
     launch: the kernel library (raises where CUDA is not available), the
-    truth table, and the parameters from :func:`_constants`, rounded to
-    float32 once by ``ctypes``."""
+    truth table, the parameters from :func:`_constants`, rounded to
+    float32 once by ``ctypes``, and the device's SM count."""
     global plan_builds
     key = (cfg, n_steps, device)
     plan = _PLANS.get(key)
@@ -357,7 +386,7 @@ def _plan(cfg: EkfConfig, n_steps: int, device: torch.device) -> _Plan:
             params = _EkfParams(n_steps=n_steps, **_constants(cfg))
             plan = _PLANS[key] = _Plan(
                 lib.tpuslam_ekf_rollout, tbl, tbl.data_ptr(), device.index,
-                params, ctypes.addressof(params))
+                params, ctypes.addressof(params), _sm_count(device))
         plan_builds += 1
     return plan
 
@@ -365,7 +394,7 @@ def _plan(cfg: EkfConfig, n_steps: int, device: torch.device) -> _Plan:
 def _launch(cfg: EkfConfig, seed: int, batch: int, n_steps: int, mode: int,
             with_nees: bool, normals: torch.Tensor | None,
             device: torch.device):
-    global launch_count
+    global launch_count, lanes_launch_count
     with span("tpuslam.ekf.params"):
         plan = _plan(cfg, n_steps, device)
         stream = torch._C._cuda_getCurrentRawStream(plan.index)
@@ -375,11 +404,12 @@ def _launch(cfg: EkfConfig, seed: int, batch: int, n_steps: int, mode: int,
         out = torch.empty((20, batch), dtype=torch.float32, device=device)
     with span("tpuslam.ekf.launch"):
         ptr, row = out.data_ptr(), 4 * batch
+        lanes = k1_lanes(batch, plan.sm_count)
         args = (plan.table_ptr,
                 None if normals is None else normals.data_ptr(),
                 ptr, ptr + 9 * row, ptr + 18 * row, plan.params_ptr, batch,
                 seed & _MASK32, (seed >> 32) & _MASK32, mode,
-                int(with_nees), stream)
+                int(with_nees), lanes, stream)
         if torch.cuda.current_device() == plan.index:
             rc = plan.rollout(*args)
         else:
@@ -389,6 +419,8 @@ def _launch(cfg: EkfConfig, seed: int, batch: int, n_steps: int, mode: int,
         raise RuntimeError(f"ekf_rollout kernel launch failed: CUDA error "
                            f"{rc}")
     launch_count += 1
+    if lanes > 1:
+        lanes_launch_count += 1
     return _finish(out[0:9], out[9:18], out[18:20], with_nees)
 
 

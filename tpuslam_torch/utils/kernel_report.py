@@ -33,10 +33,12 @@ import shutil
 import subprocess
 
 #: Kernels whose opcodes are counted (demangled-name prefixes): K1 in the
-#: flagship's mode (Philox, no NEES), K2b, K4 and the fused K5b in Philox
-#: mode, K5a, the single filter's K3a (every ``boundary_`` kernel of
-#: ``resample.cu``) and both forms of K3b (single and segmented).
-SASS_KERNELS = ("ekf_rollout_kernel<1, false", "pf_step_kernel<1, true>",
+#: flagship's mode (Philox, no NEES) and its small-batch form in the
+#: sweep's (Philox, NEES), K2b, K4 and the fused K5b in Philox mode, K5a,
+#: the single filter's K3a (every ``boundary_`` kernel of ``resample.cu``)
+#: and both forms of K3b (single and segmented).
+SASS_KERNELS = ("ekf_rollout_kernel<1, false",
+                "ekf_rollout_kernel_lanes<1, true", "pf_step_kernel<1, true>",
                 "pf_batch_kernel<1", "wide_boundary_kernel",
                 "wide_stats_kernel<1, true", "expand_seg_kernel",
                 "expand_range_kernel", "boundary_", "compact_kernel",

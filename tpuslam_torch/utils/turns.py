@@ -16,7 +16,8 @@ card's clocks falls on every side.  Each prints one JSON line with:
 
 * K1's device time a call, noise on (seed 1), at the flagship
   (8,388,608 x 1600; CUDA events, median of 3 after one warm-up) and
-  BASELINE (8192 x 400; 20 calls queued behind a sleep kernel) shapes;
+  BASELINE (8192 x 400, without and with NEES; 20 calls queued behind a
+  sleep kernel) shapes;
 * K1's largest kernel-minus-plain difference with noise off (1024 x 50)
   and with injected normals (4096 x 64), ``chip_smoke.py``'s phase 3 and
   4 shapes, and a digest of the kernel's outputs there; a digest of its
@@ -484,6 +485,9 @@ def _measure(tree: pathlib.Path, share: pathlib.Path, label: str) -> dict:
     out["k1_baseline_ms"] = device_ms(
         lambda: ekf_cuda.ekf_fused_rollout(cfg, 1, *BASELINE, device=dev),
         20)
+    out["k1_baseline_nees_ms"] = device_ms(
+        lambda: ekf_cuda.ekf_fused_rollout(cfg, 1, *BASELINE,
+                                           with_nees=True, device=dev), 20)
 
     kern = ekf_cuda.ekf_fused_rollout(cfg, 0, 1024, 50, noise_on=False,
                                       device=dev)
