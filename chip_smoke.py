@@ -310,12 +310,13 @@ def _k1_both_forms(cfg, seed, b, n, dev, tol, *, noise_on=True,
     launch's first ``b`` rollouts' (a rollout's Philox stream does not
     depend on the batch; injected ``normals`` are given for the large
     batch and the small launch takes their first ``b`` columns).  Each
-    launch must add one to ``launch_count``, and one to
-    ``lanes_launch_count`` in the small-batch form only.  Returns the
-    largest gap to the plain version and both launches' outputs."""
+    launch must add one to ``_build.launches`` under its form
+    (``ekf_rollout_lanes`` for the small-batch form, ``ekf_rollout`` for
+    the one-thread form) and nothing else.  Returns the largest gap to
+    the plain version and both launches' outputs."""
     import torch
 
-    from tpuslam_torch.ops import ekf_cuda
+    from tpuslam_torch.ops import _build, ekf_cuda
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     large = ekf_cuda.LANES_BELOW_PER_SM * sms
@@ -326,13 +327,11 @@ def _k1_both_forms(cfg, seed, b, n, dev, tol, *, noise_on=True,
         kw = dict(noise_on=noise_on, with_nees=with_nees, device=dev)
         if normals is not None:
             kw["normals"] = normals[:, :, :batch].contiguous()
-        counts = (ekf_cuda.launch_count + 1,
-                  ekf_cuda.lanes_launch_count + (lanes > 1))
+        counts = _build.launches.copy()
+        counts["ekf_rollout_lanes" if lanes > 1 else "ekf_rollout"] += 1
         kern = ekf_cuda.ekf_fused_rollout(cfg, seed, batch, n, **kw)
-        _require((ekf_cuda.launch_count, ekf_cuda.lanes_launch_count)
-                 == counts, f"K1 {batch}x{n}: launch_count "
-                 f"{ekf_cuda.launch_count}, lanes_launch_count "
-                 f"{ekf_cuda.lanes_launch_count}, want {counts}")
+        _require(_build.launches == counts, f"K1 {batch}x{n}: launches "
+                 f"{dict(_build.launches)}, want {dict(counts)}")
         plain = ekf_cuda.ekf_fused_rollout_plain(cfg, seed, batch, n, **kw)
         worst = max(worst, _compare(kern, plain, **tol))
         outs.append(kern)
@@ -699,7 +698,8 @@ def _pf_main_path(dev) -> tuple[dict, int, object]:
     firing count and the final state."""
     import torch
 
-    from tpuslam_torch.ops import pf_cuda, pf_fused_rollout, resample_cuda
+    from tpuslam_torch.ops import (_build, pf_cuda, pf_fused_rollout,
+                                   resample_cuda)
     from tpuslam_torch.utils import count_host_syncs
 
     with count_host_syncs() as control:
@@ -707,21 +707,17 @@ def _pf_main_path(dev) -> tuple[dict, int, object]:
     _require(control.count >= 1, "the host-sync counter saw no .item()")
     n = PF_SIZES[0]
     gates = []
-    pf_cuda.launch_count = pf_cuda.sync_count = 0
-    resample_cuda.boundary_launch_count = 0
-    resample_cuda.boundary_weights_launch_count = 0
-    resample_cuda.expand_launch_count = 0
+    pf_cuda.sync_count = 0
+    _build.launches.clear()
     t0 = time.perf_counter()
     with count_host_syncs() as syncs:
         final, (x_true, x_est) = pf_fused_rollout(
             _pf_cfg(n), _gen(dev, 0), PF_STEPS, device=dev, gates=gates)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"pf_step": pf_cuda.launch_count,
-                "resample_boundary": resample_cuda.boundary_launch_count,
-                "resample_boundary_weights":
-                    resample_cuda.boundary_weights_launch_count,
-                "resample_expand": resample_cuda.expand_launch_count}
+    launches = {form: _build.launches[form] for form in (
+        "pf_step", "resample_boundary", "resample_boundary_weights",
+        "resample_expand")}
     fired = int(torch.stack(gates)[:, 0].sum())
     tickets = (pf_cuda.ticket_count(dev),
                resample_cuda.boundary_arrivals(dev))
@@ -1391,9 +1387,8 @@ def _batch_main_paths(dev) -> dict:
     torch's sync debug mode.  Returns the launch counts by kernel."""
     import torch
 
-    from tpuslam_torch.ops import pf_batch_cuda as pb
-    from tpuslam_torch.ops import (pf_batch_rollout, pf_batch_wide_rollout,
-                                   resample_cuda)
+    from tpuslam_torch.ops import (_build, pf_batch_rollout,
+                                   pf_batch_wide_rollout)
     from tpuslam_torch.utils import count_host_syncs
 
     with count_host_syncs() as control:
@@ -1401,7 +1396,7 @@ def _batch_main_paths(dev) -> dict:
     _require(control.count >= 1, "the host-sync counter saw no .item()")
 
     launches = {}
-    pb.launch_count = 0
+    _build.launches.clear()
     t0 = time.perf_counter()
     b, n = BATCH_MAIN
     with count_host_syncs() as syncs:
@@ -1409,8 +1404,9 @@ def _batch_main_paths(dev) -> dict:
                                        PF_STEPS, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches["pf_batch_step"] = pb.launch_count
-    _require(pb.launch_count == PF_STEPS, f"K4 launches {pb.launch_count}")
+    launches["pf_batch_step"] = _build.launches["pf_batch_step"]
+    _require(launches["pf_batch_step"] == PF_STEPS,
+             f"K4 launches {launches['pf_batch_step']}")
     _require(syncs.count == 0, f"batched path: {syncs.count} host syncs")
     _require(final.particles.shape == (3, b, n)
              and bool(final.particles.isfinite().all())
@@ -1421,13 +1417,12 @@ def _batch_main_paths(dev) -> dict:
              f"batched main-path RMSE {rmse} off-band")
     fired = float(outs.resampled.float().mean())
     print(f"pf_batch_rollout(device='cuda') {b:,}x{n:,}x{PF_STEPS}: rmse "
-          f"{rmse:.4f}, K4 launches {pb.launch_count}, host syncs "
+          f"{rmse:.4f}, K4 launches {launches['pf_batch_step']}, host syncs "
           f"{syncs.count} (control .item(): {control.count}), filters "
           f"firing a step {100 * fired:.1f}%, first call "
           f"{wall * 1e3:.1f} ms", flush=True)
 
-    pb.wide_boundary_launch_count = pb.wide_stats_launch_count = 0
-    resample_cuda.expand_seg_launch_count = 0
+    _build.launches.clear()
     t0 = time.perf_counter()
     b, n = WIDE_MAIN
     with count_host_syncs() as syncs:
@@ -1435,9 +1430,8 @@ def _batch_main_paths(dev) -> dict:
                                             PF_STEPS, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    wide = {"wide_boundary": pb.wide_boundary_launch_count,
-            "resample_expand_seg": resample_cuda.expand_seg_launch_count,
-            "wide_stats": pb.wide_stats_launch_count}
+    wide = {form: _build.launches[form] for form in (
+        "wide_boundary", "resample_expand_seg", "wide_stats")}
     launches.update(wide)
     _require(wide["wide_boundary"] == wide["resample_expand_seg"]
              == wide["wide_stats"] == PF_STEPS, f"wide launches {wide}")
@@ -1823,10 +1817,8 @@ def _merge_main_paths(dev, default_fired: int) -> dict:
     segmented K3b, 0 host syncs).  Returns the launch counts."""
     import torch
 
-    from tpuslam_torch.ops import pf_batch_cuda as pb
-    from tpuslam_torch.ops import (pf_batch_wide_rollout, pf_cuda,
+    from tpuslam_torch.ops import (_build, pf_batch_wide_rollout, pf_cuda,
                                    pf_fused_rollout)
-    from tpuslam_torch.ops import resample_cuda as rs
     from tpuslam_torch.utils import count_host_syncs
 
     with count_host_syncs() as control:
@@ -1834,19 +1826,16 @@ def _merge_main_paths(dev, default_fired: int) -> dict:
     _require(control.count >= 1, "the host-sync counter saw no .item()")
     n = PF_SIZES[0]
     gates = []
-    pf_cuda.launch_count = pf_cuda.sync_count = 0
-    rs.boundary_launch_count = rs.expand_launch_count = 0
-    rs.compact_launch_count = rs.expand_compressed_launch_count = 0
+    pf_cuda.sync_count = 0
+    _build.launches.clear()
     with count_host_syncs() as syncs:
         final, (x_true, x_est) = pf_fused_rollout(
             _pf_cfg(n), _gen(dev, 0), PF_STEPS, device=dev,
             merge_caps_kw=MERGE_KW, gates=gates)
     torch.cuda.synchronize()
-    single = {"pf_step": pf_cuda.launch_count,
-              "resample_boundary": rs.boundary_launch_count,
-              "resample_expand": rs.expand_launch_count,
-              "compact": rs.compact_launch_count,
-              "expand_compressed": rs.expand_compressed_launch_count}
+    single = {form: _build.launches[form] for form in (
+        "pf_step", "resample_boundary", "resample_expand", "compact",
+        "expand_compressed")}
     fired = int(torch.stack(gates)[:, 0].sum())
     _require(single["resample_boundary"] == single["compact"]
              == single["expand_compressed"] == single["pf_step"] == PF_STEPS
@@ -1864,19 +1853,15 @@ def _merge_main_paths(dev, default_fired: int) -> dict:
           f"{fired} (phase 11: {default_fired}), host syncs "
           f"{syncs.count}", flush=True)
     b, n = WIDE_MAIN
-    pb.wide_boundary_launch_count = pb.wide_stats_launch_count = 0
-    rs.expand_seg_launch_count = rs.compact_seg_launch_count = 0
-    rs.expand_compressed_seg_launch_count = 0
+    _build.launches.clear()
     with count_host_syncs() as syncs:
         final, outs = pf_batch_wide_rollout(_batch_cfg(n), _gen(dev, 0), b,
                                             PF_STEPS, device=dev,
                                             pass2="compressed")
     torch.cuda.synchronize()
-    wide = {"wide_boundary": pb.wide_boundary_launch_count,
-            "resample_expand_seg": rs.expand_seg_launch_count,
-            "compact_seg": rs.compact_seg_launch_count,
-            "expand_compressed_seg": rs.expand_compressed_seg_launch_count,
-            "wide_stats": pb.wide_stats_launch_count}
+    wide = {form: _build.launches[form] for form in (
+        "wide_boundary", "resample_expand_seg", "compact_seg",
+        "expand_compressed_seg", "wide_stats")}
     _require(wide["compact_seg"] == wide["expand_compressed_seg"]
              == wide["wide_boundary"] == wide["wide_stats"] == PF_STEPS
              and wide["resample_expand_seg"] == 0,
@@ -3122,10 +3107,11 @@ def main() -> int:
     # 6. The main path through the user's entry point; only these launches
     # are counted.
     fn, args = entry_mod.entry(device="cuda")
-    ekf_cuda.launch_count = 0
+    _build.launches.clear()
     value = float(fn(*args))
     torch.cuda.synchronize()
-    launches = ekf_cuda.launch_count
+    launches = (_build.launches["ekf_rollout"]
+                + _build.launches["ekf_rollout_lanes"])
     _require(launches >= 1, "the entry point did not launch the kernel")
     _require(math.isfinite(value) and 0.0 < value < 2.0,
              f"entry RMSE {value}")

@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from tpuslam_torch.filters import EkfConfig
-from tpuslam_torch.ops import ekf_cuda
+from tpuslam_torch.ops import _build, ekf_cuda
 
 pytestmark = pytest.mark.card
 
@@ -62,15 +62,18 @@ def test_cuda_without_an_index_shares_the_plan(dev):
     """``"cuda"``, ``"cuda:0"`` and ``torch.device("cuda", 0)`` resolve to
     one key, so they build one plan, whatever the batch."""
     n = 29
-    ekf_cuda._PLANS.pop((CFG, n, dev), None)
-    builds, launches = ekf_cuda.plan_builds, ekf_cuda.launch_count
+    _build._CACHE.pop(("ekf_plan", CFG, n, dev), None)
+    builds = _build.builds["ekf_plan"]
+    launches = sum(_build.launches[form]
+                   for form in ("ekf_rollout", "ekf_rollout_lanes"))
     outs = [ekf_cuda.ekf_fused_rollout(CFG, 3, b, n, device=where)
             for where, b in (("cuda", 64), ("cuda:0", 64),
                              (torch.device("cuda", 0), 64),
                              ("cuda", 4096))]
     torch.cuda.synchronize(dev)
-    assert ekf_cuda.plan_builds == builds + 1
-    assert ekf_cuda.launch_count == launches + 4
+    assert _build.builds["ekf_plan"] == builds + 1
+    assert sum(_build.launches[form] for form in (
+        "ekf_rollout", "ekf_rollout_lanes")) == launches + 4
     for out in outs[1:3]:
         for got, want in zip(_tensors(out), _tensors(outs[0])):
             assert torch.equal(got, want)
@@ -120,8 +123,8 @@ def test_small_batch_form_equals_the_one_thread_form(dev, mode, with_nees,
     the same output words as those rollouts of a launch large enough for
     the one-thread form; with injected normals, the large launch's first
     B columns hold the small launch's.  B = 1000 is no multiple of a
-    block's 32 rollouts.  ``lanes_launch_count`` counts the small launch
-    only."""
+    block's 32 rollouts.  ``_build.launches["ekf_rollout_lanes"]`` counts
+    the small launch only."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     small, large = 1000, ekf_cuda.LANES_BELOW_PER_SM * sms
     assert ekf_cuda.k1_lanes(small, sms) == 4
@@ -137,11 +140,11 @@ def test_small_batch_form_equals_the_one_thread_form(dev, mode, with_nees,
                                           with_nees=with_nees, device=dev,
                                           **kw)
 
-    lanes = ekf_cuda.lanes_launch_count
+    lanes = _build.launches["ekf_rollout_lanes"]
     got = launch(small)
-    assert ekf_cuda.lanes_launch_count == lanes + 1
+    assert _build.launches["ekf_rollout_lanes"] == lanes + 1
     want = launch(large)
-    assert ekf_cuda.lanes_launch_count == lanes + 1
+    assert _build.launches["ekf_rollout_lanes"] == lanes + 1
     torch.cuda.synchronize(dev)
     for name, g, w in zip(["x_true", "x_dr", "x_hat", "cov", "sq_err",
                            "nees"], _words(got), _words(want)):

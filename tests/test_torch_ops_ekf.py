@@ -28,6 +28,9 @@ from tpuslam_torch.filters import EkfConfig
 from tpuslam_torch.ops import _build, ekf_cuda
 from tpuslam_torch.ops import (ekf_fused_rollout, ekf_fused_rollout_plain,
                                ekf_fused_sweeps)
+from test_torch_ops_launch import (  # noqa: F401 (stand_in: a fixture)
+    CPU, H100_SMS, OTHER_CFG, PF_CFG, PF_ENTRY, PF_KERNELS, PF_OTHER,
+    TWO_WORD_SEED, plan_and_parent, stand_in)
 
 CFG = EkfConfig()
 JCFG = jf.EkfConfig()
@@ -249,84 +252,56 @@ def test_params_struct_mirrors_cuda_source():
     assert ctypes.sizeof(ekf_cuda._EkfParams) == 8 + 4 + 2 * 10 * 4 + 18 * 4 + 4
 
 
-OTHER_CFG = EkfConfig(dt=0.05, radius_m=7.5, yaw_rate=math.radians(14.0),
-                      q_std=(0.2, 0.15, math.radians(0.5)), r_std=(0.5, 0.7),
-                      q_act_std=(0.3, 0.1, 0.01), r_act_std=(1.5, 0.5),
-                      x0=(7.5, 0.0, 1.2), p0_std=(0.02, 0.03, 0.4))
-TWO_WORD_SEED = (0x1234ABCD << 32) | 0x9E37
-H100_SMS = 132
+PLAN_CASES = [pytest.param("K1", cfg, n_steps, id=f"{cid}-{n_steps}")
+              for cfg, cid in ((CFG, "default"), (OTHER_CFG, "other"))
+              for n_steps in (7, 400)] + [
+    pytest.param(kernel, cfg, None, id=f"{kernel}-{cid}")
+    for kernel in PF_KERNELS
+    for cfg, cid in ((PF_CFG, "default"), (PF_OTHER, "other"))]
 
 
-@pytest.fixture
-def stand_in(monkeypatch):
-    """The launch path on the CPU: an empty plan cache and counters, and a
-    stand-in library whose entry records its arguments (``calls``) and
-    launches nothing; the CUDA stream and device queries answer for the
-    CPU device (index None), the SM count for an H100's 132."""
-    calls = []
-
-    def rollout(*args):
-        calls.append(args)
-        return 0
-
-    lib = type("StandInLibrary", (), {})()
-    lib.tpuslam_ekf_rollout = rollout
-    monkeypatch.setattr(ekf_cuda, "_PLANS", {})
-    monkeypatch.setattr(ekf_cuda, "plan_builds", 0)
-    monkeypatch.setattr(ekf_cuda, "launch_count", 0)
-    monkeypatch.setattr(ekf_cuda, "lanes_launch_count", 0)
-    monkeypatch.setattr(ekf_cuda, "_sm_count", lambda device: H100_SMS)
-    monkeypatch.setattr(_build, "cuda_library", lambda device: lib)
-    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
-                        lambda index: 77, raising=False)
-    monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
-    return calls
-
-
-@pytest.mark.parametrize("n_steps", [7, 400])
-@pytest.mark.parametrize("cfg", [CFG, OTHER_CFG], ids=["default", "other"])
-def test_plan_params_equal_the_per_call_struct(stand_in, cfg, n_steps):
-    """The plan's template is, field for field and as float32, the struct
-    a launch built on every call before plans (here with the round keys
-    zeroed); ``batch`` and the round keys are left 0 for the entry."""
-    plan = ekf_cuda._plan(cfg, n_steps, torch.device("cpu"))
-    zero = [0] * 10
-    want = ekf_cuda._EkfParams(batch=8192, n_steps=n_steps,
-                               rk0=(ctypes.c_uint32 * 10)(*zero),
-                               rk1=(ctypes.c_uint32 * 10)(*zero),
-                               **ekf_cuda._constants(cfg))
-    got = plan.params
+@pytest.mark.parametrize("kernel,cfg,n_steps", PLAN_CASES)
+def test_plan_params_equal_the_per_call_struct(stand_in, kernel, cfg,
+                                               n_steps):
+    """Each plan's template is, byte for byte, the struct its launch built
+    on every call before plans, with the per-call fields (K1's batch and
+    round keys, the PF kernels' key, K2's flag, K5b's batch) zeroed: the
+    constants rounded to float32 once, as that struct rounded them."""
+    plan, want = plan_and_parent(kernel, cfg, n_steps)
+    assert bytes(plan.params) == bytes(want)
+    assert plan.params_ptr == ctypes.addressof(plan.params)
+    assert plan.index is None
+    if kernel != "K1":
+        assert plan.entry.__name__ == PF_ENTRY[kernel][1]
+        return
+    got, zero = plan.params, [0] * 10
     assert got.batch == 0 and got.n_steps == n_steps
     assert list(got.rk0) == list(got.rk1) == zero
     constants = ekf_cuda._constants(cfg)
     for name, _ in ekf_cuda._EkfParams._fields_[4:]:
-        assert getattr(got, name) == getattr(want, name), name
         assert getattr(got, name) == float(np.float32(constants[name])), name
-    want.batch = 0
-    assert bytes(got) == bytes(want)
-    assert plan.params_ptr == ctypes.addressof(got)
-    assert plan.table is ekf_cuda.truth_table(cfg, n_steps, "cpu")
-    assert plan.table_ptr == plan.table.data_ptr()
-    assert plan.sm_count == H100_SMS
+    table, table_ptr, sm_count = plan.extra
+    assert table is ekf_cuda.truth_table(cfg, n_steps, "cpu")
+    assert table_ptr == table.data_ptr()
+    assert sm_count == H100_SMS
 
 
 def test_plan_built_once_per_cfg_steps_and_device(stand_in):
     """Plans are cached by (cfg, n_steps, device), not by batch or seed;
-    ``plan_builds`` counts the builds and ``launch_count`` the launches,
-    and no call writes the template."""
-    cpu = torch.device("cpu")
+    ``_build.builds`` counts the builds and ``_build.launches`` the
+    launches, and no call writes the template."""
     for cfg in (CFG, OTHER_CFG):
         for n_steps in (4, 5):
             for batch, seed in ((8, 1), (24, 2), (8, TWO_WORD_SEED)):
                 ekf_cuda._launch(cfg, seed, batch, n_steps, 1, True, None,
-                                 cpu)
-    assert ekf_cuda.plan_builds == len(ekf_cuda._PLANS) == 4
-    assert ekf_cuda.launch_count == len(stand_in) == 12
-    plan = ekf_cuda._PLANS[(CFG, 4, cpu)]
+                                 CPU)
+    assert _build.builds["ekf_plan"] == 4
+    assert _build.launches["ekf_rollout_lanes"] == len(stand_in.calls) == 12
+    plan = ekf_cuda._plan(CFG, 4, CPU)
     template = bytes(plan.params)
-    ekf_cuda._launch(CFG, TWO_WORD_SEED, 24, 4, 1, False, None, cpu)
+    ekf_cuda._launch(CFG, TWO_WORD_SEED, 24, 4, 1, False, None, CPU)
     assert bytes(plan.params) == template
-    assert ekf_cuda.plan_builds == 4
+    assert _build.builds["ekf_plan"] == 4
 
 
 def test_launch_arguments_and_output_views(stand_in):
@@ -335,15 +310,16 @@ def test_launch_arguments_and_output_views(stand_in):
     current stream; the state, covariance and accumulator pointers are
     rows 0, 9 and 18 of one fresh ``(20, batch)`` buffer, and the
     returned views read those rows."""
-    cpu, batch, n_steps = torch.device("cpu"), 24, 4
+    batch, n_steps = 24, 4
     normals = torch.zeros((n_steps, 5, batch))
     outs = [ekf_cuda._launch(CFG, TWO_WORD_SEED, batch, n_steps, 2, True,
-                             normals, cpu) for _ in range(2)]
-    plan = ekf_cuda._PLANS[(CFG, n_steps, cpu)]
+                             normals, CPU) for _ in range(2)]
+    plan = ekf_cuda._plan(CFG, n_steps, CPU)
     row = 4 * batch
-    for (final, err, nees), args in zip(outs, stand_in):
+    for (final, err, nees), (name, args) in zip(outs, stand_in.calls):
         base = final.x_true.data_ptr()
-        assert args == (plan.table_ptr, normals.data_ptr(), base,
+        assert name == "tpuslam_ekf_rollout"
+        assert args == (plan.extra[1], normals.data_ptr(), base,
                         base + 9 * row, base + 18 * row, plan.params_ptr,
                         batch, 0x9E37, 0x1234ABCD, 2, 1, 4, 77)
         assert final.x_true.untyped_storage().nbytes() == 20 * row
@@ -357,9 +333,9 @@ def test_launch_arguments_and_output_views(stand_in):
         assert err.shape == nees.shape == (batch,)
     # A fresh buffer each call: a caller may keep every call's outputs.
     assert outs[0][0].x_true.data_ptr() != outs[1][0].x_true.data_ptr()
-    final, err = ekf_cuda._launch(CFG, 5, batch, n_steps, 0, False, None, cpu)
-    assert stand_in[-1][1] is None and stand_in[-1][6:12] == (batch, 5, 0,
-                                                              0, 0, 4)
+    final, err = ekf_cuda._launch(CFG, 5, batch, n_steps, 0, False, None, CPU)
+    args = stand_in.calls[-1][1]
+    assert args[1] is None and args[6:12] == (batch, 5, 0, 0, 0, 4)
 
 
 @pytest.mark.parametrize("sm_count", [132, 114, 78, 1])
@@ -387,41 +363,16 @@ def test_k1_lanes_at_the_benchmark_shapes():
 
 
 def test_lanes_launch_count_follows_the_rule(stand_in, monkeypatch):
-    """Each launch passes the rule's lanes, and ``lanes_launch_count``
-    counts the launches that the rule sends to the small-batch form."""
+    """Each launch passes the rule's lanes, and ``_build.launches`` counts
+    the launches that the rule sends to the small-batch form
+    (``ekf_rollout_lanes``) apart from the one-thread form's
+    (``ekf_rollout``)."""
     monkeypatch.setattr(ekf_cuda, "_sm_count", lambda device: 2)
-    cpu, limit = torch.device("cpu"), 2 * ekf_cuda.LANES_BELOW_PER_SM
+    limit = 2 * ekf_cuda.LANES_BELOW_PER_SM
     for batch in (8, limit - 1, limit, 3 * limit):
-        ekf_cuda._launch(CFG, 1, batch, 3, 1, False, None, cpu)
-    assert [args[11] for args in stand_in] == [4, 4, 1, 1]
-    assert ekf_cuda.launch_count == 4
-    assert ekf_cuda.lanes_launch_count == 2
-
-
-def test_rollout_entry_mirrors_declared_argtypes():
-    """The C entry's parameters, in order, are the ``argtypes`` that
-    ``_build`` declares for it."""
-    src = (_build.CSRC_DIR / "ekf_rollout.cu").read_text()
-    params = re.search(r'extern "C" int tpuslam_ekf_rollout\((.*?)\)\s*\{',
-                       src, re.S).group(1)
-    ctypes_of = {"const float*": ctypes.c_void_p, "float*": ctypes.c_void_p,
-                 "const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
-                 "long long": ctypes.c_longlong, "uint32_t": ctypes.c_uint32,
-                 "int": ctypes.c_int}
-    words = [p.split() for p in params.split(",")]
-    assert [w[-1] for w in words] == [
-        "tbl", "normals", "state", "cov", "err", "params", "batch",
-        "seed_lo", "seed_hi", "mode", "with_nees", "lanes", "stream"]
-
-    class Functions:
-        def __getattr__(self, name):
-            fn = type("Function", (), {})()
-            setattr(self, name, fn)
-            return fn
-
-    entry = _build._declare(Functions()).tpuslam_ekf_rollout
-    assert entry.argtypes == [ctypes_of[" ".join(w[:-1])] for w in words]
-    assert entry.restype is ctypes.c_int
+        ekf_cuda._launch(CFG, 1, batch, 3, 1, False, None, CPU)
+    assert [args[11] for _, args in stand_in.calls] == [4, 4, 1, 1]
+    assert _build.launches == {"ekf_rollout": 2, "ekf_rollout_lanes": 2}
 
 
 def test_build_flags_and_sources():

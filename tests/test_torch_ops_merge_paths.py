@@ -215,12 +215,10 @@ def test_segmented_forms_are_the_single_filter_forms(rng):
     for s, f in enumerate((3, 0, 4)):
         wf = torch.from_numpy(_exact_weights(w[f]))
         t[s] = slot_boundaries(wf, n, 0.2 * s)
-    counts = [resample_cuda.compact_seg_launch_count,
-              resample_cuda.expand_compressed_seg_launch_count]
+    counts = _build.launches.copy()
     vals, iv, cnt = compact_particles_seg(p, t, fids, valid)
     out = expand_compressed_seg(vals, iv, valid)
-    assert counts == [resample_cuda.compact_seg_launch_count,
-                      resample_cuda.expand_compressed_seg_launch_count]
+    assert _build.launches == counts
     for s, f in enumerate((3, 0, 4)):
         single = compact_particles(p[:, f].contiguous(), t[s])
         assert torch.equal(vals[:, s], single[0])

@@ -243,17 +243,20 @@ def test_truth_cache_keeps_only_the_default_start():
     either way (exact: same ops)."""
     cfg = tpf.PfConfig(num_particles=8, weight_mode="log",
                        resample_method="merge")
-    pf_cuda._TRUTH.clear()
+    key = ("pf_truth", cfg, 3, torch.device("cpu"))
+    _build._CACHE.pop(key, None)
+    builds = _build.builds["pf_truth"]
     state, _ = pf_fused_rollout(cfg, torch.Generator().manual_seed(1), 3,
                                 device="cpu")
-    assert len(pf_cuda._TRUTH) == 1
+    assert key in _build._CACHE
+    assert _build.builds["pf_truth"] == builds + 1
     for _ in range(2):
         x_start = state.x_true
         state, (x_true, _) = pf_fused_rollout(
             cfg, torch.Generator().manual_seed(1), 3, state, device="cpu")
         assert torch.equal(x_true, pf_cuda.truth_table(cfg, x_start, 3)[0])
     pf_fused_rollout(cfg, torch.Generator().manual_seed(2), 3, device="cpu")
-    assert len(pf_cuda._TRUTH) == 1
+    assert _build.builds["pf_truth"] == builds + 1
 
 
 def test_injected_normals_match_jax_step_with_noise(rng):
@@ -303,10 +306,10 @@ def test_philox_rollout_tracks_truth():
     nothing."""
     cfg = tpf.PfConfig(num_particles=4096, weight_mode="log",
                        resample_method="merge")
-    before = pf_cuda.launch_count
+    before = _build.launches.copy()
     final, (x_true, x_est) = pf_fused_rollout(
         cfg, torch.Generator().manual_seed(3), 100, device="cpu")
-    assert pf_cuda.launch_count == before
+    assert _build.launches == before
     rmse = float(torch.sqrt(((x_est[:, :2] - x_true[:, :2]) ** 2)
                             .sum(-1).mean()))
     assert 0.02 < rmse < 0.40, rmse

@@ -205,10 +205,10 @@ def test_philox_rollout_tracks_truth():
     (0.02, 0.50) m; the CPU dispatch launches nothing and the rollout is
     reproducible."""
     cfg = tpf.PfConfig(num_particles=1000, weight_mode="log")
-    before = pb.launch_count
+    before = _build.launches.copy()
     final, outs = pb.pf_batch_rollout(cfg, torch.Generator().manual_seed(4),
                                       16, 60, device="cpu")
-    assert pb.launch_count == before
+    assert _build.launches == before
     e = outs.x_est[..., :2] - outs.x_true[:, None, :2]
     rmse = float(torch.sqrt((e ** 2).sum(-1).mean()))
     assert 0.02 < rmse < 0.50, rmse

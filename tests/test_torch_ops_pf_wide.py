@@ -335,13 +335,10 @@ def test_philox_rollout_tracks_truth():
     (0.02, 0.50) m; the CPU dispatch launches nothing and the rollout is
     reproducible."""
     cfg = tpf.PfConfig(num_particles=5000, weight_mode="log")
-    counts = (pb.wide_boundary_launch_count, pb.wide_stats_launch_count,
-              resample_cuda.expand_seg_launch_count)
+    counts = _build.launches.copy()
     final, outs = pb.pf_batch_wide_rollout(
         cfg, torch.Generator().manual_seed(5), 4, 60, device="cpu")
-    assert counts == (pb.wide_boundary_launch_count,
-                      pb.wide_stats_launch_count,
-                      resample_cuda.expand_seg_launch_count)
+    assert _build.launches == counts
     e = outs.x_est[..., :2] - outs.x_true[:, None, :2]
     rmse = float(torch.sqrt((e ** 2).sum(-1).mean()))
     assert 0.02 < rmse < 0.50, rmse

@@ -8,7 +8,7 @@ import torch
 
 from tpuslam_torch.filters.ekf import EkfConfig
 from tpuslam_torch.filters.pf import PfConfig
-from tpuslam_torch.ops import ekf_cuda, pf_batch_cuda, pf_cuda
+from tpuslam_torch.ops import _build, ekf_cuda, pf_batch_cuda, pf_cuda
 from tpuslam_torch.utils import profiling
 
 STEPS = 5
@@ -82,7 +82,7 @@ def test_ekf_rollout_records_one_span():
 
 def test_truth_table_span_only_where_the_table_is_built():
     cfg = EkfConfig()
-    ekf_cuda._TABLES.pop((cfg, 7, torch.device("cpu")), None)
+    _build._CACHE.pop(("ekf_truth", cfg, 7, torch.device("cpu")), None)
     built, events = _profiled(lambda: ekf_cuda.truth_table(cfg, 7, "cpu"))
     assert len(_named(events, "tpuslam.ekf.truth_table")) == 1
     kept, events = _profiled(lambda: ekf_cuda.truth_table(cfg, 7, "cpu"))

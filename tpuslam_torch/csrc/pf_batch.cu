@@ -470,13 +470,17 @@ int launch(const PfBatchBuffers& buf, const PfBatchParams& prm, int b,
 }  // namespace
 
 // C entry point for ctypes.  buffers: a PfBatchBuffers, params: a
-// PfBatchParams, both in host memory; b: filters.  Launches on `stream`
-// and returns cudaGetLastError() (0 when the launch was accepted); never
-// synchronises.
+// PfBatchParams template (every field but the key), both in host memory;
+// the template stays read-only: the entry copies it and sets the key
+// (seed_lo, seed_hi).  b: filters.  Launches on `stream` and returns
+// cudaGetLastError() (0 when the launch was accepted); never synchronises.
 extern "C" int tpuslam_pf_batch_step(const void* buffers, const void* params,
+                                     uint32_t seed_lo, uint32_t seed_hi,
                                      int b, int mode, void* stream) {
   const PfBatchBuffers& buf = *static_cast<const PfBatchBuffers*>(buffers);
-  const PfBatchParams& p = *static_cast<const PfBatchParams*>(params);
+  PfBatchParams p = *static_cast<const PfBatchParams*>(params);
+  p.key0 = seed_lo;
+  p.key1 = seed_hi;
   if (b < 1 || p.n < 1 || p.n > kMaxN || p.n_lm < 0 ||
       p.n_lm > kMaxLandmarks || mode < 0 || mode > 2 ||
       (mode == 2 && buf.normals == nullptr)) {

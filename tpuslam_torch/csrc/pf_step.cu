@@ -294,17 +294,23 @@ void launch(bool with_stats, unsigned grid, cudaStream_t stream,
 // C entry point for ctypes.  p_in/p_out: (3, n) rows; lw_in/lw_out: (n,);
 // z: (n_lm, 2) observation on the device; normals: (3, n) in mode 2, else
 // unused; stats: (10,) when with_stats (the layout above); gate: null (the
-// flag from params) or two bytes [take, restart] on the device, with
+// flag from `flag`) or two bytes [take, restart] on the device, with
 // p_alt: (3, n) the rows taken where take is set (with_stats only).
-// Launches on `stream` and returns cudaGetLastError() (0 when the launch
-// was accepted); never synchronises.
+// `params` is a filled template (every field but the key and the flag),
+// which stays read-only: the entry copies it and sets the key (seed_lo,
+// seed_hi) and `flag`.  Launches on `stream` and returns
+// cudaGetLastError() (0 when the launch was accepted); never synchronises.
 extern "C" int tpuslam_pf_step(const float* p_in, const float* lw_in,
                                const float* z, const float* normals,
                                float* p_out, float* lw_out, float* stats,
-                               const void* params, int mode, int with_stats,
-                               const unsigned char* gate, const float* p_alt,
-                               void* stream) {
-  const PfParams& p = *static_cast<const PfParams*>(params);
+                               const void* params, uint32_t seed_lo,
+                               uint32_t seed_hi, float flag, int mode,
+                               int with_stats, const unsigned char* gate,
+                               const float* p_alt, void* stream) {
+  PfParams p = *static_cast<const PfParams*>(params);
+  p.key0 = seed_lo;
+  p.key1 = seed_hi;
+  p.flag = flag;
   if (p.n < 1 || p.n >= (1LL << 24) || p.n_lm < 0 ||
       p.n_lm > kMaxLandmarks || mode < 0 || mode > 2 ||
       (mode == 2 && normals == nullptr) ||

@@ -433,12 +433,18 @@ extern "C" int tpuslam_wide_boundary(const float* log_w, const float* lse,
   return static_cast<int>(cudaGetLastError());
 }
 
-// buffers: a WideBuffers, params: a WideParams, both in host memory.
+// buffers: a WideBuffers, params: a WideParams template (every field but
+// the key and b), both in host memory; the template stays read-only: the
+// entry copies it and sets the key (seed_lo, seed_hi) and b, the filters.
 // fused != 0 reads src and expanded.
 extern "C" int tpuslam_wide_stats(const void* buffers, const void* params,
+                                  uint32_t seed_lo, uint32_t seed_hi, int b,
                                   int mode, int fused, void* stream) {
   const WideBuffers& buf = *static_cast<const WideBuffers*>(buffers);
-  const WideParams& p = *static_cast<const WideParams*>(params);
+  WideParams p = *static_cast<const WideParams*>(params);
+  p.key0 = seed_lo;
+  p.key1 = seed_hi;
+  p.b = b;
   if (p.n < 1 || p.n >= (1 << 24) || p.b < 1 || p.b > 65535 ||
       p.n_lm < 0 || p.n_lm > kMaxLandmarks || mode < 0 || mode > 2 ||
       (mode == 2 && buf.normals == nullptr) ||

@@ -1,5 +1,6 @@
-"""Build the package's CUDA sources into one shared library at first use,
-and the checks every kernel wrapper makes before a launch.
+"""Build the package's CUDA sources into one shared library at first use;
+the checks every kernel wrapper makes before a launch, and the one launch
+path they all take.
 
 ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a``, one process per
 source, all at once, and linked into one shared library with a plain C
@@ -13,10 +14,16 @@ The build needs a source checkout (the package beside the repository's
 ``pyproject.toml``): an installed copy of the package has no repository
 root to build into, and :func:`load_library` raises there rather than
 write into the interpreter's tree.
+
+Every kernel wrapper in ``ops/`` launches through :func:`launch`; what a
+launch needs that depends only on the configuration and the device (a
+kernel's filled parameters, truth tables) is built once by :func:`cached`.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -25,8 +32,12 @@ import shutil
 import subprocess
 import tempfile
 import time
+import typing
 
 import torch
+
+from tpuslam_torch.ops.fastmath import _MASK32
+from tpuslam_torch.utils.profiling import span
 
 _PKG_DIR = pathlib.Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG_DIR / "csrc"
@@ -40,6 +51,29 @@ NVCC_LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 #: The sources with a ``tpuslam_occupancy_<source>`` entry point.
 OCCUPANCY_SOURCES = ("pf_step", "resample", "pf_batch", "pf_wide")
+
+#: Particles, boundaries and integer prefixes below this are exact in
+#: float32: the kernels' bound on a filter's particles.
+MAX_N = 1 << 24
+#: The kernels' noise modes: none, Philox, injected normals.
+MODE_OFF, MODE_PHILOX, MODE_NORMALS = 0, 1, 2
+
+#: Launches since this count was last cleared, by kernel form:
+#: ``ekf_rollout`` and ``ekf_rollout_lanes`` (K1's one-thread and
+#: small-batch forms), ``pf_step`` (K2), ``resample_boundary`` (K3a on the
+#: gate), ``resample_boundary_weights`` (K3a on given weights),
+#: ``resample_expand``, ``resample_expand_seg`` (K3b), ``compact``,
+#: ``compact_seg`` (K3c), ``expand_compressed``, ``expand_compressed_seg``
+#: (K3d), ``pf_batch_step`` (K4), ``wide_boundary`` (K5a), ``wide_stats``
+#: (K5b).
+launches: collections.Counter = collections.Counter()
+#: Entries built into :func:`cached`'s cache since this count was last
+#: cleared, by kind (the key's first item); over the same launches,
+#: ``1 - builds[kind] / launches[form]`` is a plan cache's hit share.
+builds: collections.Counter = collections.Counter()
+# Launch plans and tables by ``(kind, ...)``: one a configuration and
+# device, so nothing here grows with a batch or a seed.
+_CACHE: dict = {}
 
 _lib: ctypes.CDLL | None = None
 #: The loaded library's path, the seconds its build took (0.0 when it was
@@ -78,7 +112,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         "tpuslam_ekf_rollout": [ptr, ptr, ptr, ptr, ptr, ptr,
                                 ctypes.c_longlong, ctypes.c_uint32,
                                 ctypes.c_uint32, c_int, c_int, c_int, ptr],
-        "tpuslam_pf_step": [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, c_int,
+        "tpuslam_pf_step": [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+                            ctypes.c_uint32, ctypes.c_uint32, c_float, c_int,
                             c_int, ptr, ptr, ptr],
         "tpuslam_resample_boundary": [ptr, ptr, ptr, c_float, ptr, ptr, ptr,
                                       c_int, c_int, ptr],
@@ -90,11 +125,13 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
                                      c_int, c_int, ptr],
         "tpuslam_resample_expand_compressed": [ptr, ptr, ptr, ptr, ptr,
                                                c_int, c_int, c_int, ptr],
-        "tpuslam_pf_batch_step": [ptr, ptr, c_int, c_int, ptr],
+        "tpuslam_pf_batch_step": [ptr, ptr, ctypes.c_uint32, ctypes.c_uint32,
+                                  c_int, c_int, ptr],
         "tpuslam_pf_step_ticket": [ctypes.POINTER(ctypes.c_uint)],
         "tpuslam_wide_boundary": [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
                                   c_int, c_int, ptr],
-        "tpuslam_wide_stats": [ptr, ptr, c_int, c_int, ptr],
+        "tpuslam_wide_stats": [ptr, ptr, ctypes.c_uint32, ctypes.c_uint32,
+                               c_int, c_int, c_int, ptr],
     }
     signatures.update({f"tpuslam_occupancy_{src}": [
         c_int, c_int, ctypes.POINTER(c_int),
@@ -155,6 +192,105 @@ def cuda_library(device: torch.device) -> ctypes.CDLL:
         raise RuntimeError(f"kernel launch on {device} requested but CUDA "
                            "is not available")
     return load_library()
+
+
+def noise_mode(noise_on: bool, normals: torch.Tensor | None) -> int:
+    """The kernels' noise mode: injected ``normals`` (noise on only),
+    else Philox with noise on, else none."""
+    if normals is not None:
+        if not noise_on:
+            raise ValueError("normals given with noise_on=False")
+        return MODE_NORMALS
+    return MODE_PHILOX if noise_on else MODE_OFF
+
+
+def seed_words(seed: int) -> tuple[int, int]:
+    """The Philox key of ``seed``: its low and high 32-bit words."""
+    seed = int(seed)
+    return seed & _MASK32, (seed >> 32) & _MASK32
+
+
+def ptr(t: torch.Tensor | None) -> int | None:
+    """``t``'s device address for a C entry; ``None`` (a null pointer) for
+    no tensor."""
+    return None if t is None else t.data_ptr()
+
+
+def cached(key: tuple, build: typing.Callable[[], typing.Any]):
+    """The cache's entry under ``key`` (``(kind, ...)``, the rest naming a
+    configuration and device), built by ``build()`` at its first use and
+    kept; :data:`builds` counts the build under ``kind``."""
+    value = _CACHE.get(key)
+    if value is None:
+        value = _CACHE[key] = build()
+        builds[key[0]] += 1
+    return value
+
+
+class Plan(typing.NamedTuple):
+    """What a launch of one kernel for one configuration and device needs
+    besides its per-call arguments, buffers and stream."""
+
+    entry: typing.Callable[..., int]  # the library's C entry
+    index: int | None  # the device's CUDA index
+    params: ctypes.Structure  # read-only template; the entry copies it
+    params_ptr: int
+    extra: tuple = ()  # what else the kernel's launch reads, by its wrapper
+
+
+def plan(key: tuple, device: torch.device, entry: str,
+         make_params: typing.Callable[[], ctypes.Structure],
+         make_extra: typing.Callable[[], tuple] = tuple,
+         span_name: str | None = None) -> Plan:
+    """The :class:`Plan` cached under ``key``, built at its first launch
+    (inside the span ``span_name``, where one is given): the library's
+    ``entry`` (raises where CUDA is not available), the template
+    ``make_params()``, whose per-call fields stay 0 and which no call
+    writes (``ctypes`` releases the interpreter lock during a call, so a
+    shared template written between calls would be a race), and
+    ``make_extra()``."""
+    def build():
+        with span(span_name) if span_name else contextlib.nullcontext():
+            lib = cuda_library(device)
+            params = make_params()
+            return Plan(getattr(lib, entry), device.index, params,
+                        ctypes.addressof(params), make_extra())
+    return cached(key, build)
+
+
+def _on_device(entry: typing.Callable[..., int], index: int | None,
+               args: tuple) -> int:
+    """``entry(*args)`` with CUDA device ``index`` current: a direct call
+    where it already is, else under its guard."""
+    if torch.cuda.current_device() == index:
+        return entry(*args)
+    with torch.cuda.device(index):
+        return entry(*args)
+
+
+def launch(form: str, entry: typing.Callable[..., int], index: int | None,
+           *args) -> None:
+    """Launch ``entry(*args, stream)`` on device ``index``'s current raw
+    stream; raise a ``RuntimeError`` naming the entry where it returns an
+    error, else count the launch under ``form`` in :data:`launches`."""
+    rc = _on_device(entry, index,
+                    args + (torch._C._cuda_getCurrentRawStream(index),))
+    if rc != 0:
+        raise RuntimeError(f"{entry.__name__} launch failed: CUDA error {rc}")
+    launches[form] += 1
+
+
+def read_word(entry: str, device: torch.device | str) -> int:
+    """The unsigned word that the library's ``entry`` copies from
+    ``device`` (a counter of the kernels' own).  Synchronises with the
+    device: for checks only."""
+    device = resolve_device(device)
+    value = ctypes.c_uint(0)
+    fn = getattr(cuda_library(device), entry)
+    rc = _on_device(fn, device.index, (ctypes.byref(value),))
+    if rc != 0:
+        raise RuntimeError(f"{entry} failed: CUDA error {rc}")
+    return value.value
 
 
 def _run_all(cmds: list[list[str]]) -> str:

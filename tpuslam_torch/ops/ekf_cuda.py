@@ -17,8 +17,8 @@ other.
 A launch reuses one plan per ``(cfg, n_steps, device)``: the kernel
 library, the truth table, the kernel's parameters filled from the config
 and the device's SM count.  A call adds only its own: the batch and seed
-(the library's entry folds the seed into the Philox round keys), a fresh
-output buffer and the current stream.
+(the library's entry folds the seed into the Philox round keys) and a
+fresh output buffer, launched by ``_build.launch``.
 
 K1 has two forms of one computation, with the same output words: a
 thread a rollout, and the small-batch form, four lanes of a warp a
@@ -29,8 +29,8 @@ batch and the SM count.
 Spans (:func:`~tpuslam_torch.utils.profiling.span`, recorded only while a
 profiler records): ``tpuslam.ekf.rollout`` around
 :func:`ekf_fused_rollout`; inside its launch ``tpuslam.ekf.params`` (the
-plan lookup, the stream and the output buffer) and ``tpuslam.ekf.launch``
-(the kernel call); ``tpuslam.ekf.plan`` where a plan is built, holding
+plan lookup and the output buffer) and ``tpuslam.ekf.launch`` (the stream
+and the kernel call); ``tpuslam.ekf.plan`` where a plan is built, holding
 ``tpuslam.ekf.truth_table`` where a truth table is built.
 
 Noise: with ``noise_on`` and no ``normals``, the normals come by
@@ -55,44 +55,24 @@ noise on.
 from __future__ import annotations
 
 import ctypes
-import typing
 
 import torch
 
 from tpuslam_torch.core.angles import wrap_angle
 from tpuslam_torch.filters.ekf import EkfConfig, EkfState
 from tpuslam_torch.ops import _build
-from tpuslam_torch.ops.fastmath import (normals_from_bits, philox4x32,
-                                        sincos_rad)
+from tpuslam_torch.ops._build import MODE_NORMALS, MODE_OFF, MODE_PHILOX
+from tpuslam_torch.ops.fastmath import (_MASK32, normals_from_bits,
+                                        philox4x32, sincos_rad)
 from tpuslam_torch.utils.profiling import span
 
-#: Launches of the CUDA kernel since this count was last set to 0.
-launch_count = 0
-#: Launch plans built since this count was last set to 0; over the same
-#: launches, ``1 - plan_builds / launch_count`` is the plan cache's hit
-#: share.
-plan_builds = 0
-#: Launches of K1's small-batch form (four lanes a rollout) since this
-#: count was last set to 0: its share of ``launch_count`` is how often
-#: that form runs.
-lanes_launch_count = 0
-
-_MODE_OFF, _MODE_PHILOX, _MODE_NORMALS = 0, 1, 2
 #: K1 takes its small-batch form below this many rollouts an SM, so that
 #: no SM holds more than three of its 32-rollout blocks (12 warps).  On an
 #: H100 at 400 steps it beats the one-thread form up to 12,288 rollouts
 #: (240 against 280 us with NEES) and loses from 14,336 (305 against
 #: 280), where some SMs hold four.
 LANES_BELOW_PER_SM = 96
-_MASK32 = 0xFFFFFFFF
 _ROUNDS = 10  # Philox4x32-10's rounds, a round key each
-
-# Truth tables by (cfg, n_steps, device): one small tensor per
-# configuration, built once on the device.
-_TABLES: dict = {}
-# Launch plans (:class:`_Plan`) by the same key, so neither cache grows
-# with the batch.
-_PLANS: dict = {}
 
 
 class _EkfParams(ctypes.Structure):
@@ -104,19 +84,6 @@ class _EkfParams(ctypes.Structure):
         (name, ctypes.c_float) for name in (
             "vdt", "wdt", "q0", "q1", "q2", "r0sq", "r1sq", "qa0", "qa1",
             "qa2", "ra0", "ra1", "x0", "x1", "x2", "p00", "p11", "p22")]
-
-
-class _Plan(typing.NamedTuple):
-    """What a launch for one ``(cfg, n_steps, device)`` needs besides its
-    batch, seed, outputs and stream."""
-
-    rollout: typing.Callable[..., int]  # the library's tpuslam_ekf_rollout
-    table: torch.Tensor  # the truth table, kept alive for table_ptr
-    table_ptr: int
-    index: int | None  # the device's CUDA index
-    params: _EkfParams  # read-only template: batch and round keys 0
-    params_ptr: int
-    sm_count: int  # the device's streaming multiprocessors
 
 
 def k1_lanes(batch: int, sm_count: int) -> int:
@@ -159,9 +126,8 @@ def truth_table(cfg: EkfConfig, n_steps: int,
     ``models/process.py``'s circular step, and kept.
     """
     device = _build.resolve_device(device)
-    key = (cfg, n_steps, device)
-    tbl = _TABLES.get(key)
-    if tbl is None:
+
+    def build():
         with span("tpuslam.ekf.truth_table"):
             vdt, wdt = cfg.vel * cfg.dt, cfg.yaw_rate * cfg.dt
             t0, t1, t2 = torch.tensor(cfg.x0, dtype=torch.float32,
@@ -173,16 +139,8 @@ def truth_table(cfg: EkfConfig, n_steps: int,
                 t2 = wrap_angle(t2 + wdt)
                 rows.append(torch.stack([t0, t1, t2, torch.cos(t2),
                                          torch.sin(t2)]))
-            tbl = _TABLES[key] = torch.stack(rows).contiguous()
-    return tbl
-
-
-def _mode(noise_on: bool, normals: torch.Tensor | None) -> int:
-    if normals is not None:
-        if not noise_on:
-            raise ValueError("normals given with noise_on=False")
-        return _MODE_NORMALS
-    return _MODE_PHILOX if noise_on else _MODE_OFF
+            return torch.stack(rows).contiguous()
+    return _build.cached(("ekf_truth", cfg, n_steps, device), build)
 
 
 def _check(batch: int, n_steps: int, normals: torch.Tensor | None,
@@ -194,16 +152,8 @@ def _check(batch: int, n_steps: int, normals: torch.Tensor | None,
         raise ValueError(f"batch {batch} exceeds the 32-bit Philox "
                          "counter word")
     if normals is not None:
-        if normals.shape != (n_steps, 5, batch):
-            raise ValueError(f"normals shape {tuple(normals.shape)} != "
-                             f"{(n_steps, 5, batch)}")
-        if normals.dtype != torch.float32:
-            raise ValueError(f"normals dtype {normals.dtype} != float32")
-        if normals.device != device:
-            raise ValueError(f"normals on {normals.device}, rollout on "
-                             f"{device}")
-        if not normals.is_contiguous():
-            raise ValueError("normals must be contiguous")
+        _build.check_tensor("normals", normals, (n_steps, 5, batch),
+                            torch.float32, device)
 
 
 def _finish(state: torch.Tensor, cov: torch.Tensor, err: torch.Tensor,
@@ -223,7 +173,7 @@ def _philox_steps(seed: int, batch: int, n_steps: int,
     stream, ``(batch,)`` float32 each, in the layout of the module's
     docstring."""
     idx = torch.arange(batch, dtype=torch.int64, device=device)
-    k0, k1 = seed & _MASK32, (seed >> 32) & _MASK32
+    k0, k1 = _build.seed_words(seed)
     for k in range(n_steps):
         a = philox4x32(idx, k, 0, 0, k0, k1)
         n0, n1 = normals_from_bits(a[0], a[1])
@@ -257,7 +207,7 @@ def ekf_fused_rollout_plain(cfg: EkfConfig, seed: int, batch: int,
     """
     device = _build.resolve_device(device)
     _check(batch, n_steps, normals, device)
-    mode = _mode(noise_on, normals)
+    mode = _build.noise_mode(noise_on, normals)
     tbl = truth_table(cfg, n_steps, device)
     c = _constants(cfg)
     vdt, wdt = c["vdt"], c["wdt"]
@@ -274,13 +224,13 @@ def ekf_fused_rollout_plain(cfg: EkfConfig, seed: int, batch: int,
     p20, p21, p22 = zero, zero, full(c["p22"])
     acc = acc_n = zero
     n0 = n1 = n2 = n3 = n4 = zero
-    if mode == _MODE_PHILOX:
+    if mode == MODE_PHILOX:
         stream = _philox_steps(seed, batch, n_steps, device)
 
     for k in range(n_steps):
-        if mode == _MODE_PHILOX:
+        if mode == MODE_PHILOX:
             n0, n1, n2, n3, n4 = next(stream)
-        elif mode == _MODE_NORMALS:
+        elif mode == MODE_NORMALS:
             n0, n1, n2, n3, n4 = normals[k].unbind()
         xt0, xt1, _, c_t, s_t = tbl[k].unbind()
 
@@ -289,7 +239,7 @@ def ekf_fused_rollout_plain(cfg: EkfConfig, seed: int, batch: int,
         z0 = s_t * wx + c_t * wy + xt0
         z1 = -c_t * wx + s_t * wy + xt1
 
-        if mode == _MODE_OFF:
+        if mode == MODE_OFF:
             c_d, s_d = torch.cos(xd2), torch.sin(xd2)
         else:
             c_d, s_d = sincos_rad(xd2)
@@ -297,7 +247,7 @@ def ekf_fused_rollout_plain(cfg: EkfConfig, seed: int, batch: int,
         xd1 = xd1 + vdt * s_d + n3 * c["qa1"]
         xd2 = wrap_angle(xd2 + wdt + n4 * c["qa2"])
 
-        if mode == _MODE_OFF:
+        if mode == MODE_OFF:
             c_h, s_h = torch.cos(xh2), torch.sin(xh2)
         else:
             c_h, s_h = sincos_rad(xh2)
@@ -371,56 +321,41 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _plan(cfg: EkfConfig, n_steps: int, device: torch.device) -> _Plan:
-    """The launch plan of ``(cfg, n_steps, device)``, built at its first
-    launch: the kernel library (raises where CUDA is not available), the
-    truth table, the parameters from :func:`_constants`, rounded to
-    float32 once by ``ctypes``, and the device's SM count."""
-    global plan_builds
-    key = (cfg, n_steps, device)
-    plan = _PLANS.get(key)
-    if plan is None:
-        with span("tpuslam.ekf.plan"):
-            lib = _build.cuda_library(device)
-            tbl = truth_table(cfg, n_steps, device)
-            params = _EkfParams(n_steps=n_steps, **_constants(cfg))
-            plan = _PLANS[key] = _Plan(
-                lib.tpuslam_ekf_rollout, tbl, tbl.data_ptr(), device.index,
-                params, ctypes.addressof(params), _sm_count(device))
-        plan_builds += 1
-    return plan
+def _plan(cfg: EkfConfig, n_steps: int,
+          device: torch.device) -> _build.Plan:
+    """K1's launch plan for ``(cfg, n_steps, device)``, built at its first
+    launch in the span ``tpuslam.ekf.plan`` (``_build.builds["ekf_plan"]``
+    counts the builds): the parameters from :func:`_constants`, rounded to
+    float32 once by ``ctypes``, batch and round keys left 0 for the entry
+    to set; its ``extra`` the truth table (kept alive for its pointer),
+    the table's pointer and the device's SM count."""
+    def make_extra():
+        tbl = truth_table(cfg, n_steps, device)
+        return tbl, tbl.data_ptr(), _sm_count(device)
+    return _build.plan(
+        ("ekf_plan", cfg, n_steps, device), device, "tpuslam_ekf_rollout",
+        lambda: _EkfParams(n_steps=n_steps, **_constants(cfg)), make_extra,
+        "tpuslam.ekf.plan")
 
 
 def _launch(cfg: EkfConfig, seed: int, batch: int, n_steps: int, mode: int,
             with_nees: bool, normals: torch.Tensor | None,
             device: torch.device):
-    global launch_count, lanes_launch_count
     with span("tpuslam.ekf.params"):
         plan = _plan(cfg, n_steps, device)
-        stream = torch._C._cuda_getCurrentRawStream(plan.index)
         # One fresh buffer a call, rows 0:9 the state, 9:18 the
         # covariance, 18:20 the accumulators; the views are taken after
         # the launch, which reads only their addresses.
         out = torch.empty((20, batch), dtype=torch.float32, device=device)
     with span("tpuslam.ekf.launch"):
         ptr, row = out.data_ptr(), 4 * batch
-        lanes = k1_lanes(batch, plan.sm_count)
-        args = (plan.table_ptr,
-                None if normals is None else normals.data_ptr(),
-                ptr, ptr + 9 * row, ptr + 18 * row, plan.params_ptr, batch,
-                seed & _MASK32, (seed >> 32) & _MASK32, mode,
-                int(with_nees), lanes, stream)
-        if torch.cuda.current_device() == plan.index:
-            rc = plan.rollout(*args)
-        else:
-            with torch.cuda.device(plan.index):
-                rc = plan.rollout(*args)
-    if rc != 0:
-        raise RuntimeError(f"ekf_rollout kernel launch failed: CUDA error "
-                           f"{rc}")
-    launch_count += 1
-    if lanes > 1:
-        lanes_launch_count += 1
+        _, table_ptr, sm_count = plan.extra
+        lanes = k1_lanes(batch, sm_count)
+        _build.launch("ekf_rollout_lanes" if lanes > 1 else "ekf_rollout",
+                      plan.entry, plan.index, table_ptr,
+                      _build.ptr(normals), ptr, ptr + 9 * row,
+                      ptr + 18 * row, plan.params_ptr, batch,
+                      *_build.seed_words(seed), mode, int(with_nees), lanes)
     return _finish(out[0:9], out[9:18], out[18:20], with_nees)
 
 
@@ -460,8 +395,9 @@ def ekf_fused_rollout(cfg: EkfConfig, seed: int, batch: int, n_steps: int,
         if device.type != "cuda":
             raise ValueError(f"unsupported device {device}")
         _check(batch, n_steps, normals, device)
-        return _launch(cfg, seed, batch, n_steps, _mode(noise_on, normals),
-                       with_nees, normals, device)
+        return _launch(cfg, seed, batch, n_steps,
+                       _build.noise_mode(noise_on, normals), with_nees,
+                       normals, device)
 
 
 def ekf_fused_sweeps(cfg: EkfConfig, seed: int, n_sweeps: int, batch: int,

@@ -45,6 +45,9 @@ the rollout's device, or from the caller.  The seeds follow the JAX
 rollouts: ``1``, then ``+7919`` a step (batched) or
 ``+max(7919, B * ceil(n / 1024))`` (wide).
 
+K4 and K5b take one plan per ``(cfg, device)``; a call passes its seed's
+words (and K5b its batch) to the library's entry.
+
 Spans (:func:`~tpuslam_torch.utils.profiling.span`, recorded only while a
 profiler records): :func:`pf_batch_rollout` records
 ``tpuslam.pf_batch.rollout`` around the call, ``tpuslam.pf_batch.prepare``
@@ -70,27 +73,17 @@ from tpuslam_torch.filters.pf import (PfConfig, boundary_law,
                                       quantize_weights_law)
 from tpuslam_torch.models.process import circular_step
 from tpuslam_torch.ops import _build, pf_cuda, resample_cuda
+from tpuslam_torch.ops._build import MODE_PHILOX
 from tpuslam_torch.ops.fastmath import philox4x32
-from tpuslam_torch.ops.pf_cuda import (_MODE_PHILOX, _constants, _mode,
+from tpuslam_torch.ops.pf_cuda import (SEED0, SEED_STEP, _constants,
                                        _observe, _predict_loglik,
                                        _truth_tables)
 from tpuslam_torch.utils.profiling import span
 
-#: Launches of each CUDA kernel since its count was last set to 0.
-launch_count = 0  # K4
-wide_boundary_launch_count = 0  # K5a
-wide_stats_launch_count = 0  # K5b
-
-#: The batched rollout's per-step seed (the JAX package's start value and
-#: advance); the wide rollout advances by :func:`wide_seed_step`.
-SEED0 = 1
-SEED_STEP = 7919
 #: The JAX wide path's default resample tile, which sets its seed stride.
 WIDE_TILE = 1024
 
-_MASK32 = 0xFFFFFFFF
 _MAX_BATCH_N = 8192  # K4's kMaxN: shared memory holds 20 bytes a particle
-_MAX_N = 1 << 24  # boundaries and integer prefixes exact in float32
 _MAX_GRID_Y = 65535  # filters (wide) or slots a launch
 _QUANTUM = float(1 << 20)
 #: K5a's kBoundThreads: threads a block, each taking four consecutive
@@ -203,15 +196,6 @@ class WideSlots(typing.NamedTuple):
 # Shared helpers.
 # ---------------------------------------------------------------------------
 
-def _key(seed: int) -> dict:
-    seed = int(seed)
-    return dict(key0=seed & _MASK32, key1=(seed >> 32) & _MASK32)
-
-
-def _ptr(t: torch.Tensor | None):
-    return None if t is None else t.data_ptr()
-
-
 def _check_common(cfg: PfConfig, particles, log_w, z, normals, device,
                   max_n: int) -> tuple[int, int]:
     n = cfg.num_particles
@@ -231,10 +215,6 @@ def _check_common(cfg: PfConfig, particles, log_w, z, normals, device,
     for name, (t, shape) in want.items():
         _build.check_tensor(name, t, shape, torch.float32, device)
     return b, n
-
-
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
 
 
 # ---------------------------------------------------------------------------
@@ -293,11 +273,10 @@ def _batch_offs(offs, mode: int, seed: int, b: int,
     (counter ``(0, f, 1, 0)``) with noise on, else 0.5."""
     if offs is not None:
         return offs
-    if mode != _MODE_PHILOX:
+    if mode != MODE_PHILOX:
         return torch.full((b,), 0.5, dtype=torch.float32, device=device)
-    key = _key(seed)
     filt = torch.arange(b, dtype=torch.int64, device=device)
-    a0 = philox4x32(0, filt, 1, 0, key["key0"], key["key1"])[0]
+    a0 = philox4x32(0, filt, 1, 0, *_build.seed_words(seed))[0]
     return (a0 >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
@@ -325,7 +304,7 @@ def pf_batch_step_rows_plain(cfg: PfConfig, seed: int,
                              out: PfBatchRows | None = None,
                              with_sel: bool = False) -> PfBatchRows:
     """Plain twin of :func:`pf_batch_step_rows`, on any device."""
-    mode = _mode(noise_on, normals)
+    mode = _build.noise_mode(noise_on, normals)
     b, n = _check_batch(cfg, particles, log_w, lse, lse2, z, normals, offs,
                         out)
     device = log_w.device
@@ -387,7 +366,6 @@ def pf_batch_step_rows(cfg: PfConfig, seed: int, particles: torch.Tensor,
 
     A CPU tensor runs :func:`pf_batch_step_rows_plain`.
     """
-    global launch_count
     device = log_w.device
     if device.type == "cpu":
         return pf_batch_step_rows_plain(cfg, seed, particles, log_w, lse,
@@ -395,32 +373,47 @@ def pf_batch_step_rows(cfg: PfConfig, seed: int, particles: torch.Tensor,
                                         out=out, with_sel=with_sel)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
-    mode = _mode(noise_on, normals)
+    mode = _build.noise_mode(noise_on, normals)
     b, n = _check_batch(cfg, particles, log_w, lse, lse2, z, normals, offs,
                         out)
-    lib = _build.cuda_library(device)
-    with torch.cuda.device(device):
-        if out is None:
-            out = _batch_rows(b, n, device, with_sel)
-        bufs = _PfBatchBuffers(
-            p_in=particles.data_ptr(), lw_in=log_w.data_ptr(),
-            lse_in=lse.data_ptr(), lse2_in=lse2.data_ptr(), z=z.data_ptr(),
-            normals=_ptr(normals), offs=_ptr(offs),
-            p_out=out.particles.data_ptr(), lw_out=out.log_w.data_ptr(),
-            lse_out=out.lse.data_ptr(), lse2_out=out.lse2.data_ptr(),
-            est_out=out.x_est.data_ptr(), ess_out=out.ess.data_ptr(),
-            fire_out=out.resampled.data_ptr(), bad_out=out.bad.data_ptr(),
-            sel_out=_ptr(out.sel))
-        params = _PfBatchParams(
-            n=n, n_lm=len(cfg.landmarks), neg_log_n=-math.log(float(n)),
-            ess_min=n * cfg.ess_threshold_frac, **_key(seed),
-            **_constants(cfg))
-        rc = lib.tpuslam_pf_batch_step(ctypes.addressof(bufs),
-                                       ctypes.addressof(params), b, mode,
-                                       _stream(device))
-    if rc != 0:
-        raise RuntimeError(f"pf_batch kernel launch failed: CUDA error {rc}")
-    launch_count += 1
+    if out is None:
+        out = _batch_rows(b, n, device, with_sel)
+    return _launch_batch(cfg, seed, particles, log_w, lse, lse2, z, mode,
+                         normals, offs, out)
+
+
+def _batch_plan(cfg: PfConfig, device: torch.device) -> _build.Plan:
+    """K4's launch plan for ``(cfg, device)``, built at its first launch:
+    the parameters from ``pf_cuda._constants``, ``-log n`` and the gate's
+    threshold, their key left 0 for the entry to set."""
+    n = cfg.num_particles
+    return _build.plan(
+        ("pf_batch_step", cfg, device), device, "tpuslam_pf_batch_step",
+        lambda: _PfBatchParams(n=n, n_lm=len(cfg.landmarks),
+                               neg_log_n=-math.log(float(n)),
+                               ess_min=n * cfg.ess_threshold_frac,
+                               **_constants(cfg)))
+
+
+def _launch_batch(cfg: PfConfig, seed: int, particles: torch.Tensor,
+                  log_w: torch.Tensor, lse: torch.Tensor, lse2: torch.Tensor,
+                  z: torch.Tensor, mode: int, normals: torch.Tensor | None,
+                  offs: torch.Tensor | None, out: PfBatchRows) -> PfBatchRows:
+    """K4's launch on checked arguments, into ``out``."""
+    plan = _batch_plan(cfg, log_w.device)
+    ptr = _build.ptr
+    bufs = _PfBatchBuffers(
+        p_in=particles.data_ptr(), lw_in=log_w.data_ptr(),
+        lse_in=lse.data_ptr(), lse2_in=lse2.data_ptr(), z=z.data_ptr(),
+        normals=ptr(normals), offs=ptr(offs),
+        p_out=out.particles.data_ptr(), lw_out=out.log_w.data_ptr(),
+        lse_out=out.lse.data_ptr(), lse2_out=out.lse2.data_ptr(),
+        est_out=out.x_est.data_ptr(), ess_out=out.ess.data_ptr(),
+        fire_out=out.resampled.data_ptr(), bad_out=out.bad.data_ptr(),
+        sel_out=ptr(out.sel))
+    _build.launch("pf_batch_step", plan.entry, plan.index,
+                  ctypes.addressof(bufs), plan.params_ptr,
+                  *_build.seed_words(seed), log_w.shape[0], mode)
     return out
 
 
@@ -671,7 +664,7 @@ def _check_boundary(log_w, lse, fire, offs) -> tuple[int, int]:
     if log_w.dim() != 2:
         raise ValueError(f"log_w must be (B, n), got {tuple(log_w.shape)}")
     b, n = log_w.shape
-    if not 1 <= n < _MAX_N or not 1 <= b <= _MAX_GRID_Y:
+    if not 1 <= n < _build.MAX_N or not 1 <= b <= _MAX_GRID_Y:
         raise ValueError(f"(B, n) = {(b, n)} out of range")
     _build.check_tensor("log_w", log_w, (b, n), torch.float32, device)
     _build.check_tensor("lse", lse, (b,), torch.float32, device)
@@ -715,28 +708,23 @@ def wide_boundary(log_w: torch.Tensor, lse: torch.Tensor, fire: torch.Tensor,
         forcing; only the valid slots' rows are written).  A CPU tensor
         runs :func:`wide_boundary_plain`.
     """
-    global wide_boundary_launch_count
     device = log_w.device
     if device.type == "cpu":
         return wide_boundary_plain(log_w, lse, fire, offs)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
     b, n = _check_boundary(log_w, lse, fire, offs)
-    lib = _build.cuda_library(device)
-    with torch.cuda.device(device):
-        i32 = dict(dtype=torch.int32, device=device)
-        out = WideSlots(fids=torch.empty(b, **i32),
-                        valid=torch.empty(b, dtype=torch.bool, device=device),
-                        src=torch.empty(b, **i32),
-                        t_hi=torch.empty((b, n), **i32))
-        rc = lib.tpuslam_wide_boundary(
-            log_w.data_ptr(), lse.data_ptr(), fire.data_ptr(),
-            offs.data_ptr(), out.t_hi.data_ptr(), out.fids.data_ptr(),
-            out.valid.data_ptr(), out.src.data_ptr(), n, b, _stream(device))
-    if rc != 0:
-        raise RuntimeError(f"wide_boundary kernel launch failed: CUDA error "
-                           f"{rc}")
-    wide_boundary_launch_count += 1
+    i32 = dict(dtype=torch.int32, device=device)
+    out = WideSlots(fids=torch.empty(b, **i32),
+                    valid=torch.empty(b, dtype=torch.bool, device=device),
+                    src=torch.empty(b, **i32),
+                    t_hi=torch.empty((b, n), **i32))
+    _build.launch("wide_boundary",
+                  _build.cuda_library(device).tpuslam_wide_boundary,
+                  device.index, log_w.data_ptr(), lse.data_ptr(),
+                  fire.data_ptr(), offs.data_ptr(), out.t_hi.data_ptr(),
+                  out.fids.data_ptr(), out.valid.data_ptr(),
+                  out.src.data_ptr(), n, b)
     return out
 
 
@@ -744,7 +732,7 @@ def _check_stats(cfg, particles, log_w, z, bad, fire, src, expanded,
                  normals) -> tuple[int, int]:
     device = log_w.device
     b, n = _check_common(cfg, particles, log_w, z, normals, device,
-                         _MAX_N - 1)
+                         _build.MAX_N - 1)
     _build.check_tensor("bad", bad, (b,), torch.bool, device)
     _build.check_tensor("fire", fire, (b,), torch.bool, device)
     if (src is None) != (expanded is None):
@@ -764,7 +752,7 @@ def wide_stats_rows_plain(cfg: PfConfig, seed: int, particles: torch.Tensor,
                           noise_on: bool = True,
                           normals: torch.Tensor | None = None):
     """Plain twin of :func:`wide_stats_rows`, on any device."""
-    mode = _mode(noise_on, normals)
+    mode = _build.noise_mode(noise_on, normals)
     _check_stats(cfg, particles, log_w, z, bad, fire, src, expanded,
                  normals)
     lw0 = log_w
@@ -801,40 +789,54 @@ def wide_stats_rows(cfg: PfConfig, seed: int, particles: torch.Tensor,
         NaN log weight never wins).  A CPU tensor runs
         :func:`wide_stats_rows_plain`.
     """
-    global wide_stats_launch_count
     device = log_w.device
     if device.type == "cpu":
         return wide_stats_rows_plain(cfg, seed, particles, log_w, z, bad,
                                      fire, src, expanded, noise_on, normals)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
-    mode = _mode(noise_on, normals)
-    b, n = _check_stats(cfg, particles, log_w, z, bad, fire, src, expanded,
-                        normals)
-    lib = _build.cuda_library(device)
-    with torch.cuda.device(device):
-        p_out = torch.empty_like(particles)
-        lw_out = torch.empty_like(log_w)
-        f32 = dict(dtype=torch.float32, device=device)
-        lse, lse2 = torch.empty(b, **f32), torch.empty(b, **f32)
-        x_est = torch.empty((b, 3), **f32)
-        bufs = _WideBuffers(
-            p_in=particles.data_ptr(), lw_in=log_w.data_ptr(),
-            z=z.data_ptr(), normals=_ptr(normals), bad=bad.data_ptr(),
-            fire=fire.data_ptr(), src=_ptr(src), expanded=_ptr(expanded),
-            p_out=p_out.data_ptr(), lw_out=lw_out.data_ptr(),
-            lse_out=lse.data_ptr(), lse2_out=lse2.data_ptr(),
-            est_out=x_est.data_ptr())
-        params = _WideParams(n=n, b=b, n_lm=len(cfg.landmarks),
-                             **_key(seed), **_constants(cfg))
-        rc = lib.tpuslam_wide_stats(ctypes.addressof(bufs),
-                                    ctypes.addressof(params), mode,
-                                    int(expanded is not None),
-                                    _stream(device))
-    if rc != 0:
-        raise RuntimeError(f"wide_stats kernel launch failed: CUDA error "
-                           f"{rc}")
-    wide_stats_launch_count += 1
+    mode = _build.noise_mode(noise_on, normals)
+    _check_stats(cfg, particles, log_w, z, bad, fire, src, expanded, normals)
+    return _launch_wide_stats(cfg, seed, particles, log_w, z, bad, fire, src,
+                              expanded, mode, normals)
+
+
+def _wide_plan(cfg: PfConfig, device: torch.device) -> _build.Plan:
+    """K5b's launch plan for ``(cfg, device)``, built at its first launch:
+    the parameters from ``pf_cuda._constants``, their key and batch left 0
+    for the entry to set."""
+    return _build.plan(
+        ("wide_stats", cfg, device), device, "tpuslam_wide_stats",
+        lambda: _WideParams(n=cfg.num_particles, n_lm=len(cfg.landmarks),
+                            **_constants(cfg)))
+
+
+def _launch_wide_stats(cfg: PfConfig, seed: int, particles: torch.Tensor,
+                       log_w: torch.Tensor, z: torch.Tensor,
+                       bad: torch.Tensor, fire: torch.Tensor,
+                       src: torch.Tensor | None,
+                       expanded: torch.Tensor | None, mode: int,
+                       normals: torch.Tensor | None):
+    """K5b's launch on checked arguments, into fresh outputs."""
+    device = log_w.device
+    plan = _wide_plan(cfg, device)
+    b = log_w.shape[0]
+    p_out = torch.empty_like(particles)
+    lw_out = torch.empty_like(log_w)
+    f32 = dict(dtype=torch.float32, device=device)
+    lse, lse2 = torch.empty(b, **f32), torch.empty(b, **f32)
+    x_est = torch.empty((b, 3), **f32)
+    ptr = _build.ptr
+    bufs = _WideBuffers(
+        p_in=particles.data_ptr(), lw_in=log_w.data_ptr(), z=z.data_ptr(),
+        normals=ptr(normals), bad=bad.data_ptr(), fire=fire.data_ptr(),
+        src=ptr(src), expanded=ptr(expanded), p_out=p_out.data_ptr(),
+        lw_out=lw_out.data_ptr(), lse_out=lse.data_ptr(),
+        lse2_out=lse2.data_ptr(), est_out=x_est.data_ptr())
+    _build.launch("wide_stats", plan.entry, plan.index,
+                  ctypes.addressof(bufs), plan.params_ptr,
+                  *_build.seed_words(seed), b, mode,
+                  int(expanded is not None))
     return p_out, lw_out, lse, lse2, x_est
 
 

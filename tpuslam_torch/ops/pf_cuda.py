@@ -37,6 +37,9 @@ host synchronisation.  The other methods (``search``, the default,
 ``hist``, ``systematic``) resample with torch ops on the host's decision:
 one synchronisation a step, counted in :data:`sync_count`.
 
+K2 takes one plan per ``(cfg, device)``; a call passes its seed's words
+and the reset flag to the library's entry.
+
 Spans (:func:`~tpuslam_torch.utils.profiling.span`, recorded only while a
 profiler records): the rollout records ``tpuslam.pf.rollout`` around the
 call, ``tpuslam.pf.prepare`` from its start to the step loop,
@@ -60,34 +63,27 @@ from tpuslam_torch.filters.pf import (PfConfig, PfState, pf_init,
                                       weights_from_log)
 from tpuslam_torch.models.process import circular_step
 from tpuslam_torch.ops import _build, resample_cuda
+from tpuslam_torch.ops._build import MODE_NORMALS, MODE_OFF, MODE_PHILOX
 from tpuslam_torch.ops.fastmath import (normals_from_bits, philox4x32,
                                         sincos_rad)
 from tpuslam_torch.utils.profiling import span
 
-#: Launches of the CUDA kernel since this count was last set to 0.
-launch_count = 0
 #: Host synchronisations of the ESS gate since this count was last set
 #: to 0: one a step of the fused path whose resample method is not
 #: ``merge`` (the merge gates on the device and makes none).
 sync_count = 0
 
-#: The per-step kernel seed of :func:`pf_fused_rollout`: the JAX
-#: package's start value and advance.
+#: The per-step kernel seed of :func:`pf_fused_rollout` and of
+#: ``pf_batch_cuda.pf_batch_rollout``: the JAX package's start value and
+#: advance.
 SEED0 = 1
 SEED_STEP = 7919
 
-_MODE_OFF, _MODE_PHILOX, _MODE_NORMALS = 0, 1, 2
-_MASK32 = 0xFFFFFFFF
 #: The kernel's kStatsOut: ``[lse, lse2, x_map, y_map, yaw_map, best_lw,
 #: best index, x_est, y_est, yaw_est]``.
 _STATS_LEN = 10
 _MAX_LANDMARKS = 8
-_MAX_N = 1 << 24  # particle indices exact in float32
 _NEG_INF = float("-inf")
-
-# Truth and noise-free observation tables from cfg.x0 by (cfg, n_steps,
-# device): built once per configuration on the device and kept.
-_TRUTH: dict = {}
 
 
 class _PfParams(ctypes.Structure):
@@ -116,18 +112,10 @@ class PfFusedState(typing.NamedTuple):
     x_est: torch.Tensor  # (3,) the step's point estimate
 
 
-def _mode(noise_on: bool, normals: torch.Tensor | None) -> int:
-    if normals is not None:
-        if not noise_on:
-            raise ValueError("normals given with noise_on=False")
-        return _MODE_NORMALS
-    return _MODE_PHILOX if noise_on else _MODE_OFF
-
-
 def _check(cfg: PfConfig, p_rows: torch.Tensor, lw: torch.Tensor,
            z: torch.Tensor, normals: torch.Tensor | None) -> None:
     n = cfg.num_particles
-    if not 1 <= n < _MAX_N:
+    if not 1 <= n < _build.MAX_N:
         raise ValueError(f"num_particles {n} must be in [1, 2**24)")
     if not 0 <= len(cfg.landmarks) <= _MAX_LANDMARKS:
         raise ValueError(f"at most {_MAX_LANDMARKS} landmarks")
@@ -152,20 +140,20 @@ def _predict_loglik(cfg: PfConfig, z: torch.Tensor, x, y, yaw, mode: int,
 
     Returns the rows ``(x', y', yaw', loglik)``.
     """
-    if mode == _MODE_PHILOX:
+    if mode == MODE_PHILOX:
         idx = torch.arange(x.shape[-1], dtype=torch.int64, device=x.device)
         filt = (torch.arange(x.shape[0], dtype=torch.int64,
                              device=x.device)[:, None] if x.ndim == 2 else 0)
-        a0, a1, a2, a3 = philox4x32(idx, filt, 0, 0, seed & _MASK32,
-                                    (seed >> 32) & _MASK32)
+        a0, a1, a2, a3 = philox4x32(idx, filt, 0, 0,
+                                    *_build.seed_words(seed))
         n0, n1 = normals_from_bits(a0, a1)
         n2, _ = normals_from_bits(a2, a3)
-    elif mode == _MODE_NORMALS:
+    elif mode == MODE_NORMALS:
         n0, n1, n2 = normals.unbind()
 
     vdt, wdt = cfg.vel * cfg.dt, cfg.yaw_rate * cfg.dt
     q0, q1, q2 = cfg.q_std
-    if mode == _MODE_OFF:
+    if mode == MODE_OFF:
         x = x + vdt * torch.cos(yaw)
         y = y + vdt * torch.sin(yaw)
         yaw = wrap_angle(yaw + wdt)
@@ -240,6 +228,16 @@ def _constants(cfg: PfConfig) -> dict:
                 lm=(ctypes.c_float * (2 * _MAX_LANDMARKS))(*lm))
 
 
+def _plan(cfg: PfConfig, device: torch.device) -> _build.Plan:
+    """K2's launch plan for ``(cfg, device)``, built at its first launch:
+    the parameters from :func:`_constants`, their key and flag left 0 for
+    the entry to set."""
+    return _build.plan(
+        ("pf_step", cfg, device), device, "tpuslam_pf_step",
+        lambda: _PfParams(n=cfg.num_particles, n_lm=len(cfg.landmarks),
+                          **_constants(cfg)))
+
+
 def _stats_plain(p_rows: torch.Tensor, lw: torch.Tensor) -> torch.Tensor:
     """The kernel's ``(10,)`` statistics of ``(3, N)`` rows and ``(N,)``
     log weights, by :func:`_partial_plain` and :func:`_combine_stats`
@@ -270,7 +268,7 @@ def pf_step_rows_plain(cfg: PfConfig, seed: int, flag: float,
                        gate: torch.Tensor | None = None,
                        p_alt: torch.Tensor | None = None):
     """Plain twin of :func:`pf_step_rows`, on any device."""
-    mode = _mode(noise_on, normals)
+    mode = _build.noise_mode(noise_on, normals)
     _check(cfg, p_rows, lw, z, normals)
     _check_gate(gate, p_alt, p_rows, with_stats)
     if gate is not None:
@@ -312,7 +310,6 @@ def pf_step_rows(cfg: PfConfig, seed: int, flag: float,
         never wins), its log weight and index, and the point estimate
         (the MAP particle where ``lse`` is finite, else particle 0).
     """
-    global launch_count
     device = lw.device
     if device.type == "cpu":
         return pf_step_rows_plain(cfg, seed, flag, p_rows, lw, z, noise_on,
@@ -320,47 +317,35 @@ def pf_step_rows(cfg: PfConfig, seed: int, flag: float,
                                   p_alt=p_alt)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
-    mode = _mode(noise_on, normals)
+    mode = _build.noise_mode(noise_on, normals)
     _check(cfg, p_rows, lw, z, normals)
     _check_gate(gate, p_alt, p_rows, with_stats)
-    lib = _build.cuda_library(device)
-    seed, n = int(seed), cfg.num_particles
-    with torch.cuda.device(device):
-        p_out = torch.empty_like(p_rows)
-        lw_out = torch.empty_like(lw)
-        stats = (torch.empty(_STATS_LEN, dtype=torch.float32, device=device)
-                 if with_stats else None)
-        params = _PfParams(n=n, key0=seed & _MASK32,
-                           key1=(seed >> 32) & _MASK32,
-                           n_lm=len(cfg.landmarks), flag=float(flag),
-                           **_constants(cfg))
-        rc = lib.tpuslam_pf_step(
-            p_rows.data_ptr(), lw.data_ptr(), z.data_ptr(),
-            None if normals is None else normals.data_ptr(),
-            p_out.data_ptr(), lw_out.data_ptr(),
-            None if stats is None else stats.data_ptr(),
-            ctypes.addressof(params), mode, int(with_stats),
-            None if gate is None else gate.data_ptr(),
-            None if p_alt is None else p_alt.data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"pf_step kernel launch failed: CUDA error {rc}")
-    launch_count += 1
+    return _launch(cfg, seed, flag, p_rows, lw, z, mode, normals,
+                   with_stats, gate, p_alt)
+
+
+def _launch(cfg: PfConfig, seed: int, flag: float, p_rows: torch.Tensor,
+            lw: torch.Tensor, z: torch.Tensor, mode: int,
+            normals: torch.Tensor | None, with_stats: bool,
+            gate: torch.Tensor | None, p_alt: torch.Tensor | None):
+    """K2's launch on checked arguments, into fresh outputs."""
+    plan = _plan(cfg, lw.device)
+    p_out, lw_out = torch.empty_like(p_rows), torch.empty_like(lw)
+    stats = (torch.empty(_STATS_LEN, dtype=torch.float32, device=lw.device)
+             if with_stats else None)
+    ptr = _build.ptr
+    _build.launch("pf_step", plan.entry, plan.index, p_rows.data_ptr(),
+                  lw.data_ptr(), z.data_ptr(), ptr(normals), p_out.data_ptr(),
+                  lw_out.data_ptr(), ptr(stats), plan.params_ptr,
+                  *_build.seed_words(seed), float(flag), mode,
+                  int(with_stats), ptr(gate), ptr(p_alt))
     return p_out, lw_out, stats
 
 
 def ticket_count(device: torch.device | str) -> int:
     """K2b's ticket counter on ``device`` (0 between launches; a launch
     that ends leaves it at 0).  Reads the device: for checks only."""
-    device = _build.resolve_device(device)
-    lib = _build.cuda_library(device)
-    value = ctypes.c_uint(0)
-    with torch.cuda.device(device):
-        rc = lib.tpuslam_pf_step_ticket(ctypes.byref(value))
-    if rc != 0:
-        raise RuntimeError(f"reading the pf_step ticket failed: CUDA error "
-                           f"{rc}")
-    return value.value
+    return _build.read_word("tpuslam_pf_step_ticket", device)
 
 
 def _step_rows(cfg: PfConfig, seed: int, flag: float, p_rows: torch.Tensor,
@@ -681,16 +666,13 @@ def truth_table(cfg: PfConfig, x_true0: torch.Tensor, n_steps: int):
 def _truth_tables(cfg: PfConfig, fs: PfFusedState, n_steps: int,
                   from_x0: bool):
     """:func:`truth_table` from the state's truth.  From ``cfg.x0`` the
-    tables are the same for every rollout, so they are kept by
-    ``(cfg, n_steps, device)``, as the EKF's are; a caller's own start
-    state gets fresh tables."""
+    tables are the same for every rollout, so ``_build``'s cache keeps
+    them by ``(cfg, n_steps, device)``, as the EKF's; a caller's own
+    start state gets fresh tables."""
     if not from_x0:
         return truth_table(cfg, fs.x_true, n_steps)
-    key = (cfg, n_steps, fs.x_true.device)
-    tables = _TRUTH.get(key)
-    if tables is None:
-        tables = _TRUTH[key] = truth_table(cfg, fs.x_true, n_steps)
-    return tables
+    return _build.cached(("pf_truth", cfg, n_steps, fs.x_true.device),
+                         lambda: truth_table(cfg, fs.x_true, n_steps))
 
 
 def _rollout(cfg, generator, n_steps, state0, noise_on, device, offs,

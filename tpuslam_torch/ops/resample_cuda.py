@@ -80,33 +80,15 @@ from tpuslam_torch.filters.pf import (boundary_law, decode_slots,
                                       quantize_weights_law)
 from tpuslam_torch.ops import _build
 
-#: Launches of each CUDA kernel since its count was last set to 0; K3a's
-#: two forms apart: ``boundary_launch_count`` on the gate
-#: (:func:`gated_boundary`), ``boundary_weights_launch_count`` on given
-#: weights (:func:`resample_boundary`).
-boundary_launch_count = 0
-boundary_weights_launch_count = 0
-expand_launch_count = 0
-expand_seg_launch_count = 0
-compact_launch_count = 0
-compact_seg_launch_count = 0
-expand_compressed_launch_count = 0
-expand_compressed_seg_launch_count = 0
-
 #: Lanes per compaction block: the kernels' ``kScanBlock``.
 BLOCK = 1024
 #: K3a's threads a block (``kBoundThreads``), each taking four lanes of
 #: a tile of :data:`TILE`: they set the order of its float total.
 BOUND_THREADS = 256
 TILE = 4 * BOUND_THREADS
-_MAX_N = 1 << 24  # boundaries and integer prefixes exact in float32
 #: The forms of pass 2: the expand over all boundaries, or over the
 #: compressed survivor list.
 PASS2 = ("windowed", "compressed")
-
-# The single filter as one slot of the segmented kernels: slot 0's filter
-# (0) and an always-valid flag, made once a device.
-_SLOT0: dict = {}
 
 
 def quantize_weights(w_row: torch.Tensor):
@@ -184,7 +166,7 @@ def decode_indices(t_row: torch.Tensor, n: int) -> torch.Tensor:
 def _check_n(n: int, n_pad: int) -> None:
     if not 1 <= n <= n_pad:
         raise ValueError(f"n={n} must be in [1, n_pad={n_pad}]")
-    if n_pad >= _MAX_N:
+    if n_pad >= _build.MAX_N:
         raise ValueError("merge resample requires n_pad < 2**24 (f32-exact "
                          f"slot boundaries); got {n_pad}")
 
@@ -247,25 +229,19 @@ def _check_row(name: str, row: torch.Tensor, n: int,
     return n_pad
 
 
-def _launch_boundary(row, n, n_pad, offs, lse=None, lse2=None,
+def _launch_boundary(form, row, n, n_pad, offs, lse=None, lse2=None,
                      ess_min=0.0, gate=None, out=None) -> torch.Tensor:
-    """K3a's launch into ``out`` (or a fresh ``(n_pad,)`` int32 row); the
-    caller counts it."""
+    """K3a's launch into ``out`` (or a fresh ``(n_pad,)`` int32 row),
+    counted under ``form``."""
     device = row.device
     lib = _build.cuda_library(device)
     offs = _scalar(offs, device)
-    with torch.cuda.device(device):
-        t_hi = (torch.empty(n_pad, dtype=torch.int32, device=device)
-                if out is None else out)
-        rc = lib.tpuslam_resample_boundary(
-            row.data_ptr(), None if lse is None else lse.data_ptr(),
-            None if lse2 is None else lse2.data_ptr(), ess_min,
-            offs.data_ptr(), None if gate is None else gate.data_ptr(),
-            t_hi.data_ptr(), n, n_pad,
-            torch.cuda.current_stream(device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"resample_boundary kernel launch failed: CUDA "
-                           f"error {rc}")
+    t_hi = (torch.empty(n_pad, dtype=torch.int32, device=device)
+            if out is None else out)
+    ptr = _build.ptr
+    _build.launch(form, lib.tpuslam_resample_boundary, device.index,
+                  row.data_ptr(), ptr(lse), ptr(lse2), ess_min,
+                  offs.data_ptr(), ptr(gate), t_hi.data_ptr(), n, n_pad)
     return t_hi
 
 
@@ -282,16 +258,13 @@ def resample_boundary(w_row: torch.Tensor, n: int, offs) -> torch.Tensor:
         ``(n_pad,)`` int32 boundaries; a CPU tensor runs
         :func:`resample_boundary_plain`.
     """
-    global boundary_weights_launch_count
     device = w_row.device
     if device.type == "cpu":
         return resample_boundary_plain(w_row, n, offs)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
-    t_hi = _launch_boundary(w_row, n, _check_row("w_row", w_row, n, device),
-                            offs)
-    boundary_weights_launch_count += 1
-    return t_hi
+    return _launch_boundary("resample_boundary_weights", w_row, n,
+                            _check_row("w_row", w_row, n, device), offs)
 
 
 def ess_gate_plain(lse: torch.Tensor, lse2: torch.Tensor, n: int,
@@ -344,7 +317,6 @@ def gated_boundary(log_w: torch.Tensor, lse: torch.Tensor,
         ``(2,)`` bool gate ``[fire, bad | fire]``.  A CPU tensor runs
         :func:`gated_boundary_plain`.
     """
-    global boundary_launch_count
     device = log_w.device
     if device.type == "cpu":
         return gated_boundary_plain(log_w, lse, lse2, n, offs, ess_min)
@@ -358,33 +330,24 @@ def gated_boundary(log_w: torch.Tensor, lse: torch.Tensor,
     if out is not None:
         _build.check_tensor("out", out, (n_pad,), torch.int32, device)
     gate = torch.empty(2, dtype=torch.bool, device=device)
-    t_hi = _launch_boundary(log_w, n, n_pad, offs, lse, lse2,
-                            ctypes.c_float(ess_min).value, gate, out)
-    boundary_launch_count += 1
+    t_hi = _launch_boundary("resample_boundary", log_w, n, n_pad, offs, lse,
+                            lse2, ctypes.c_float(ess_min).value, gate, out)
     return t_hi, gate
 
 
 def boundary_arrivals(device: torch.device | str) -> int:
     """K3a's grid-barrier arrivals on ``device`` (0 between launches).
     Reads the device: for checks only."""
-    device = _build.resolve_device(device)
-    lib = _build.cuda_library(device)
-    value = ctypes.c_uint(0)
-    with torch.cuda.device(device):
-        rc = lib.tpuslam_resample_arrivals(ctypes.byref(value))
-    if rc != 0:
-        raise RuntimeError(f"reading K3a's barrier arrivals failed: CUDA "
-                           f"error {rc}")
-    return value.value
+    return _build.read_word("tpuslam_resample_arrivals", device)
 
 
 def _slot0(device: torch.device):
     """``(fids, valid)`` of the single filter as slot 0: ``[0]`` and
     ``[True]`` on ``device``, made once."""
-    if device not in _SLOT0:
-        _SLOT0[device] = (torch.zeros(1, dtype=torch.int32, device=device),
-                          torch.ones(1, dtype=torch.bool, device=device))
-    return _SLOT0[device]
+    return _build.cached(
+        ("slot0", device),
+        lambda: (torch.zeros(1, dtype=torch.int32, device=device),
+                 torch.ones(1, dtype=torch.bool, device=device)))
 
 
 def _one_slot(gate: torch.Tensor | None, device: torch.device):
@@ -428,7 +391,6 @@ def resample_expand(p_rows: torch.Tensor, t_hi: torch.Tensor, n: int, *,
         tensor runs :func:`resample_expand_plain` (which ignores the
         gate).
     """
-    global expand_launch_count
     device = p_rows.device
     if device.type == "cpu":
         return resample_expand_plain(p_rows, t_hi, n)
@@ -442,16 +404,10 @@ def resample_expand(p_rows: torch.Tensor, t_hi: torch.Tensor, n: int, *,
         _build.check_tensor("out", out, (3, n_pad), torch.float32, device)
     valid = _one_slot(gate, device)[1]
     lib = _build.cuda_library(device)
-    with torch.cuda.device(device):
-        out = torch.empty_like(p_rows) if out is None else out
-        rc = lib.tpuslam_resample_expand(
-            p_rows.data_ptr(), t_hi.data_ptr(), valid.data_ptr(),
-            out.data_ptr(), n, n_pad,
-            torch.cuda.current_stream(device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"resample_expand kernel launch failed: CUDA "
-                           f"error {rc}")
-    expand_launch_count += 1
+    out = torch.empty_like(p_rows) if out is None else out
+    _build.launch("resample_expand", lib.tpuslam_resample_expand,
+                  device.index, p_rows.data_ptr(), t_hi.data_ptr(),
+                  valid.data_ptr(), out.data_ptr(), n, n_pad)
     return out
 
 
@@ -500,7 +456,6 @@ def resample_expand_seg(p_rows: torch.Tensor, t_hi: torch.Tensor,
         slots' rows are written; a CPU tensor runs
         :func:`resample_expand_seg_plain`.
     """
-    global expand_seg_launch_count
     device = p_rows.device
     if device.type == "cpu":
         return resample_expand_seg_plain(p_rows, t_hi, fids, valid)
@@ -508,16 +463,10 @@ def resample_expand_seg(p_rows: torch.Tensor, t_hi: torch.Tensor,
         raise ValueError(f"unsupported device {device}")
     b, n = _check_seg(p_rows, t_hi, fids, valid)
     lib = _build.cuda_library(device)
-    with torch.cuda.device(device):
-        out = torch.empty_like(p_rows)
-        rc = lib.tpuslam_resample_expand_seg(
-            p_rows.data_ptr(), t_hi.data_ptr(), fids.data_ptr(),
-            valid.data_ptr(), out.data_ptr(), n, b,
-            torch.cuda.current_stream(device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"resample_expand_seg kernel launch failed: CUDA "
-                           f"error {rc}")
-    expand_seg_launch_count += 1
+    out = torch.empty_like(p_rows)
+    _build.launch("resample_expand_seg", lib.tpuslam_resample_expand_seg,
+                  device.index, p_rows.data_ptr(), t_hi.data_ptr(),
+                  fids.data_ptr(), valid.data_ptr(), out.data_ptr(), n, b)
     return out
 
 
@@ -552,28 +501,24 @@ def _slots(rows: torch.Tensor) -> int:
     return 1 if rows.dim() == 2 else rows.shape[1]
 
 
-def _launch_compact(p_rows: torch.Tensor, t_hi: torch.Tensor,
+def _launch_compact(form: str, p_rows: torch.Tensor, t_hi: torch.Tensor,
                     fids: torch.Tensor, valid: torch.Tensor):
     """K3c's launch over the slots of ``(3, len)`` (one slot) or
-    ``(3, b, len)`` rows (checked by the caller); the stack takes their
-    shape, so the single filter's launch makes no view."""
+    ``(3, b, len)`` rows (checked by the caller), counted under ``form``;
+    the stack takes their shape, so the single filter's launch makes no
+    view."""
     length, b = p_rows.shape[-1], _slots(p_rows)
     device = p_rows.device
     lib = _build.cuda_library(device)
-    with torch.cuda.device(device):
-        vals = torch.empty_like(p_rows)
-        iv = torch.empty((2,) + p_rows.shape[1:], dtype=torch.int32,
-                         device=device)
-        cnt = torch.empty(p_rows.shape[1:-1] + (-(-length // BLOCK),),
-                          dtype=torch.int32, device=device)
-        rc = lib.tpuslam_resample_compact(
-            p_rows.data_ptr(), t_hi.data_ptr(), fids.data_ptr(),
-            valid.data_ptr(), vals.data_ptr(), iv.data_ptr(),
-            cnt.data_ptr(), length, b,
-            torch.cuda.current_stream(device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"resample_compact kernel launch failed: CUDA "
-                           f"error {rc}")
+    vals = torch.empty_like(p_rows)
+    iv = torch.empty((2,) + p_rows.shape[1:], dtype=torch.int32,
+                     device=device)
+    cnt = torch.empty(p_rows.shape[1:-1] + (-(-length // BLOCK),),
+                      dtype=torch.int32, device=device)
+    _build.launch(form, lib.tpuslam_resample_compact, device.index,
+                  p_rows.data_ptr(), t_hi.data_ptr(), fids.data_ptr(),
+                  valid.data_ptr(), vals.data_ptr(), iv.data_ptr(),
+                  cnt.data_ptr(), length, b)
     return vals, iv, cnt
 
 
@@ -599,7 +544,6 @@ def compact_particles(p_rows: torch.Tensor, t_hi: torch.Tensor, *,
         empty interval at its last boundary, so the ``t_hi`` row is sorted;
         ``cnt``, the ``(ceil(n_pad / BLOCK),)`` int32 survivors a block.
     """
-    global compact_launch_count
     device = p_rows.device
     if device.type == "cpu":
         return compact_particles_plain(p_rows, t_hi)
@@ -608,9 +552,7 @@ def compact_particles(p_rows: torch.Tensor, t_hi: torch.Tensor, *,
     n_pad = p_rows.shape[-1]
     _build.check_tensor("p_rows", p_rows, (3, n_pad), torch.float32, device)
     _build.check_tensor("t_hi", t_hi, (n_pad,), torch.int32, device)
-    stack = _launch_compact(p_rows, t_hi, *_one_slot(gate, device))
-    compact_launch_count += 1
-    return stack
+    return _launch_compact("compact", p_rows, t_hi, *_one_slot(gate, device))
 
 
 def compact_particles_seg_plain(p_rows: torch.Tensor, t_hi: torch.Tensor,
@@ -637,16 +579,13 @@ def compact_particles_seg(p_rows: torch.Tensor, t_hi: torch.Tensor,
         :func:`compact_particles` gives it.  Only the valid slots' stack
         rows are written; the idle slots' counts are 0.
     """
-    global compact_seg_launch_count
     device = p_rows.device
     if device.type == "cpu":
         return compact_particles_seg_plain(p_rows, t_hi, fids, valid)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
     _check_seg(p_rows, t_hi, fids, valid)
-    stack = _launch_compact(p_rows, t_hi, fids, valid)
-    compact_seg_launch_count += 1
-    return stack
+    return _launch_compact("compact_seg", p_rows, t_hi, fids, valid)
 
 
 def _check_partition(iv: torch.Tensor, idx: torch.Tensor, i: torch.Tensor,
@@ -689,12 +628,12 @@ def _check_stack_seg(vals: torch.Tensor, iv: torch.Tensor,
     return b, length
 
 
-def _launch_expand_compressed(vals: torch.Tensor, iv: torch.Tensor,
-                              cnt: torch.Tensor | None, valid: torch.Tensor,
-                              n: int) -> torch.Tensor:
+def _launch_expand_compressed(form: str, vals: torch.Tensor,
+                              iv: torch.Tensor, cnt: torch.Tensor | None,
+                              valid: torch.Tensor, n: int) -> torch.Tensor:
     """K3d's launch over the slots of a ``(3, len)`` (one slot) or
     ``(3, b, len)`` stack (checked by the caller) and its counts, which
-    the kernels stage the live columns by."""
+    the kernels stage the live columns by; counted under ``form``."""
     length, b = vals.shape[-1], _slots(vals)
     _check_n(n, length)
     device = vals.device
@@ -704,15 +643,10 @@ def _launch_expand_compressed(vals: torch.Tensor, iv: torch.Tensor,
     _build.check_tensor("cnt", cnt, vals.shape[1:-1] + (-(-length // BLOCK),),
                         torch.int32, device)
     lib = _build.cuda_library(device)
-    with torch.cuda.device(device):
-        out = torch.empty_like(vals)
-        rc = lib.tpuslam_resample_expand_compressed(
-            vals.data_ptr(), iv.data_ptr(), cnt.data_ptr(), valid.data_ptr(),
-            out.data_ptr(), n, length, b,
-            torch.cuda.current_stream(device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"resample_expand_compressed kernel launch "
-                           f"failed: CUDA error {rc}")
+    out = torch.empty_like(vals)
+    _build.launch(form, lib.tpuslam_resample_expand_compressed, device.index,
+                  vals.data_ptr(), iv.data_ptr(), cnt.data_ptr(),
+                  valid.data_ptr(), out.data_ptr(), n, length, b)
     return out
 
 
@@ -737,7 +671,6 @@ def expand_compressed(vals: torch.Tensor, iv: torch.Tensor, n: int, *,
     Returns:
         The ``(3, n_pad)`` resampled rows, padding lanes zero.
     """
-    global expand_compressed_launch_count
     device = vals.device
     if device.type == "cpu":
         return expand_compressed_plain(vals, iv, n)
@@ -746,10 +679,8 @@ def expand_compressed(vals: torch.Tensor, iv: torch.Tensor, n: int, *,
     n_pad = vals.shape[-1]
     _build.check_tensor("vals", vals, (3, n_pad), torch.float32, device)
     _build.check_tensor("iv", iv, (2, n_pad), torch.int32, device)
-    out = _launch_expand_compressed(vals, iv, cnt,
-                                    _one_slot(gate, device)[1], n)
-    expand_compressed_launch_count += 1
-    return out
+    return _launch_expand_compressed("expand_compressed", vals, iv, cnt,
+                                     _one_slot(gate, device)[1], n)
 
 
 def expand_compressed_seg_plain(vals: torch.Tensor, iv: torch.Tensor,
@@ -785,16 +716,14 @@ def expand_compressed_seg(vals: torch.Tensor, iv: torch.Tensor,
         :func:`resample_expand_seg` gives them.  Only the valid slots'
         rows are written.
     """
-    global expand_compressed_seg_launch_count
     device = vals.device
     if device.type == "cpu":
         return expand_compressed_seg_plain(vals, iv, valid)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
     _check_stack_seg(vals, iv, valid)
-    out = _launch_expand_compressed(vals, iv, cnt, valid, vals.shape[-1])
-    expand_compressed_seg_launch_count += 1
-    return out
+    return _launch_expand_compressed("expand_compressed_seg", vals, iv, cnt,
+                                     valid, vals.shape[-1])
 
 
 def check_pass2(pass2: str) -> None:
