@@ -1397,6 +1397,7 @@ def _batch_main_paths(dev) -> dict:
 
     launches = {}
     _build.launches.clear()
+    div0 = _build.div_fallbacks(dev)
     t0 = time.perf_counter()
     b, n = BATCH_MAIN
     with count_host_syncs() as syncs:
@@ -1407,6 +1408,9 @@ def _batch_main_paths(dev) -> dict:
     launches["pf_batch_step"] = _build.launches["pf_batch_step"]
     _require(launches["pf_batch_step"] == PF_STEPS,
              f"K4 launches {launches['pf_batch_step']}")
+    div1 = _build.div_fallbacks(dev)
+    _require(div1 == div0, f"batched path: IEEE quotient passes {div0} -> "
+             f"{div1}")
     _require(syncs.count == 0, f"batched path: {syncs.count} host syncs")
     _require(final.particles.shape == (3, b, n)
              and bool(final.particles.isfinite().all())
@@ -1418,8 +1422,8 @@ def _batch_main_paths(dev) -> dict:
     fired = float(outs.resampled.float().mean())
     print(f"pf_batch_rollout(device='cuda') {b:,}x{n:,}x{PF_STEPS}: rmse "
           f"{rmse:.4f}, K4 launches {launches['pf_batch_step']}, host syncs "
-          f"{syncs.count} (control .item(): {control.count}), filters "
-          f"firing a step {100 * fired:.1f}%, first call "
+          f"{syncs.count} (control .item(): {control.count}), IEEE quotient "
+          f"passes 0, filters firing a step {100 * fired:.1f}%, first call "
           f"{wall * 1e3:.1f} ms", flush=True)
 
     _build.launches.clear()
@@ -1433,6 +1437,9 @@ def _batch_main_paths(dev) -> dict:
     wide = {form: _build.launches[form] for form in (
         "wide_boundary", "resample_expand_seg", "wide_stats")}
     launches.update(wide)
+    div2 = _build.div_fallbacks(dev)
+    _require(div2 == div1, f"wide path: IEEE quotient passes {div1} -> "
+             f"{div2}")
     _require(wide["wide_boundary"] == wide["resample_expand_seg"]
              == wide["wide_stats"] == PF_STEPS, f"wide launches {wide}")
     _require(syncs.count == 0, f"wide path: {syncs.count} host syncs")

@@ -221,10 +221,12 @@ def _extern_c_entries():
 
 
 ENTRIES = _extern_c_entries()
-#: The entries that copy into host memory rather than launch: the two
-#: device reads and the occupancy queries.
+#: The entries that copy into host memory rather than launch: the device
+#: reads (the two counters that return to 0, the quotients' fallback
+#: counts) and the occupancy queries.
 HOST_ENTRIES = {"tpuslam_pf_step_ticket", "tpuslam_resample_arrivals"} | {
-    f"tpuslam_occupancy_{src}" for src in _build.OCCUPANCY_SOURCES}
+    f"tpuslam_occupancy_{src}" for src in _build.OCCUPANCY_SOURCES} | set(
+    _build.DIV_FALLBACK_ENTRIES.values())
 _SCALARS = {"long long": ctypes.c_longlong, "uint32_t": ctypes.c_uint32,
             "int": ctypes.c_int, "unsigned int": ctypes.c_uint,
             "float": ctypes.c_float, "char*": ctypes.c_char_p}

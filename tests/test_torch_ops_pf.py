@@ -379,7 +379,10 @@ def test_params_struct_mirrors_cuda_source():
     body = re.sub(r"//[^\n]*", "", body)
     names = re.findall(r"(\w+)\s*(?:\[[^\]]*\])?\s*[,;]", body)
     assert names == [f[0] for f in pf_cuda._PfParams._fields_]
-    assert ctypes.sizeof(pf_cuda._PfParams) == 8 + 3 * 4 + 9 * 4 + 16 * 4
+    assert ctypes.sizeof(pf_cuda._PfParams) == 8 + 3 * 4 + 11 * 4 + 16 * 4
+    # The observation std's float32 reciprocals follow it (div_by_const).
+    assert names[names.index("sy") + 1:names.index("sy") + 3] == [
+        "inv_sx", "inv_sy"]
     # The statistics the kernel writes, as many as the wrapper allocates.
     assert re.search(r"kStatsOut = (\d+)", src).group(1) == str(
         pf_cuda._STATS_LEN)

@@ -353,7 +353,9 @@ def test_structs_mirror_cuda_source():
         f[0] for f in pb._PfBatchParams._fields_]
     assert _struct_fields(src, "PfBatchBuffers") == [
         f[0] for f in pb._PfBatchBuffers._fields_]
-    assert ctypes.sizeof(pb._PfBatchParams) == 4 * 4 + 10 * 4 + 16 * 4
+    assert ctypes.sizeof(pb._PfBatchParams) == 4 * 4 + 12 * 4 + 16 * 4
+    assert [f[0] for f in pb._F32[5:9]] == ["sx", "sy", "inv_sx",
+                                          "inv_sy"]
     assert ctypes.sizeof(pb._PfBatchBuffers) == 16 * 8
     assert re.search(r"kMaxN = (\d+)", src).group(1) == str(
         pb._MAX_BATCH_N)

@@ -440,7 +440,8 @@ def test_structs_mirror_cuda_source():
         body = re.sub(r"//[^\n]*", "", body)
         names = re.findall(r"(\w+)\s*(?:\[[^\]]*\])?\s*[,;]", body)
         assert names == [f[0] for f in mirror._fields_], name
-    assert ctypes.sizeof(pb._WideParams) == 5 * 4 + 8 * 4 + 16 * 4
+    assert ctypes.sizeof(pb._WideParams) == 5 * 4 + 10 * 4 + 16 * 4
+    assert {"inv_sx", "inv_sy"} <= {f[0] for f in pb._WideParams._fields_}
     assert ctypes.sizeof(pb._WideBuffers) == 13 * 8
     # A filter is one block, within the card's 1024 threads a block; K5a's
     # row-sum order is set by its threads a block.

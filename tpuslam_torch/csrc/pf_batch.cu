@@ -26,10 +26,14 @@
 //
 // What bounds it on an H100: instruction issue, not bytes.  A particle
 // reads 16 bytes and writes 16 a step (0.078 ms at 8192 x 1000), but its
-// math (Philox, two Box-Muller pairs, two polynomial sincos, eleven IEEE
-// divides, an exp) is several hundred instructions, which the SMs issue
-// in about 0.12-0.17 ms.  The design spends as little as it can beside
-// that math:
+// math (Philox, two Box-Muller pairs, two polynomial sincos, the wrap,
+// ten quotients by the observation std, an exp) is several hundred
+// instructions, which the SMs issue in about 0.12-0.17 ms.  The design
+// spends as little as it can beside that math:
+//   * each quotient by sx or sy is three operations on a host-folded
+//     reciprocal (pf_math.cuh::div_by_const), the IEEE divide's bits
+//     without its sequence and its branch to a slow path; one warp vote a
+//     pass sends a pass that may need the IEEE divide back to it;
 //   * the filter's x, y, yaw and log-weight rows (four contiguous spans of
 //     4n bytes) are staged in shared memory once, by one thread's four 1D
 //     bulk asynchronous copies (cp.async.bulk, completion counted in bytes
@@ -107,6 +111,7 @@ struct PfBatchParams {
   float vdt, wdt;      // v*dt, w*dt (folded in double)
   float q0, q1, q2;    // q_std
   float sx, sy;        // r_std
+  float inv_sx, inv_sy;  // 1 / sx, 1 / sy in float32, correctly rounded
   float log_norm;      // log(2 pi sx sy) (folded in double)
   float neg_log_n;     // -log(n) (folded in double): the uniform log weight
   float ess_min;       // n * ess_threshold_frac (folded in double)
@@ -388,7 +393,8 @@ pf_batch_kernel(const __grid_constant__ PfBatchBuffers buf,
         }
       }
     }
-    predict_loglik_n<MODE, P>(x, y, yaw, n0, n1, n2, prm, s_z, acc);
+    predict_loglik_n<MODE, P>(x, y, yaw, n0, n1, n2, prm, s_z, valid,
+                              acc);
 #pragma unroll
     for (int k = 0; k < P; ++k) lw[k] = lw[k] + acc[k];
 
@@ -438,6 +444,22 @@ pf_batch_kernel(const __grid_constant__ PfBatchBuffers buf,
     buf.est_out[3 * f + 1] = s_row[4];
     buf.est_out[3 * f + 2] = s_row[5];
   }
+}
+
+// q = a / s over a row as predict_loglik_n takes its quotients:
+// div_by_const where the divisor and the operand are in its exact range,
+// the IEEE divide elsewhere; with law_only, div_by_const everywhere.  A
+// check of the law on the card (tpuslam_div_by_const); no path runs it.
+__global__ void div_by_const_kernel(const float* __restrict__ a,
+                                    float* __restrict__ q, long long n,
+                                    float s, float inv, bool law_only) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (i >= n) return;
+  const float v = a[i];
+  q[i] = law_only || (tpuslam::div_divisor_ok(s) && tpuslam::div_exact(v))
+             ? tpuslam::div_by_const(v, s, inv)
+             : v / s;
 }
 
 // Allow the largest shared-memory request, once per device.
@@ -492,6 +514,31 @@ extern "C" int tpuslam_pf_batch_step(const void* buffers, const void* params,
     case 1: return launch<1>(buf, p, b, s);
     default: return launch<2>(buf, p, b, s);
   }
+}
+
+// The count of K4's warp-passes whose landmark quotients needed the IEEE
+// divide (pf_math.cuh::g_div_fallbacks) on the current device, since the
+// library was loaded, into *value.  Synchronises with the device: a
+// check, not for the loop.
+extern "C" int tpuslam_pf_batch_div_fallbacks(unsigned int* value) {
+  return static_cast<int>(cudaMemcpyFromSymbol(
+      value, tpuslam::g_div_fallbacks, sizeof(unsigned int)));
+}
+
+// q = a / s for n floats on the device, by div_by_const_kernel; inv is
+// the host's RN(1 / s).  Launches on `stream` and returns
+// cudaGetLastError(); never synchronises.
+extern "C" int tpuslam_div_by_const(const float* a, float* q, long long n,
+                                    float s, float inv, int law_only,
+                                    void* stream) {
+  constexpr int kT = 256;
+  if (n < 1 || (n + kT - 1) / kT > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  div_by_const_kernel<<<static_cast<unsigned>((n + kT - 1) / kT), kT, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      a, q, n, s, inv, law_only != 0);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Resident blocks per SM of K4 (Philox mode) at n particles a filter,

@@ -13,8 +13,11 @@
 // landmark is a constant-bank operand of its multiplies and no parameter
 // struct is indexed at run time; with P particles a thread, an observed
 // landmark is loaded once and used P times, and the P particles' chains
-// (Philox, the two polynomial sincos, the divides) are independent, so
-// the scheduler can interleave them.
+// (Philox, the two polynomial sincos, the quotients) are independent, so
+// the scheduler can interleave them.  The quotients by the observation
+// std take div_by_const's three operations, not the IEEE divide's
+// sequence and its branch to a slow path; one warp vote a pass sends the
+// rare pass that may need the IEEE divide back to it.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -36,6 +39,47 @@ constexpr int kMaxLandmarks = 8;
 constexpr int kNoiseOff = 0;
 constexpr int kNoisePhilox = 1;
 constexpr int kNoiseNormals = 2;
+
+// The exact range of div_by_const (below): a divisor s with
+// 2^-20 <= |s| <= 2^20 and an operand a = 0 or 2^-100 <= |a| < 2^100.
+constexpr float kDivMinS = 0x1p-20f;
+constexpr float kDivMaxS = 0x1p20f;
+constexpr float kDivMinA = 0x1p-100f;
+constexpr float kDivMaxA = 0x1p100f;
+// An observation coordinate of at least this magnitude keeps every
+// nonzero px - zx at least kDivMinA (predict_loglik_n).
+constexpr float kDivMinZ = 0x1p-76f;
+
+// Warp-passes of predict_loglik_n whose quotients needed the IEEE divide,
+// since the library was loaded: one count a source file, read by its
+// tpuslam_<source>_div_fallbacks entry.
+namespace {
+__device__ unsigned int g_div_fallbacks = 0;
+}
+
+// a / s, the IEEE quotient, for a divisor s whose correctly rounded
+// float32 reciprocal inv = RN(1 / s) the host folded: q = RN(a inv) is a
+// faithful quotient in radix 2, the residual e = a - q s is exact, and
+// q' = RN(q + e inv) is RN(a / s) (Markstein's theorem) wherever nothing
+// underflows or overflows, which holds on div_exact's range.  There the
+// bits are a / s's, save that a = -0 gives +0 (q' = RN(-0 + +0)); the
+// callers square the quotient.  __fmul_rn and __fmaf_rn keep nvcc from
+// contracting or reordering the three operations.
+__device__ __forceinline__ float div_by_const(float a, float s, float inv) {
+  const float q = __fmul_rn(a, inv);
+  return __fmaf_rn(__fmaf_rn(-q, s, a), inv, q);
+}
+
+// Whether div_by_const(a, s, RN(1 / s)) is a / s: s and a in the exact
+// range above.  NaN and +-inf are outside it.
+__device__ __forceinline__ bool div_divisor_ok(float s) {
+  return fabsf(s) >= kDivMinS && fabsf(s) <= kDivMaxS;
+}
+
+__device__ __forceinline__ bool div_exact(float a) {
+  const float m = fabsf(a);
+  return m == 0.0f || (m >= kDivMinA && m < kDivMaxA);
+}
 
 // Whether a row may be read or written as float4s.
 __device__ __forceinline__ bool aligned16(const void* p) {
@@ -87,14 +131,27 @@ __device__ __forceinline__ void philox_normals3(uint32_t i, uint32_t f,
 // frame, at most kMaxLandmarks; particle_filter.py:170-198), each
 // particle's operations in the plain twin's order.  `Prm` is a kernel's
 // parameter struct with the fields n_lm, vdt, wdt, q0, q1, q2, sx, sy,
-// log_norm and lm.  The yaw noise is added after the wrapped step, with no
-// second wrap.  x, y and yaw are updated in place; acc gets each
-// particle's log-likelihood.
+// inv_sx, inv_sy, log_norm and lm.  The yaw noise is added after the
+// wrapped step, with no second wrap.  x, y and yaw are updated in place;
+// acc gets each particle's log-likelihood.  Every lane of the warp calls
+// it together (it votes); `valid` marks the particles that exist.
+//
+// The quotients by sx and sy are div_by_const's, equal to the IEEE
+// divide's wherever div_exact holds.  The pass checks that cheaply: a
+// nonzero operand px - zx below kDivMinA needs |zx| < kDivMinZ (where
+// |zx| >= 2^k, px - zx is 0, or at least 2^(k-24) by Sterbenz's lemma
+// where px is within a factor of two of zx, else larger than |zx| / 2),
+// and an operand of 2^100 or more, an inf or a NaN leaves a log-likelihood
+// that is not finite.  Where some lane sees either, or a divisor outside
+// its range, the warp recomputes the pass with the IEEE divide, which
+// gives the same bits wherever the quotients were exact, and counts the
+// pass in g_div_fallbacks where some operand of a valid particle was
+// outside the exact range.
 template <int MODE, int P, class Prm>
 __device__ __forceinline__ void predict_loglik_n(
     float (&x)[P], float (&y)[P], float (&yaw)[P], const float (&n0)[P],
     const float (&n1)[P], const float (&n2)[P], const Prm& prm,
-    const float* __restrict__ z, float (&acc)[P]) {
+    const float* __restrict__ z, const bool (&valid)[P], float (&acc)[P]) {
   float c[P], s[P];
 #pragma unroll
   for (int k = 0; k < P; ++k) {
@@ -119,6 +176,7 @@ __device__ __forceinline__ void predict_loglik_n(
     }
     acc[k] = 0.0f;
   }
+  bool odd = !(div_divisor_ok(prm.sx) && div_divisor_ok(prm.sy));
 #pragma unroll
   for (int li = 0; li < kMaxLandmarks; ++li) {
     if (li < prm.n_lm) {
@@ -126,35 +184,49 @@ __device__ __forceinline__ void predict_loglik_n(
       const float ly = prm.lm[2 * li + 1];
       const float zx = z[2 * li];
       const float zy = z[2 * li + 1];
+      odd = odd || fabsf(zx) < kDivMinZ || fabsf(zy) < kDivMinZ;
 #pragma unroll
       for (int k = 0; k < P; ++k) {
         const float dx = lx - x[k];
         const float dy = ly - y[k];
         const float px = c[k] * dx - s[k] * dy;
         const float py = s[k] * dx + c[k] * dy;
-        const float ddx = (px - zx) / prm.sx;
-        const float ddy = (py - zy) / prm.sy;
+        const float ddx = div_by_const(px - zx, prm.sx, prm.inv_sx);
+        const float ddy = div_by_const(py - zy, prm.sy, prm.inv_sy);
         acc[k] = acc[k] - 0.5f * (ddx * ddx + ddy * ddy) - prm.log_norm;
       }
     }
   }
-}
+#pragma unroll
+  for (int k = 0; k < P; ++k) odd = odd || (valid[k] && !isfinite(acc[k]));
+  if (!__any_sync(kFullMask, odd)) return;
 
-// One particle's predict_loglik_n; returns its log-likelihood.
-template <int MODE, class Prm>
-__device__ __forceinline__ float predict_loglik(float& x, float& y,
-                                                float& yaw, float n0,
-                                                float n1, float n2,
-                                                const Prm& prm,
-                                                const float* __restrict__ z) {
-  float xs[1] = {x}, ys[1] = {y}, ws[1] = {yaw};
-  const float a[1] = {n0}, b[1] = {n1}, c[1] = {n2};
-  float acc[1];
-  predict_loglik_n<MODE, 1>(xs, ys, ws, a, b, c, prm, z, acc);
-  x = xs[0];
-  y = ys[0];
-  yaw = ws[0];
-  return acc[0];
+  // The rare pass: every quotient again by the IEEE divide, a landmark a
+  // trip of a loop that is not unrolled (its code is cold).
+  bool off = !(div_divisor_ok(prm.sx) && div_divisor_ok(prm.sy));
+#pragma unroll
+  for (int k = 0; k < P; ++k) acc[k] = 0.0f;
+#pragma unroll 1
+  for (int li = 0; li < prm.n_lm; ++li) {
+    const float lx = prm.lm[2 * li];
+    const float ly = prm.lm[2 * li + 1];
+    const float zx = z[2 * li];
+    const float zy = z[2 * li + 1];
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      const float dx = lx - x[k];
+      const float dy = ly - y[k];
+      const float px = c[k] * dx - s[k] * dy;
+      const float py = s[k] * dx + c[k] * dy;
+      off = off || (valid[k] && !(div_exact(px - zx) && div_exact(py - zy)));
+      const float ddx = (px - zx) / prm.sx;
+      const float ddy = (py - zy) / prm.sy;
+      acc[k] = acc[k] - 0.5f * (ddx * ddx + ddy * ddy) - prm.log_norm;
+    }
+  }
+  if (__any_sync(kFullMask, off) && (threadIdx.x & 31) == 0) {
+    atomicAdd(&g_div_fallbacks, 1u);
+  }
 }
 
 // The shift of an exp sum: the maximum clamped to +-1e30, so an all -inf

@@ -22,12 +22,13 @@
 // What bounds it on an H100: the particle math.  A particle moves 32 bytes
 // (12 of pose and 4 of log weight each way: 0.020 ms at 2,097,152), but
 // runs a few hundred instructions (one Philox4x32-10 call, two Box-Muller
-// transforms, two polynomial sincos, five landmark terms with two IEEE
-// divides each, one exp), the same math that sets K4's and K5b's pace.
+// transforms, two polynomial sincos, five landmark terms with two
+// quotients by the observation std each, one exp), the same math that
+// sets K4's and K5b's pace.
 // So the design spends as little as it can beside that math:
 //   * 256 threads a block, held to 64 registers (four blocks a SM),
 //     four particles a thread (pf_math.cuh::predict_loglik_n<MODE, 4>),
-//     their Philox, sincos and divide chains independent, so the
+//     their Philox, sincos and quotient chains independent, so the
 //     scheduler interleaves them; rows read and written as float4 where
 //     n % 4 == 0 and every row is 16-byte aligned, as masked scalars
 //     otherwise;
@@ -106,6 +107,7 @@ struct PfParams {
   float vdt, wdt;      // v*dt, w*dt (folded in double)
   float q0, q1, q2;    // q_std
   float sx, sy;        // r_std
+  float inv_sx, inv_sy;  // 1 / sx, 1 / sy in float32, correctly rounded
   float log_norm;      // log(2 pi sx sy) (folded in double)
   float lm[2 * kMaxLandmarks];  // landmark (x, y) pairs
 };
@@ -220,7 +222,7 @@ pf_step_kernel(const float* __restrict__ p_in,
       n0[k] = n1[k] = n2[k] = 0.0f;
     }
   }
-  predict_loglik_n<MODE, P>(x, y, yaw, n0, n1, n2, prm, z, acc);
+  predict_loglik_n<MODE, P>(x, y, yaw, n0, n1, n2, prm, z, valid, acc);
 #pragma unroll
   for (int k = 0; k < P; ++k) lw[k] = lw[k] + acc[k];
   store4(p_out, j, n, vec, make_float4(x[0], x[1], x[2], x[3]));
@@ -334,6 +336,15 @@ extern "C" int tpuslam_pf_step(const float* p_in, const float* lw_in,
 extern "C" int tpuslam_pf_step_ticket(unsigned int* value) {
   return static_cast<int>(
       cudaMemcpyFromSymbol(value, g_ticket, sizeof(unsigned int)));
+}
+
+// The count of K2b's warp-passes whose landmark quotients needed the IEEE
+// divide (pf_math.cuh::g_div_fallbacks) on the current device, since the
+// library was loaded, into *value.  Synchronises with the device: a
+// check, not for the loop.
+extern "C" int tpuslam_pf_step_div_fallbacks(unsigned int* value) {
+  return static_cast<int>(cudaMemcpyFromSymbol(
+      value, tpuslam::g_div_fallbacks, sizeof(unsigned int)));
 }
 
 // Resident blocks per SM of kernel `which` (0: K2b, 1: K2a, Philox mode),

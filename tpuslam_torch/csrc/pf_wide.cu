@@ -70,7 +70,7 @@
 // particle.  So K5b spends as little as it can beside that math:
 //   * four particles a thread a pass, one float4 of each row where a
 //     filter's rows are 16-byte aligned (n % 4 == 0), four scalars
-//     otherwise; their Philox, sincos and divide chains are independent,
+//     otherwise; their Philox, sincos and quotient chains are independent,
 //     so the scheduler interleaves them.  A warp whose first particle is
 //     past the filter's end skips the pass;
 //   * the per-filter values (fire, bad, src, the filter's observation)
@@ -136,6 +136,7 @@ struct WideParams {
   float vdt, wdt;      // v*dt, w*dt (folded in double)
   float q0, q1, q2;    // q_std
   float sx, sy;        // r_std
+  float inv_sx, inv_sy;  // 1 / sx, 1 / sy in float32, correctly rounded
   float log_norm;      // log(2 pi sx sy) (folded in double)
   float lm[2 * kMaxLandmarks];  // landmark (x, y) pairs
 };
@@ -365,7 +366,8 @@ wide_stats_kernel(const __grid_constant__ WideBuffers buf,
         n0[k] = n1[k] = n2[k] = 0.0f;
       }
     }
-    predict_loglik_n<MODE, P>(x, y, yaw, n0, n1, n2, prm, s_z, acc);
+    predict_loglik_n<MODE, P>(x, y, yaw, n0, n1, n2, prm, s_z, valid,
+                              acc);
 #pragma unroll
     for (int v = 0; v < V; ++v) {
       const int j = base + 4 * (v * T + t);
@@ -457,6 +459,15 @@ extern "C" int tpuslam_wide_stats(const void* buffers, const void* params,
     case 1: return launch_stats<1>(fused != 0, s, buf, p);
     default: return launch_stats<2>(fused != 0, s, buf, p);
   }
+}
+
+// The count of K5b's warp-passes whose landmark quotients needed the IEEE
+// divide (pf_math.cuh::g_div_fallbacks) on the current device, since the
+// library was loaded, into *value.  Synchronises with the device: a
+// check, not for the loop.
+extern "C" int tpuslam_pf_wide_div_fallbacks(unsigned int* value) {
+  return static_cast<int>(cudaMemcpyFromSymbol(
+      value, tpuslam::g_div_fallbacks, sizeof(unsigned int)));
 }
 
 // Resident blocks per SM of kernel `which` (0: K5a, 1: K5b fused, Philox

@@ -65,8 +65,14 @@ MODE_OFF, MODE_PHILOX, MODE_NORMALS = 0, 1, 2
 #: ``resample_expand``, ``resample_expand_seg`` (K3b), ``compact``,
 #: ``compact_seg`` (K3c), ``expand_compressed``, ``expand_compressed_seg``
 #: (K3d), ``pf_batch_step`` (K4), ``wide_boundary`` (K5a), ``wide_stats``
-#: (K5b).
+#: (K5b), ``div_by_const`` (the check of K2b's, K4's and K5b's quotients).
 launches: collections.Counter = collections.Counter()
+#: The C entries that read, by kernel form, the count of a PF kernel's
+#: warp-passes whose landmark quotients needed the IEEE divide
+#: (``csrc/pf_math.cuh::predict_loglik_n``): :func:`div_fallbacks`.
+DIV_FALLBACK_ENTRIES = {"pf_step": "tpuslam_pf_step_div_fallbacks",
+                        "pf_batch_step": "tpuslam_pf_batch_div_fallbacks",
+                        "wide_stats": "tpuslam_pf_wide_div_fallbacks"}
 #: Entries built into :func:`cached`'s cache since this count was last
 #: cleared, by kind (the key's first item); over the same launches,
 #: ``1 - builds[kind] / launches[form]`` is a plan cache's hit share.
@@ -132,7 +138,11 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
                                   c_int, c_int, ptr],
         "tpuslam_wide_stats": [ptr, ptr, ctypes.c_uint32, ctypes.c_uint32,
                                c_int, c_int, c_int, ptr],
+        "tpuslam_div_by_const": [ptr, ptr, ctypes.c_longlong, c_float,
+                                 c_float, c_int, ptr],
     }
+    signatures.update({entry: [ctypes.POINTER(ctypes.c_uint)]
+                       for entry in DIV_FALLBACK_ENTRIES.values()})
     signatures.update({f"tpuslam_occupancy_{src}": [
         c_int, c_int, ctypes.POINTER(c_int),
         ctypes.POINTER(ctypes.c_char_p)] for src in OCCUPANCY_SOURCES})
@@ -291,6 +301,15 @@ def read_word(entry: str, device: torch.device | str) -> int:
     if rc != 0:
         raise RuntimeError(f"{entry} failed: CUDA error {rc}")
     return value.value
+
+
+def div_fallbacks(device: torch.device | str) -> dict[str, int]:
+    """K2b's, K4's and K5b's counts on ``device``, by kernel form, of the
+    warp-passes whose landmark quotients needed the IEEE divide, since
+    the library was loaded (modulo 2**32).  Synchronises with the device:
+    for checks only."""
+    return {form: read_word(entry, device)
+            for form, entry in DIV_FALLBACK_ENTRIES.items()}
 
 
 def _run_all(cmds: list[list[str]]) -> str:

@@ -93,7 +93,8 @@ _BOUND_THREADS = 512
 _F32 = [("vdt", ctypes.c_float), ("wdt", ctypes.c_float),
         ("q0", ctypes.c_float), ("q1", ctypes.c_float),
         ("q2", ctypes.c_float), ("sx", ctypes.c_float),
-        ("sy", ctypes.c_float), ("log_norm", ctypes.c_float)]
+        ("sy", ctypes.c_float), ("inv_sx", ctypes.c_float),
+        ("inv_sy", ctypes.c_float), ("log_norm", ctypes.c_float)]
 _LM = [("lm", ctypes.c_float * (2 * pf_cuda._MAX_LANDMARKS))]
 
 
@@ -415,6 +416,25 @@ def _launch_batch(cfg: PfConfig, seed: int, particles: torch.Tensor,
                   ctypes.addressof(bufs), plan.params_ptr,
                   *_build.seed_words(seed), log_w.shape[0], mode)
     return out
+
+
+def div_by_const(a: torch.Tensor, s: float, *,
+                 law_only: bool) -> torch.Tensor:
+    """``a / s`` in float32 on a CUDA device, as K2b, K4 and K5b take
+    their landmark quotients: ``pf_math.cuh::div_by_const`` on the host's
+    float32 ``1 / s`` where the divisor and the operand lie in its exact
+    range, the IEEE divide elsewhere; with ``law_only``,
+    ``div_by_const`` everywhere.  A check of the law on the card (the
+    library's ``tpuslam_div_by_const``); no path calls it."""
+    if a.device.type != "cuda":
+        raise ValueError(f"div_by_const runs on a CUDA device, not {a.device}")
+    _build.check_tensor("a", a, (a.numel(),), torch.float32, a.device)
+    q = torch.empty_like(a)
+    entry = _build.cuda_library(a.device).tpuslam_div_by_const
+    _build.launch("div_by_const", entry, a.device.index, a.data_ptr(),
+                  q.data_ptr(), a.numel(), s, pf_cuda.recip32(s),
+                  int(law_only))
+    return q
 
 
 def pf_batch_init(cfg: PfConfig, batch: int, *,

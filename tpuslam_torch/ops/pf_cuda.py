@@ -54,6 +54,7 @@ import ctypes
 import math
 import typing
 
+import numpy as np
 import torch
 
 from tpuslam_torch.core.angles import wrap_angle
@@ -92,8 +93,9 @@ class _PfParams(ctypes.Structure):
     _fields_ = [("n", ctypes.c_longlong), ("key0", ctypes.c_uint32),
                 ("key1", ctypes.c_uint32), ("n_lm", ctypes.c_int)] + [
         (name, ctypes.c_float) for name in (
-            "flag", "vdt", "wdt", "q0", "q1", "q2", "sx", "sy",
-            "log_norm")] + [("lm", ctypes.c_float * (2 * _MAX_LANDMARKS))]
+            "flag", "vdt", "wdt", "q0", "q1", "q2", "sx", "sy", "inv_sx",
+            "inv_sy", "log_norm")] + [
+        ("lm", ctypes.c_float * (2 * _MAX_LANDMARKS))]
 
 
 class PfFusedState(typing.NamedTuple):
@@ -215,15 +217,25 @@ def _combine_stats(parts: torch.Tensor):
                        m[..., None]], dim=-1), row[..., 6])
 
 
+def recip32(s: float) -> float:
+    """``1 / s`` in float32, correctly rounded, of the float32 divisor a
+    kernel holds (not the reciprocal of the double ``s``): the ``inv`` of
+    ``pf_math.cuh::div_by_const``."""
+    with np.errstate(divide="ignore", over="ignore", invalid="ignore"):
+        return float(np.float32(1.0) / np.float32(s))
+
+
 def _constants(cfg: PfConfig) -> dict:
     """The kernel's scalar constants as Python floats, folded in double
-    as the JAX kernel's weakly typed scalars are."""
+    as the JAX kernel's weakly typed scalars are; the observation std's
+    reciprocals in float32."""
     q0, q1, q2 = cfg.q_std
     sx, sy = cfg.r_std
     lm = [v for xy in cfg.landmarks for v in xy]
     lm += [0.0] * (2 * _MAX_LANDMARKS - len(lm))
     return dict(vdt=cfg.vel * cfg.dt, wdt=cfg.yaw_rate * cfg.dt, q0=q0,
-                q1=q1, q2=q2, sx=sx, sy=sy,
+                q1=q1, q2=q2, sx=sx, sy=sy, inv_sx=recip32(sx),
+                inv_sy=recip32(sy),
                 log_norm=math.log(2.0 * math.pi * sx * sy),
                 lm=(ctypes.c_float * (2 * _MAX_LANDMARKS))(*lm))
 

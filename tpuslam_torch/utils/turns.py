@@ -64,7 +64,11 @@ card's clocks falls on every side.  Each prints one JSON line with:
   stack's counts takes them (``cnt=``);
 * the device time a launch and a digest of the outputs of K4 at
   8192 x 1000 and K5b at 1024 x 10,000 (Philox noise, a mixed gate),
-  which share ``csrc/fastmath.cuh`` with K1;
+  which share ``csrc/fastmath.cuh`` with K1; digests of both with noise
+  off and with injected normals, and on rare inputs (an observation
+  coordinate at 0, particles at 1e30, 1e35, inf and NaN) with, where the
+  checkout counts them, the passes whose quotients needed the IEEE
+  divide (``_build.div_fallbacks``);
 * the single-filter (2,097,152 and 100,000) and wide (1024 x 10,000)
   rollouts' torch ops, device busy time, host wall time and the host's
   wait for the device (``profile_window``'s ``sync_ms``) a step, from a
@@ -449,6 +453,42 @@ def _pf_args(dev):
     return k2, out["k4"], out["k5b"]
 
 
+def _pf_rare(pb, build, dev, k4, k5b_args) -> dict:
+    """Digests of K4 and K5b with noise off and with injected normals, and
+    on rare inputs: an observation coordinate at 0 (filter 0), particles
+    at 1e30 and at 1e35 (filters 1 and 2: quotients beyond the float32
+    squares, the second beyond 2**100), at inf and at NaN (filters 3 and
+    4).  Where the checkout counts the passes whose landmark quotients
+    needed the IEEE divide, the count of one rare launch of each."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    out = {}
+    for name, fn, args, at in (("k4", pb.pf_batch_step_rows, k4, 2),
+                               ("k5b", pb.wide_stats_rows, k5b_args, 2)):
+        nrm = torch.randn(args[at].shape, generator=gen, device=dev)
+        for mode, kw in (("off", dict(noise_on=False)),
+                         ("normals", dict(normals=nrm))):
+            out[f"{name}_{mode}_digest"] = _digest(tuple(fn(*args, **kw)))
+        parts = args[at].clone()
+        z_at = 6 if name == "k4" else 4
+        z = args[z_at].clone()
+        z[0, 0, 0] = 0.0
+        for f, value in enumerate((1e30, 1e35, float("inf"),
+                                   float("nan")), start=1):
+            parts[f % 2, f, 8 * f:8 * f + 8] = value
+        rare = list(args)
+        rare[at], rare[z_at] = parts, z
+        form = "pf_batch_step" if name == "k4" else "wide_stats"
+        count = getattr(build, "div_fallbacks", None)
+        before = count(dev)[form] if count else 0
+        out[f"{name}_rare_digest"] = _digest(tuple(fn(*rare)))
+        if count:
+            out[f"{name}_rare_div_fallbacks"] = (
+                count(dev)[form] - before) % 2**32
+    return out
+
+
 def _measure(tree: pathlib.Path, share: pathlib.Path, label: str) -> dict:
     """The measurements of the module docstring, for the package of
     ``tree``; boundaries are shared through ``share``."""
@@ -619,6 +659,7 @@ def _measure(tree: pathlib.Path, share: pathlib.Path, label: str) -> dict:
                      ("k5b", lambda: pb.wide_stats_rows(*k5b_args))):
         out[f"{name}_ms"] = device_ms(fn, 20)
         out[f"{name}_digest"] = _digest(tuple(fn()))
+    out.update(_pf_rare(pb, _build, dev, k4, k5b_args))
 
     # The loops: a profiled rollout of each after a warm-up one.
     from tpuslam_torch.filters import PfConfig
