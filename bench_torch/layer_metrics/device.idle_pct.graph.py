@@ -1,0 +1,5 @@
+"""The large solve's device idle share: the part of the traced segment in
+which no operation ran on the device (the GN loop's host path between
+the chain's operations, the inputs' draws, the readback), in percent."""
+
+from benchlib.readers import idle_pct as read  # noqa: F401

@@ -9,6 +9,8 @@ import torch
 from tpuslam_torch.filters.ekf import EkfConfig
 from tpuslam_torch.filters.pf import PfConfig
 from tpuslam_torch.ops import _build, ekf_cuda, pf_batch_cuda, pf_cuda
+from tpuslam_torch.slam import large
+from tpuslam_torch.slam.graph import GraphConfig
 from tpuslam_torch.utils import profiling
 
 STEPS = 5
@@ -60,6 +62,36 @@ def _pf_fused(method="merge"):
                    resample_method=method)
     return pf_cuda.pf_fused_rollout(cfg, torch.Generator().manual_seed(5),
                                     STEPS, device="cpu")
+
+
+def _graph_large():
+    """Two 60-pose scenes in one lockstep large solve (factor reuse), on
+    one torch thread."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        cfg = GraphConfig(max_times=60, num_landmarks=8, max_gn_iters=10,
+                          exact_jacobians=True)
+        scenes = [large.make_large_scene(cfg, torch.Generator().manual_seed(s),
+                                         60, 8, radius=18.0, odom_noise=0.1,
+                                         device="cpu") for s in range(2)]
+        poses = torch.stack([po for _, po, _ in scenes])
+        obs = type(scenes[0][2])(*(torch.stack(f) for f in
+                                   zip(*(o for _, _, o in scenes))))
+        lists = [large.window_pairs_device(o.valid, 10, 2000)
+                 for _, _, o in scenes]
+        e = max(int(n) for _, n in lists)
+        edges = large.EdgeList(*(torch.stack([f[:e] for f in fields])
+                                 for fields in zip(*(el for el, _ in lists))))
+        rel = poses[:, 1:] - poses[:, :-1]
+        rel[..., 2] = torch.remainder(rel[..., 2] + torch.pi, 2 * torch.pi
+                                      ) - torch.pi
+        return large.graph_solve_banded(
+            cfg, poses, obs, edges, band=10, rel_odom=rel,
+            odom_info=(100.0,) * 3, solver="tridiag", stall_ratio=0.5,
+            delta_tol=6e-5)
+    finally:
+        torch.set_num_threads(before)
 
 
 def test_span_without_a_profiler_is_the_shared_no_op():
@@ -123,8 +155,8 @@ def test_pf_fused_rollout_spans(method):
         assert _ancestors(e)[:2] == ["tpuslam.pf.step", "tpuslam.pf.rollout"]
 
 
-@pytest.mark.parametrize("run", [_ekf, _pf_batch, _pf_fused],
-                         ids=["ekf", "pf_batch", "pf_fused"])
+@pytest.mark.parametrize("run", [_ekf, _pf_batch, _pf_fused, _graph_large],
+                         ids=["ekf", "pf_batch", "pf_fused", "graph_large"])
 def test_outputs_equal_with_the_profiler_on_and_off(run):
     off = _flat(run())
     on, events = _profiled(run)
@@ -152,3 +184,31 @@ def test_span_totals_count_and_self_time():
     step = got["tpuslam.pf_batch.step"]
     assert step["self_ms"] == pytest.approx(step["total_ms"])
     assert list(got)[0] == "tpuslam.pf_batch.rollout"
+
+
+def test_graph_large_spans_and_host_reads():
+    """One ``solve``; inside it the grouping, the terms and the factor in
+    that order, then a ``pass`` a lockstep GN pass, each but the last
+    followed by its ``cond`` (the cap ends the loop without one); the
+    host reads are the grouping's and the conditions', at most the passes
+    plus 2."""
+    syncs, passes = large.sync_count, large.gn_passes
+    res, events = _profiled(_graph_large)
+    n_passes = large.gn_passes - passes
+    assert n_passes == int(res.gn_iters.max()) >= 2
+    (solve,) = _named(events, "tpuslam.graph_large.solve")
+    stages = [_named(events, f"tpuslam.graph_large.{part}")
+              for part in ("scatter", "terms", "factor")]
+    assert [len(st) for st in stages] == [1, 1, 1]
+    steps = _named(events, "tpuslam.graph_large.pass")
+    conds = _named(events, "tpuslam.graph_large.cond")
+    assert len(steps) == n_passes
+    assert len(conds) == (n_passes if n_passes < 10 else n_passes - 1)
+    order = [st[0] for st in stages] + [e for pair in zip(steps, conds)
+                                        for e in pair]
+    for e in order:
+        assert e.cpu_parent.name == solve.name
+    for a, b in zip(order, order[1:]):
+        assert a.time_range.end <= b.time_range.start
+    host_reads = large.sync_count - syncs
+    assert host_reads == 1 + len(conds) <= n_passes + 2

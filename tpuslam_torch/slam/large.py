@@ -35,6 +35,26 @@ Differences from the JAX package, none of them in the numbers:
 * **RNG at the module edge.**  :func:`make_large_scene` draws from a
   ``torch.Generator``; :func:`make_large_scene_with_noise` takes the
   draws.
+* **A scene axis** (the JAX package's users ``vmap``): the factor-reuse
+  path of :func:`graph_solve_banded` takes ``S`` scenes at once, poses
+  ``(S, T1, 3)``, observations ``(S, T1, L)`` and edge lists ``(S, E)``.
+  The edge work runs on the scenes laid end to end, scene s's times
+  offset by ``s * T1`` (one grouping, one host read for all of them);
+  the banded H is ``(S, (band+1)*9, T1)`` and the Thomas chain steps
+  once over the super-blocks, batched over the scenes.  The GN loop is
+  the dense solver's lockstep (``slam/graph.py::graph_solve``): each pass
+  runs every scene, only the active ones take its update, each keeps its
+  own stop rule, and one host read a pass asks whether any is active.
+
+Spans (``utils/profiling.py::span``): ``tpuslam.graph_large.solve``
+around a solve, inside it ``.scatter`` (the edge grouping), ``.terms``
+(edge terms and the constant H), ``.factor``, ``.pass`` (one GN pass:
+rhs, solve, update) and ``.cond`` (the host read of the GN condition).
+Counters: :data:`sync_count`, the host reads of this module (the
+grouping's and the GN condition's; PCG's own reads are not counted),
+:data:`sync_wait_s`, the host seconds spent in them (waiting for the
+device to reach them), and :data:`gn_passes`, the GN passes run (a
+lockstep pass counts once).
 
 The reference's own quirk is kept: the delta is masked by a multiply,
 ``delta * kept[:, None]``, so a NaN in a time no edge keeps survives as
@@ -44,6 +64,7 @@ it does there.
 from __future__ import annotations
 
 import math
+import time
 import typing
 
 import numpy as np
@@ -60,12 +81,33 @@ from tpuslam_torch.slam.graph import (GraphConfig, GraphObservations,
                                       _inv3x3, _measurement_cov_world)
 from tpuslam_torch.slam.tridiag import (banded_factor_tridiag_flat,
                                         banded_resolve_tridiag_flat,
-                                        banded_solve_tridiag_flat)
+                                        banded_solve_tridiag_flat,
+                                        factor_resolver)
+from tpuslam_torch.utils.profiling import span
+
+#: Host reads of the device in this module: one a grouping
+#: (:func:`build_banded_scatter`) and one a GN condition.
+sync_count = 0
+#: Host seconds spent in those reads.
+sync_wait_s = 0.0
+#: GN passes run; a lockstep pass over S scenes counts once.
+gn_passes = 0
+
+
+def _host_read(x):
+    """``x.tolist()``: a host read of the device, counted in
+    :data:`sync_count` and timed in :data:`sync_wait_s`."""
+    global sync_count, sync_wait_s
+    t0 = time.perf_counter()
+    out = x.tolist()
+    sync_wait_s += time.perf_counter() - t0
+    sync_count += 1
+    return out
 
 
 class EdgeList(typing.NamedTuple):
     """Explicit constraint index tensors; all fields ``(E,)`` (int64, and
-    bool ``valid``).
+    bool ``valid``), or ``(S, E)`` for S scenes.
 
     ``t_b < t_a`` (before/after times), ``lm`` the landmark index, and
     ``valid`` a mask for padding slots.
@@ -75,6 +117,25 @@ class EdgeList(typing.NamedTuple):
     t_a: torch.Tensor
     lm: torch.Tensor
     valid: torch.Tensor
+
+
+def _end_to_end(edges: EdgeList, t1: int) -> EdgeList:
+    """``(S, E)`` edge lists as one ``(S * E,)`` list over the scenes'
+    ``S * T1`` times laid end to end (scene s's offset by ``s * T1``); a
+    list without a scene axis as it is."""
+    if edges.t_b.ndim == 1:
+        return edges
+    off = t1 * torch.arange(edges.t_b.shape[0],
+                            device=edges.t_b.device)[:, None]
+    return EdgeList(t_b=(edges.t_b + off).reshape(-1),
+                    t_a=(edges.t_a + off).reshape(-1),
+                    lm=edges.lm.reshape(-1), valid=edges.valid.reshape(-1))
+
+
+def _rows_end_to_end(x):
+    """``(S, T1, ...)`` per-time rows (poses, observations) as ``(S * T1,
+    ...)``; ``(T1, ...)`` as they are."""
+    return x.reshape(-1, *x.shape[2:]) if x.ndim == 3 else x
 
 
 def _host_valid(valid) -> np.ndarray:
@@ -266,8 +327,14 @@ def build_banded_scatter(edges: EdgeList, t1: int,
     band]`` (the JAX package's out-of-range scatter drops them).  With
     ``band=None`` only the column table is built (``blk_*`` empty).
 
+    With ``(S, E)`` edge lists the targets are those of the scenes laid
+    end to end (``t1 * S`` times, scene s's offset by ``s * T1``): one
+    grouping for all of them.
+
     Reads the group counts and sizes back: one host synchronisation.
     """
+    if edges.t_b.ndim == 2:
+        edges, t1 = _end_to_end(edges, t1), edges.t_b.shape[0] * t1
     dev = edges.t_b.device
     e = edges.t_b.shape[0]
     off = ~edges.valid
@@ -283,7 +350,8 @@ def build_banded_scatter(edges: EdgeList, t1: int,
     if e:
         grouped = [_group_keys(keys, drop, sentinel)
                    for keys, drop, sentinel, _ in parts]
-        sizes = torch.stack([v for g in grouped for v in g[5:]]).tolist()
+        sizes = _host_read(torch.stack([v for g in grouped
+                                        for v in g[5:]]))
         for i, g in enumerate(grouped):
             tables.append(_group_table(g, sizes[2 * i], sizes[2 * i + 1],
                                        parts[i][3]))
@@ -407,7 +475,14 @@ def exact_edge_terms(cfg: GraphConfig, obs: GraphObservations,
     """Constant per-edge terms of the exact-linear formulation (the same
     expressions as :func:`build_edge_blocks`, so :func:`exact_rhs_flat`
     rebuilds the rhs bit for bit): ``(om (E, 3, 3) mask-premultiplied,
-    rel_obs (E, 3), mask (E,))``."""
+    rel_obs (E, 3), mask (E,))``, each with the edge list's scene axis
+    where it has one (``obs`` ``(S, T1, L)``, ``omega_poses`` ``(S, T1,
+    3)``)."""
+    scenes = edges.t_b.shape[:-1]
+    t1 = omega_poses.shape[-2]
+    obs = GraphObservations(*map(_rows_end_to_end, obs))
+    edges = _end_to_end(edges, t1)
+    omega_poses = _rows_end_to_end(omega_poses)
     tb, ta, lm = edges.t_b, edges.t_a, edges.lm
     d_b, d_a, dir_b, dir_a, or_b, or_a = _gather_obs(obs, edges)
     mask = obs.valid[tb, lm] & obs.valid[ta, lm] & edges.valid
@@ -422,7 +497,8 @@ def exact_edge_terms(cfg: GraphConfig, obs: GraphObservations,
     ], dim=-1)
     om = (_edge_omega(cfg, d_b, d_a, dir_b, dir_a, omega_poses, edges)
           * mask.to(omega_poses.dtype)[:, None, None])
-    return om, rel_obs, mask
+    return (om.reshape(*scenes, -1, 3, 3), rel_obs.reshape(*scenes, -1, 3),
+            mask.reshape(*scenes, -1))
 
 
 @highest_matmul_precision
@@ -441,9 +517,15 @@ def exact_rhs_flat(poses, om, rel_obs, edges: EdgeList, t1: int, *,
     """Rebuild only the rhs ``b_flat (3, T1)`` from the current poses
     with the frozen ``om`` (the b half of :func:`build_edge_blocks` +
     :func:`assemble_banded_flat`, bit for bit).  ``scatter`` is
-    :func:`build_banded_scatter`'s (built here if not given)."""
+    :func:`build_banded_scatter`'s (built here if not given).  With a
+    scene axis (poses ``(S, T1, 3)``, edges ``(S, E)``, ``om`` ``(S, E,
+    3, 3)``, ``rel_obs`` ``(S, E, 3)``) the rhs is ``(S, 3, T1)``."""
     if scatter is None:
         scatter = build_banded_scatter(edges, t1)
+    scenes = poses.shape[:-2]
+    edges = _end_to_end(edges, t1)
+    poses = _rows_end_to_end(poses)
+    om, rel_obs = om.reshape(-1, 3, 3), rel_obs.reshape(-1, 3)
     rel = poses[edges.t_a] - poses[edges.t_b]
     err = torch.stack([
         rel[:, 0] - rel_obs[:, 0],
@@ -451,7 +533,11 @@ def exact_rhs_flat(poses, om, rel_obs, edges: EdgeList, t1: int, *,
         wrap_angle(wrap_angle(rel[:, 2]) - rel_obs[:, 2]),
     ], dim=-1)
     om_err = torch.einsum("eij,ej->ei", om, err)
-    return _columns(scatter, -om_err, om_err, t1)
+    if not scenes:
+        return _columns(scatter, -om_err, om_err, t1)
+    n_s = scenes[0]
+    return _columns(scatter, -om_err, om_err, n_s * t1).reshape(
+        3, n_s, t1).transpose(0, 1)
 
 
 def assemble_banded_flat(cfg: GraphConfig, blocks, edges: EdgeList,
@@ -462,35 +548,45 @@ def assemble_banded_flat(cfg: GraphConfig, blocks, edges: EdgeList,
     the rhs.  Each target is summed in a fixed order and written once
     (see :func:`build_banded_scatter`, built here if not given).
 
-    Returns ``(h_flat ((band+1)*9, T1), b_flat (3, T1), kept (T1,))``.
+    Returns ``(h_flat ((band+1)*9, T1), b_flat (3, T1), kept (T1,))``,
+    each with a leading ``(S,)`` for ``(S, E)`` edge lists (the blocks
+    then ``(S, E, ...)``): every scene its own padding and anchor.
     """
     if scatter is None:
         scatter = build_banded_scatter(edges, t1, band)
-    e = edges.t_b.shape[0]
+    scenes = edges.t_b.shape[:-1]
+    n_s = scenes[0] if scenes else 1
+    t_all = n_s * t1
     dtype = blocks["h_bb"].dtype
-    entries = torch.cat([blocks[k].reshape(e, 9)
+    entries = torch.cat([blocks[k].reshape(-1, 9)
                          for k in ("h_bb", "h_aa", "h_ba")])
-    h3 = torch.zeros((band + 1, 9, t1), dtype=dtype,
+    h3 = torch.zeros((band + 1, 9, t_all), dtype=dtype,
                      device=entries.device)
     h3[scatter.blk_d, :, scatter.blk_t] = _gather_sum(entries,
                                                       scatter.blk_table)
-    b_flat = _columns(scatter, blocks["b_b"], blocks["b_a"], t1)
+    b_flat = _columns(scatter, blocks["b_b"].reshape(-1, 3),
+                      blocks["b_a"].reshape(-1, 3), t_all)
 
-    m = blocks["mask"]
-    kept = torch.zeros(t1, dtype=torch.bool, device=m.device)
+    m = blocks["mask"].reshape(-1)
+    kept = torch.zeros(t_all, dtype=torch.bool, device=m.device)
     hit = torch.cat([m, m, m.new_zeros(1)])[scatter.col_table]
     kept[scatter.col_t] = hit.any(dim=1)
+    if scenes:
+        h3 = h3.reshape(band + 1, 9, n_s, t1).movedim(2, 0)
+        b_flat = b_flat.reshape(3, n_s, t1).transpose(0, 1)
+        kept = kept.reshape(n_s, t1)
 
     # Identity padding for unconstrained times (delta stays exactly 0)
     # + gauge anchor on the first kept block (graph_based_slam.py:474-475).
-    first_kept = kept.to(torch.int32).argmax()
+    first_kept = kept.to(torch.int32).argmax(dim=-1, keepdim=True)
     on_first = torch.arange(t1, device=m.device) == first_kept
-    anchor = torch.where(on_first & kept.any(), cfg.anchor, 0.0).to(dtype)
+    anchor = torch.where(on_first & kept.any(dim=-1, keepdim=True),
+                         cfg.anchor, 0.0).to(dtype)
     pad = torch.where(kept, 0.0, 1.0).to(dtype)
     for k in (0, 4, 8):
-        h3[0, k] += pad
-        h3[0, k] += anchor
-    return h3.reshape((band + 1) * 9, t1), b_flat, kept
+        h3[..., 0, k, :] += pad
+        h3[..., 0, k, :] += anchor
+    return h3.reshape(*scenes, (band + 1) * 9, t1), b_flat, kept
 
 
 def assemble_banded(cfg: GraphConfig, blocks, edges: EdgeList, t1: int,
@@ -508,33 +604,37 @@ def assemble_banded(cfg: GraphConfig, blocks, edges: EdgeList, t1: int,
 
 def _odometry_err(poses, rel_odom, odom_info):
     """``Omega err`` rows ``(3, T1-1)`` of the odometry chain, the
-    diagonal information as three scalars."""
-    err = poses[1:] - poses[:-1] - rel_odom
-    return torch.stack([err[:, 0] * float(odom_info[0]),
-                        err[:, 1] * float(odom_info[1]),
-                        wrap_angle(err[:, 2]) * float(odom_info[2])])
+    diagonal information as three scalars (``(S, 3, T1-1)`` for ``(S, T1,
+    3)`` poses)."""
+    err = poses[..., 1:, :] - poses[..., :-1, :] - rel_odom
+    return torch.stack([err[..., 0] * float(odom_info[0]),
+                        err[..., 1] * float(odom_info[1]),
+                        wrap_angle(err[..., 2]) * float(odom_info[2])],
+                       dim=-2)
 
 
 def odometry_rhs_flat(b_flat, poses, rel_odom, odom_info):
     """The rhs half of :func:`add_odometry_chain_flat` (the chain's H
     contribution is pose-independent; the factor-reuse GN loop rebuilds
-    only this each iteration)."""
+    only this each iteration).  Each scene of a leading axis has its own
+    chain."""
     w_err = _odometry_err(poses, rel_odom, odom_info)
     b_flat = b_flat.clone()
-    b_flat[:, :-1] -= w_err
-    b_flat[:, 1:] += w_err
+    b_flat[..., :-1] -= w_err
+    b_flat[..., 1:] += w_err
     return b_flat
 
 
 def add_odometry_chain_flat(h_flat, b_flat, poses, rel_odom, odom_info):
-    """Flat-layout twin of :func:`add_odometry_chain` (row slice-adds)."""
+    """Flat-layout twin of :func:`add_odometry_chain` (row slice-adds),
+    a chain for each scene of a leading axis."""
     h_flat = h_flat.clone()
     for r in range(3):
         k = 4 * r  # diagonal entry (r, r)
         info = float(odom_info[r])
-        h_flat[k, :-1] += info
-        h_flat[k, 1:] += info
-        h_flat[9 + k, :-1] -= info
+        h_flat[..., k, :-1] += info
+        h_flat[..., k, 1:] += info
+        h_flat[..., 9 + k, :-1] -= info
     return h_flat, odometry_rhs_flat(b_flat, poses, rel_odom, odom_info)
 
 
@@ -851,16 +951,57 @@ def graph_solve_banded(cfg: GraphConfig, poses_init,
             only (``ValueError`` otherwise); the poses agree with the
             sequential factor's to rounding.
 
+    A scene axis (poses ``(S, T1, 3)``, observations ``(S, T1, L)``,
+    edges ``(S, E)`` padded with ``valid`` False as
+    :func:`window_pairs_device` pads them, ``rel_odom`` ``(S, T1-1, 3)``)
+    runs S solves in lockstep on the factor-reuse path, and only there:
+    the result's fields carry the leading ``(S,)``, and scene s's are
+    those of its own solve, to the rounding of batched products.
+
     Host synchronisations: one to group the edges
-    (:func:`build_banded_scatter`) and one a GN iteration; with
-    ``"cg"`` also the PCG loop's reads (one every
+    (:func:`build_banded_scatter`) and one a GN iteration, whatever S;
+    with ``"cg"`` also the PCG loop's reads (one every
     :data:`~tpuslam_torch.core.pcg.CHECK_EVERY` iterations).
     """
+    with span("tpuslam.graph_large.solve"):
+        return _graph_solve_banded(
+            cfg, poses_init, obs, edges, band, cg_iters, cg_tol, rel_odom,
+            odom_info, solver, relinearize_omega, delta_tol, damping,
+            super_size, stall_ratio, reuse_factorization, refactor_every,
+            n_parts)
+
+
+def _refuse_scenes(solver, cfg, relinearize_omega, reuse_factorization,
+                   refactor_every, n_parts) -> None:
+    """The scene axis runs the factor-reuse path only: each other path
+    raises ``ValueError`` naming itself."""
+    refused = [
+        (solver != "tridiag", f"solver={solver!r}"),
+        (relinearize_omega, "relinearize_omega=True"),
+        (refactor_every is not None, f"refactor_every={refactor_every}"),
+        (n_parts is not None, f"n_parts={n_parts}"),
+        (not cfg.exact_jacobians, "exact_jacobians=False"),
+        (reuse_factorization is False, "reuse_factorization=False")]
+    for hit, path in refused:
+        if hit:
+            raise ValueError(f"graph_solve_banded: {path} takes no scene "
+                             "axis; S scenes run only the factor-reuse "
+                             "path (solver='tridiag', exact Jacobians, "
+                             "frozen Omega)")
+
+
+def _graph_solve_banded(cfg, poses_init, obs, edges, band, cg_iters, cg_tol,
+                        rel_odom, odom_info, solver, relinearize_omega,
+                        delta_tol, damping, super_size, stall_ratio,
+                        reuse_factorization, refactor_every, n_parts):
     if damping < 0.0:
         raise ValueError(f"damping must be >= 0, got {damping}; negative "
                          "damping subtracts from diag(H) and degrades "
                          "conditioning")
     _check_solver(solver)
+    if poses_init.ndim == 3:
+        _refuse_scenes(solver, cfg, relinearize_omega, reuse_factorization,
+                       refactor_every, n_parts)
     can_reuse = (solver == "tridiag" and cfg.exact_jacobians
                  and not relinearize_omega)
     if reuse_factorization is None:
@@ -884,7 +1025,6 @@ def graph_solve_banded(cfg: GraphConfig, poses_init,
                 f"{cfg.exact_jacobians}, relinearize_omega="
                 f"{relinearize_omega}, solver={solver!r}; with frozen "
                 "Omega use reuse_factorization instead)")
-    t1 = poses_init.shape[0]
     tol = cfg.delta_sum_threshold if delta_tol is None else delta_tol
     if n_parts is not None and not reuse_factorization:
         raise ValueError("n_parts (partitioned Thomas) is implemented "
@@ -898,7 +1038,9 @@ def graph_solve_banded(cfg: GraphConfig, poses_init,
             cfg, poses_init, obs, edges, band, rel_odom, odom_info,
             damping, super_size, tol, stall_ratio, refactor_every)
 
-    scatter = build_banded_scatter(edges, t1, band)
+    t1 = poses_init.shape[0]
+    with span("tpuslam.graph_large.scatter"):
+        scatter = build_banded_scatter(edges, t1, band)
 
     def step(poses, iters):
         omega_poses = poses if relinearize_omega else poses_init
@@ -924,77 +1066,93 @@ def graph_solve_banded(cfg: GraphConfig, poses_init,
                                          cg_tol)
         return delta * kept[:, None], cg_it
 
-    return _gn_loop(step, poses_init,
-                    _make_gn_cond(tol, cfg.max_gn_iters, stall_ratio))
+    return _gn_loop(step, poses_init, tol, cfg.max_gn_iters, stall_ratio)
 
 
 def _damped(h_flat, damping: float):
     if not damping:
         return h_flat
     h_flat = h_flat.clone()
-    h_flat[0:9:4] *= 1.0 + damping  # the diagonal rows, without a sync
+    # The diagonal rows, without a sync.
+    h_flat[..., 0:9:4, :] *= 1.0 + damping
     return h_flat
 
 
-def _make_gn_cond(tol, max_iters: int, stall_ratio: float | None):
-    """The GN loop's condition, ``gn_cond(delta_sum, prev, iters) ->
-    bool``: absolute threshold + iteration cap, plus the optional stall
-    check (see ``graph_solve_banded``'s ``stall_ratio``).  Before the
-    first iteration ``delta_sum`` and ``prev`` are the seed's inf and
-    nothing is read; after it, one host synchronisation a call unless the
-    cap decides."""
-
-    def gn_cond(delta_sum, prev, iters: int) -> bool:
-        if iters >= max_iters:
-            return False
-        if iters == 0:
-            return math.inf >= tol
-        go = delta_sum >= tol
-        if stall_ratio is not None and iters >= 2:
-            # Meaningful once two real delta_sums exist.
-            go = go & (delta_sum < stall_ratio * prev)
-        return bool(go)
-
-    return gn_cond
+def _go(delta_sum, prev, iters, tol, stall_ratio: float | None):
+    """Whether GN goes on after ``iters`` updates (a tensor of each
+    scene's): the absolute threshold, and the stall check (see
+    ``graph_solve_banded``'s ``stall_ratio``) once two real delta_sums
+    exist."""
+    go = delta_sum >= tol
+    if stall_ratio is not None:
+        go = go & ((iters < 2) | (delta_sum < stall_ratio * prev))
+    return go
 
 
-def _gn_loop(step, poses_init, gn_cond) -> BandedSolveResult:
-    """Apply ``step(poses, iters) -> (masked delta (T1, 3), cg iters or
-    None)`` while ``gn_cond`` holds; the yaw wraps after each update, and
-    ``delta_sum`` is taken on the wrap-invariant motion."""
+def _updated(poses, delta):
+    """``(poses + delta with the yaw wrapped, delta_sum)``: ``delta_sum``
+    is taken on the wrap-invariant motion (a yaw that flips
+    representation across +/-pi moves by ~2 pi in raw delta but by ~0
+    physically)."""
+    poses = poses + delta
+    poses = torch.cat([poses[..., :2], wrap_angle(poses[..., 2:3])], dim=-1)
+    eff = torch.cat([delta[..., :2], wrap_angle(delta[..., 2:3])], dim=-1)
+    return poses, (eff * eff).flatten(-2).sum(-1)
+
+
+def _gn_loop(step, poses_init, tol, max_iters: int,
+             stall_ratio: float | None) -> BandedSolveResult:
+    """Gauss-Newton in lockstep over the scenes of ``poses_init`` (``(T1,
+    3)``, one, or ``(S, T1, 3)``): each pass runs ``step(poses, passes) ->
+    (masked delta, cg iters or None)`` on every scene, only the active
+    ones take the update, and each keeps its own count, ``delta_sum`` and
+    stop rule (the absolute threshold, the stall check, the cap).  After
+    a pass one host read asks whether any scene is active; the cap ends
+    the loop without one."""
+    global gn_passes
+    scenes = poses_init.shape[:-2]
     dev, dtype = poses_init.device, poses_init.dtype
     poses = poses_init
-    delta_sum = prev = torch.full((), math.inf, dtype=dtype, device=dev)
-    cg_it = torch.zeros((), dtype=torch.int32, device=dev)
-    iters = 0
-    while gn_cond(delta_sum, prev, iters):
-        delta, step_cg = step(poses, iters)
-        cg_it = cg_it if step_cg is None else step_cg
-        poses = poses + delta
-        poses = torch.cat([poses[:, :2], wrap_angle(poses[:, 2:3])], dim=1)
-        # A yaw that flips representation across +/-pi moves by ~2 pi in
-        # raw delta but by ~0 physically.
-        eff = torch.cat([delta[:, :2], wrap_angle(delta[:, 2:3])], dim=1)
-        prev, delta_sum = delta_sum, torch.sum(eff * eff)
-        iters += 1
-    return BandedSolveResult(
-        poses=poses,
-        gn_iters=torch.full((), iters, dtype=torch.int32, device=dev),
-        delta_sum=delta_sum, cg_iters_last=cg_it)
+    delta_sum = prev = torch.full(scenes, math.inf, dtype=dtype, device=dev)
+    iters = torch.zeros(scenes, dtype=torch.int32, device=dev)
+    cg_it = torch.zeros(scenes, dtype=torch.int32, device=dev)
+    active = torch.full(scenes, math.inf >= tol, device=dev)
+    passes = 0
+    go = passes < max_iters and math.inf >= tol
+    while go:
+        with span("tpuslam.graph_large.pass"):
+            delta, step_cg = step(poses, passes)
+            cg_it = cg_it if step_cg is None else step_cg
+            new_poses, new_sum = _updated(poses, delta)
+            poses = torch.where(active[..., None, None], new_poses, poses)
+            prev = torch.where(active, delta_sum, prev)
+            delta_sum = torch.where(active, new_sum, delta_sum)
+            iters = iters + active.to(torch.int32)
+            active = active & _go(delta_sum, prev, iters, tol, stall_ratio)
+        passes += 1
+        gn_passes += 1
+        go = passes < max_iters
+        if go:
+            with span("tpuslam.graph_large.cond"):
+                go = _host_read(active.any())
+    return BandedSolveResult(poses=poses, gn_iters=iters,
+                             delta_sum=delta_sum, cg_iters_last=cg_it)
 
 
 def _constant_h(cfg, poses, om, mask, edges, t1, band, rel_odom,
                 odom_info, damping, scatter):
     """H of the exact formulation for frozen ``om`` (blocks +/-om), the
-    odometry chain's H and the damping: ``(h_flat, kept)``."""
-    zeros_b = om.new_zeros((om.shape[0], 3))
+    odometry chain's H and the damping: ``(h_flat, kept)``, each with the
+    scene axis of ``om`` ``(S, E, 3, 3)`` where it has one."""
+    zeros_b = om.new_zeros(om.shape[:-1])
     blocks = {"h_bb": om, "h_ba": -om, "h_aa": om, "b_b": zeros_b,
               "b_a": zeros_b, "mask": mask}
     h_flat, _, kept = assemble_banded_flat(cfg, blocks, edges, t1, band,
                                            scatter=scatter)
     if rel_odom is not None:
         h_flat, _ = add_odometry_chain_flat(
-            h_flat, h_flat.new_zeros((3, t1)), poses, rel_odom, odom_info)
+            h_flat, h_flat.new_zeros((*h_flat.shape[:-2], 3, t1)), poses,
+            rel_odom, odom_info)
         kept = torch.ones_like(kept)
     return _damped(h_flat, damping), kept
 
@@ -1016,23 +1174,27 @@ def _graph_solve_banded_reuse(cfg: GraphConfig, poses_init,
     :func:`graph_solve_banded`: H is assembled and Thomas-factored once
     (in ``n_parts`` chunks where given); each iteration rebuilds only
     the rhs and substitutes.  The same values as the one-shot path,
-    which factors the same H each iteration."""
-    t1 = poses_init.shape[0]
+    which factors the same H each iteration.  With a scene axis every
+    stage runs once for all S scenes and the GN loop is the lockstep
+    one."""
+    t1 = poses_init.shape[-2]
     ss = max(band, 1) if super_size is None else super_size
-    scatter = build_banded_scatter(edges, t1, band)
-    om, rel_obs, mask = exact_edge_terms(cfg, obs, edges, poses_init)
-    h_flat, kept = _constant_h(cfg, poses_init, om, mask, edges, t1, band,
-                               rel_odom, odom_info, damping, scatter)
-    fac = banded_factor_tridiag_flat(h_flat, band, ss, n_parts=n_parts)
+    with span("tpuslam.graph_large.scatter"):
+        scatter = build_banded_scatter(edges, t1, band)
+    with span("tpuslam.graph_large.terms"):
+        om, rel_obs, mask = exact_edge_terms(cfg, obs, edges, poses_init)
+        h_flat, kept = _constant_h(cfg, poses_init, om, mask, edges, t1,
+                                   band, rel_odom, odom_info, damping,
+                                   scatter)
+    with span("tpuslam.graph_large.factor"):
+        resolve = factor_resolver(h_flat, band, ss, n_parts=n_parts)
 
-    def step(poses, iters):
+    def step(poses, passes):
         b_flat = _rhs(poses, om, rel_obs, edges, t1, rel_odom, odom_info,
                       scatter)
-        delta = banded_resolve_tridiag_flat(fac, -b_flat, ss)
-        return delta * kept[:, None], None
+        return resolve(-b_flat) * kept[..., None], None
 
-    return _gn_loop(step, poses_init,
-                    _make_gn_cond(tol, cfg.max_gn_iters, stall_ratio))
+    return _gn_loop(step, poses_init, tol, cfg.max_gn_iters, stall_ratio)
 
 
 def _graph_solve_banded_relin_reuse(cfg: GraphConfig, poses_init,
@@ -1051,7 +1213,8 @@ def _graph_solve_banded_relin_reuse(cfg: GraphConfig, poses_init,
     relinearization."""
     t1 = poses_init.shape[0]
     ss = max(band, 1) if super_size is None else super_size
-    scatter = build_banded_scatter(edges, t1, band)
+    with span("tpuslam.graph_large.scatter"):
+        scatter = build_banded_scatter(edges, t1, band)
     # rel_obs and mask are pose-independent; only om refreshes.
     om0, rel_obs, mask = exact_edge_terms(cfg, obs, edges, poses_init)
 
@@ -1072,5 +1235,4 @@ def _graph_solve_banded_relin_reuse(cfg: GraphConfig, poses_init,
         delta = banded_resolve_tridiag_flat(state["fac"], -b_flat, ss)
         return delta * kept[:, None], None
 
-    return _gn_loop(step, poses_init,
-                    _make_gn_cond(tol, cfg.max_gn_iters, stall_ratio))
+    return _gn_loop(step, poses_init, tol, cfg.max_gn_iters, stall_ratio)

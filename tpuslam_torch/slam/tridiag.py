@@ -33,8 +33,16 @@ the factor is set to NaN on the device, so "a NaN factor means the
 prescaled system lost PD-ness" holds here too, with no synchronisation.
 In a batch, only the matrices whose ``info`` is not 0 become NaN.
 
-The flat path (:func:`banded_solve_tridiag_flat` and the factor/resolve
-pair) takes the ``((band+1)*9, T1)`` storage of ``large.py``.  The JAX
+The factor and its substitution take batch axes after the chain axis,
+``(N, *B, M, M)``: each step is then one batched Cholesky, triangular
+solve and product over the batch, so S scenes' chains cost the launches
+of one.  The flat path (:func:`banded_solve_tridiag_flat` and the
+factor/resolve pair) takes the ``((band+1)*9, T1)`` storage of
+``large.py``, and the pair a leading scene axis, ``(S, (band+1)*9, T1)``.
+On a CUDA card :func:`factor_resolver` replays a scene-axis factor and
+its resolves as CUDA graphs: the chain is 250 steps of about 35 launches
+at BASELINE config 5's size, which the host otherwise issues one by one,
+slower than the card runs them.  The JAX
 package builds its dense super-blocks with one-hot matmuls and its row
 interleave with one-hot einsums, which exist only to keep TPU layouts
 unpadded; here both are index gathers and reshapes, which place the same
@@ -43,6 +51,7 @@ scalars exactly.
 
 from __future__ import annotations
 
+import collections
 import functools
 import typing
 
@@ -128,15 +137,18 @@ def block_thomas_factor(diag, upper) -> ThomasFactor:
     rhs-independent half of :func:`block_thomas_solve`: the
     Cholesky/Schur recursion, O(M^3) a block).
 
+    ``diag`` is ``(N, *B, M, M)`` and ``upper`` ``(N-1, *B, M, M)``: the
+    chain axis first, then any batch axes, each step batched over them.
     ``block_thomas_substitute(block_thomas_factor(d, u), b)`` is
     :func:`block_thomas_solve`, bit for bit.
     """
-    n, m = diag.shape[0], diag.shape[1]
-    up = torch.cat([upper, diag.new_zeros((1, m, m))], dim=0)
+    n, m = diag.shape[0], diag.shape[-1]
+    batch = diag.shape[1:-2]
+    up = torch.cat([upper, diag.new_zeros((1, *batch, m, m))], dim=0)
     eye = torch.eye(m, dtype=diag.dtype, device=diag.device)
     invs = torch.empty_like(diag)
     ws = torch.empty_like(diag)
-    inv_prev, u_prev = eye, diag.new_zeros((m, m))
+    inv_prev, u_prev = eye, diag.new_zeros((*batch, m, m))
     for k in range(n):
         w = torch.matmul(inv_prev, u_prev, out=ws[k])  # S_{k-1}^-1 U_{k-1}
         s = diag[k] - u_prev.mT @ w
@@ -153,25 +165,25 @@ def block_thomas_substitute(factor: ThomasFactor, b):
     passes): the forward pass replays ``y_k = b_k - y_{k-1} W_k``, the
     backward pass is ``x_k = (y_k - x_{k+1} U_k^T) S_k^{-1}``.
 
-    ``b`` is ``(N, M)``, or ``(N, K, M)`` for K right-hand sides.
+    ``b`` is ``(N, *B, M)``, or ``(N, *B, K, M)`` for K right-hand sides,
+    with the factor's batch axes B.
     """
     invs, ws, up = factor
-    n, m = invs.shape[0], invs.shape[1]
-    squeeze = b.ndim == 2
-    b_row = b[:, None, :] if squeeze else b  # (n, K, m)
-    n_rhs = b_row.shape[1]
+    n = invs.shape[0]
+    squeeze = b.ndim == invs.ndim - 1
+    b_row = b.unsqueeze(-2) if squeeze else b  # (n, *B, K, m)
     ys = torch.empty_like(b_row)
-    y_prev = b.new_zeros((n_rhs, m))
+    y_prev = b.new_zeros(b_row.shape[1:])
     for k in range(n):
         y_prev = torch.sub(b_row[k], y_prev @ ws[k], out=ys[k])
     xs = torch.empty_like(b_row)
-    x_next = b.new_zeros((n_rhs, m))
+    x_next = b.new_zeros(b_row.shape[1:])
     for k in range(n - 1, -1, -1):
         # x = S^-1 (y - U x_next); S^-1 is symmetric, so the row form is
         # (y_row - x_next_row U^T) S^-1.
         x_next = torch.matmul(ys[k] - x_next @ up[k].mT, invs[k],
                               out=xs[k])
-    return xs[:, 0, :] if squeeze else xs
+    return xs.squeeze(-2) if squeeze else xs
 
 
 def block_thomas_solve(diag, upper, b):
@@ -271,18 +283,10 @@ def block_thomas_factor_partitioned(diag, upper, n_parts: int,
     u_int = up_r[:, :m - 2].transpose(0, 1)  # (m-2, C, M, M)
     b_cpl = up_r[:, m - 2]
     c_cpl = up_r[:, m - 1]  # zero for the last chunk
-    up_x = torch.cat([u_int, zero.expand(1, c, m_blk, m_blk)], dim=0)
 
-    # The chunks' factors: block_thomas_factor's recursion, batched.
-    invs = a_int.new_empty(a_int.shape)
-    ws = a_int.new_empty(a_int.shape)
-    inv_prev = torch.eye(m_blk, dtype=diag.dtype,
-                         device=diag.device).expand(c, m_blk, m_blk)
-    u_prev = zero.expand(c, m_blk, m_blk)
-    for k in range(m - 1):
-        w = torch.matmul(inv_prev, u_prev, out=ws[k])
-        inv_prev = invs[k] = _batched_inv_spd(a_int[k] - u_prev.mT @ w)
-        u_prev = up_x[k]
+    # The chunks' factors: the Thomas chain batched over the chunks.
+    chunk = block_thomas_factor(a_int, u_int)
+    invs = chunk.invs
     dm = invs[-1]  # [T^-1]_{m-2,m-2}
 
     # D0 = [T^-1]_{0,0} by the reverse Schur recursion (carry only).
@@ -305,25 +309,8 @@ def block_thomas_factor_partitioned(diag, upper, n_parts: int,
     ahat = 0.5 * (ahat + ahat.mT)
     uhat = -(c_cpl[:-1] @ g_cor[1:] @ b_cpl[1:])
     return PartitionedThomasFactor(
-        chunk=ThomasFactor(invs=invs, ws=ws, up=up_x),
+        chunk=chunk,
         red=block_thomas_factor(ahat, uhat), b_cpl=b_cpl, c_cpl=c_cpl)
-
-
-def _sub_batched(chunk: ThomasFactor, g_tm):
-    """:func:`block_thomas_substitute` batched over the chunks,
-    time-major: ``g_tm`` ``(m-1, C, M)`` rows, the solution in the same
-    layout."""
-    invs, ws, up = chunk
-    ys = g_tm.new_empty(g_tm.shape)
-    y_prev = g_tm.new_zeros(g_tm.shape[1:])
-    for k in range(g_tm.shape[0]):
-        y_prev = ys[k] = g_tm[k] - _rowmat(y_prev, ws[k])
-    xs = g_tm.new_empty(g_tm.shape)
-    x_next = g_tm.new_zeros(g_tm.shape[1:])
-    for k in range(g_tm.shape[0] - 1, -1, -1):
-        x_next = xs[k] = _rowmat(ys[k] - _rowmat(x_next, up[k].mT),
-                                 invs[k])
-    return xs
 
 
 @highest_matmul_precision
@@ -336,7 +323,7 @@ def block_thomas_substitute_partitioned(fac: PartitionedThomasFactor, b):
     m_blk = b.shape[-1]
     g = b.reshape(c, m, m_blk)
     g_int = g[:, :m - 1].transpose(0, 1)  # (m-1, C, M)
-    r = _sub_batched(fac.chunk, g_int)
+    r = block_thomas_substitute(fac.chunk, g_int)
     # bhat_c = f_c - r_c[m-2] B_c - r_{c+1}[0] C_c^T (the row forms of
     # B^T x and C x); chunk C-1's r_next0 is chunk 0's, times its zero
     # c_cpl.
@@ -353,7 +340,7 @@ def block_thomas_substitute_partitioned(fac: PartitionedThomasFactor, b):
     g2 = g_int.clone()
     g2[m - 2] += -corr_last
     g2[0] += -corr_first
-    u = _sub_batched(fac.chunk, g2)
+    u = block_thomas_substitute(fac.chunk, g2)
     x = torch.cat([u.transpose(0, 1), s[:, None]], dim=1)  # (C, m, M)
     return x.reshape(c * m, m_blk)
 
@@ -409,17 +396,19 @@ def banded_solve_tridiag(h_band, b, super_size: int | None = None):
 def _flat_prescale(h_flat, b_flat, band: int):
     """Flat-layout Jacobi prescale: s = 1/sqrt(diag), applied as row
     products (``h'[d*9+3a+b, i] = h * s[a, i] * s[b, i+d]``, the column
-    index clamped at the end)."""
+    index clamped at the end).  Leading scene axes ride along."""
     d1 = band + 1
-    t1 = h_flat.shape[1]
+    t1 = h_flat.shape[-1]
     dev = h_flat.device
-    diag = torch.stack([h_flat[0], h_flat[4], h_flat[8]])  # (3, T1)
+    diag = torch.stack([h_flat[..., 0, :], h_flat[..., 4, :],
+                        h_flat[..., 8, :]], dim=-2)  # (..., 3, T1)
     s = torch.rsqrt(torch.clamp_min(diag, 1e-30))
     idx = torch.clamp_max(torch.arange(t1, device=dev)[None, :]
                           + torch.arange(d1, device=dev)[:, None], t1 - 1)
-    s_shift = s[:, idx].transpose(0, 1)  # (D, 3, T1): s[b, i+d]
-    scale = (s[None, :, None, :] * s_shift[:, None, :, :]).reshape(
-        d1 * 9, t1)
+    s_shift = s[..., idx].transpose(-3, -2)  # (..., D, 3, T1): s[b, i+d]
+    scale = (s[..., None, :, None, :]
+             * s_shift[..., :, None, :, :]).reshape(
+        *h_flat.shape[:-2], d1 * 9, t1)
     return h_flat * scale, b_flat * s, s
 
 
@@ -458,21 +447,24 @@ def _flat_to_tridiag(h_flat, band: int, super_size: int,
     """Super-block densification straight from flat banded storage:
     ``(diag (N, 3S, 3S), upper)`` with ``upper`` ``(N-1, 3S, 3S)``, or
     ``(N, ...)`` with ``drop_last=False`` (the last one couples to the
-    block after this storage: zero for a whole matrix)."""
+    block after this storage: zero for a whole matrix).  A leading scene
+    axis, ``h_flat`` ``(B, rows, T1)``, comes out after the chain axis:
+    ``(N, B, 3S, 3S)``."""
     if band > super_size:
         raise ValueError(f"band {band} exceeds super block size "
                          f"{super_size}")
     rows = (band + 1) * 9
-    t1 = h_flat.shape[1]
+    t1 = h_flat.shape[-1]
+    batch = h_flat.shape[:-2]
     n = t1 // super_size
     s3 = 3 * super_size
     idx_diag, idx_upper = _tridiag_slots(band, super_size, h_flat.device)
     src = torch.cat([
-        h_flat.reshape(rows, n, super_size).transpose(0, 1).reshape(
-            n, rows * super_size),
-        h_flat.new_zeros((n, 1))], dim=1)
-    diag_u = src[:, idx_diag].reshape(n, s3, s3)
-    upper = src[:, idx_upper].reshape(n, s3, s3)
+        h_flat.reshape(*batch, rows, n, super_size).movedim(-2, 0).reshape(
+            n, *batch, rows * super_size),
+        h_flat.new_zeros((n, *batch, 1))], dim=-1)
+    diag_u = src[..., idx_diag].reshape(n, *batch, s3, s3)
+    upper = src[..., idx_upper].reshape(n, *batch, s3, s3)
     # Scalar-symmetric completion of the diagonal blocks.
     diag = diag_u + torch.triu(diag_u, 1).mT
     return diag, (upper[:-1] if drop_last else upper)
@@ -480,31 +472,36 @@ def _flat_to_tridiag(h_flat, band: int, super_size: int,
 
 def pad_flat(h_flat, b_flat, multiple: int):
     """Flat-layout twin of :func:`pad_band`: pad the trajectory axis to a
-    multiple with decoupled identity scalar blocks."""
-    t1 = h_flat.shape[1]
+    multiple with decoupled identity scalar blocks (leading scene axes
+    ride along)."""
+    t1 = h_flat.shape[-1]
     pad = (-t1) % multiple
     if pad:
         h_flat = torch.nn.functional.pad(h_flat, (0, pad))
         # Rows 0, 4 and 8 (the diagonal entries) by a strided slice: a
         # list index would copy it to the device and synchronise.
-        h_flat[0:9:4, t1:] = 1.0
+        h_flat[..., 0:9:4, t1:] = 1.0
         b_flat = torch.nn.functional.pad(b_flat, (0, pad))
     return h_flat, b_flat
 
 
 def flat_rows_to_super(b_s, super_size: int):
     """Interleave ``(3, T1)`` phase rows into ``(N, 3S)`` scalar order
-    (scalar p = 3s + a of super-block k is ``b_s[a, k*S + s]``)."""
-    n = b_s.shape[1] // super_size
-    return b_s.reshape(3, n, super_size).permute(1, 2, 0).reshape(
-        n, 3 * super_size)
+    (scalar p = 3s + a of super-block k is ``b_s[a, k*S + s]``); leading
+    scene axes ``(*B, 3, T1)`` come out after the chain axis, ``(N, *B,
+    3S)``."""
+    batch = b_s.shape[:-2]
+    n = b_s.shape[-1] // super_size
+    return b_s.reshape(*batch, 3, n, super_size).movedim(-2, 0).transpose(
+        -1, -2).reshape(n, *batch, 3 * super_size)
 
 
 def super_rows_to_flat(x, super_size: int):
-    """Inverse of :func:`flat_rows_to_super`: ``(N, 3S)`` -> ``(3, T1)``."""
-    n = x.shape[0]
-    return x.reshape(n, super_size, 3).permute(2, 0, 1).reshape(
-        3, n * super_size)
+    """Inverse of :func:`flat_rows_to_super`: ``(N, *B, 3S)`` -> ``(*B,
+    3, T1)``."""
+    n, batch = x.shape[0], x.shape[1:-1]
+    return x.reshape(n, *batch, super_size, 3).transpose(-1, -2).movedim(
+        0, -2).reshape(*batch, 3, n * super_size)
 
 
 class TridiagFlatFactor(typing.NamedTuple):
@@ -513,7 +510,7 @@ class TridiagFlatFactor(typing.NamedTuple):
     :func:`banded_resolve_tridiag_flat`."""
 
     factor: ThomasFactor | PartitionedThomasFactor
-    s: torch.Tensor  # (3, T_pad) Jacobi prescale rows
+    s: torch.Tensor  # (*B, 3, T_pad) Jacobi prescale rows
 
 
 @highest_matmul_precision
@@ -526,11 +523,16 @@ def banded_factor_tridiag_flat(h_flat, band: int,
     :func:`block_thomas_factor`, or with ``n_parts``
     :func:`block_thomas_factor_partitioned` (the trajectory then padded
     to a ``super_size * n_parts`` multiple; the solution agrees with the
-    sequential factor's to rounding, not bit for bit)."""
+    sequential factor's to rounding, not bit for bit).  ``h_flat`` may
+    carry a leading scene axis, ``(S, rows, T1)``, on the sequential
+    factor only: its fields are then ``(N, S, M, M)``."""
     if super_size is None:
         super_size = max(band, 1)
+    if n_parts and h_flat.ndim != 2:
+        raise ValueError("n_parts (the partitioned factor) takes no scene "
+                         "axis")
     quantum = super_size * n_parts if n_parts else super_size
-    zeros = h_flat.new_zeros((3, h_flat.shape[1]))
+    zeros = h_flat.new_zeros((*h_flat.shape[:-2], 3, h_flat.shape[-1]))
     h_flat, b_pad = pad_flat(h_flat, zeros, quantum)
     h_s, _, s = _flat_prescale(h_flat, b_pad, band)
     diag, upper = _flat_to_tridiag(h_s, band, super_size)
@@ -545,9 +547,10 @@ def banded_factor_tridiag_flat(h_flat, band: int,
 def banded_resolve_tridiag_flat(fac: TridiagFlatFactor, b_flat,
                                 super_size: int) -> torch.Tensor:
     """Solve ``H x = b`` with a precomputed :class:`TridiagFlatFactor`;
-    ``b_flat`` is ``(3, T1)``, the result ``(T1, 3)``."""
-    t1 = b_flat.shape[1]
-    t_pad = fac.s.shape[1]
+    ``b_flat`` is ``(3, T1)``, the result ``(T1, 3)``, or with the
+    factor's scene axis ``(S, 3, T1)`` and ``(S, T1, 3)``."""
+    t1 = b_flat.shape[-1]
+    t_pad = fac.s.shape[-1]
     b_flat = torch.nn.functional.pad(b_flat, (0, t_pad - t1))
     b_sup = flat_rows_to_super(b_flat * fac.s, super_size)
     if isinstance(fac.factor, PartitionedThomasFactor):
@@ -555,7 +558,86 @@ def banded_resolve_tridiag_flat(fac: TridiagFlatFactor, b_flat,
     else:
         x = block_thomas_substitute(fac.factor, b_sup)
     x3 = super_rows_to_flat(x, super_size) * fac.s
-    return x3.T[:t1]
+    return x3.transpose(-1, -2)[..., :t1, :]
+
+
+#: CUDA graphs of :func:`factor_resolver`, by the system's shape, dtype,
+#: device, band and super-block size: the two used last are kept.
+_GRAPHS: collections.OrderedDict = collections.OrderedDict()
+_GRAPHS_KEPT = 2
+
+
+class _Graphs(typing.NamedTuple):
+    """One shape's captured factor and resolve, with their static
+    arguments and outputs; ``owner`` is the resolver whose factor the
+    outputs hold."""
+
+    h_in: torch.Tensor
+    factor: torch.cuda.CUDAGraph
+    b_in: torch.Tensor
+    resolve: torch.cuda.CUDAGraph
+    x_out: torch.Tensor
+    owner: list
+
+
+def _captured(fn, arg):
+    """``(graph, output)``: a CUDA graph of ``fn(arg)``, captured after
+    one run on the capture's own stream (which sets up cuBLAS and cuSOLVER
+    there)."""
+    dev = arg.device
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        fn(arg)
+    torch.cuda.current_stream(dev).wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = fn(arg)
+    return graph, out
+
+
+def factor_resolver(h_flat, band: int, super_size: int,
+                    n_parts: int | None = None):
+    """:func:`banded_factor_tridiag_flat` of ``h_flat``, and a resolve
+    ``b_flat -> x`` with it (:func:`banded_resolve_tridiag_flat`), for a
+    solve that resolves one factor many times.
+
+    With a scene axis on a CUDA card the factor and each resolve replay
+    CUDA graphs, captured at the first call of the shape: the factor then
+    lives in the graph's memory and serves one resolver, the one made
+    last for the shape; an older one raises ``RuntimeError``.  Each
+    resolve returns a tensor of its own.  Elsewhere both run eagerly."""
+    if n_parts or h_flat.ndim == 2 or h_flat.device.type != "cuda":
+        fac = banded_factor_tridiag_flat(h_flat, band, super_size, n_parts)
+        return functools.partial(banded_resolve_tridiag_flat, fac,
+                                 super_size=super_size)
+    key = (h_flat.shape, h_flat.dtype, h_flat.device, band, super_size)
+    g = _GRAPHS.pop(key, None)
+    if g is None:
+        h_in = h_flat.clone()
+        factor, fac = _captured(functools.partial(
+            banded_factor_tridiag_flat, band=band, super_size=super_size),
+            h_in)
+        b_in = h_flat.new_zeros((h_flat.shape[0], 3, h_flat.shape[-1]))
+        resolve, x_out = _captured(functools.partial(
+            banded_resolve_tridiag_flat, fac, super_size=super_size), b_in)
+        g = _Graphs(h_in, factor, b_in, resolve, x_out, [None])
+    _GRAPHS[key] = g
+    while len(_GRAPHS) > _GRAPHS_KEPT:
+        _GRAPHS.popitem(last=False)
+    g.h_in.copy_(h_flat)
+    g.factor.replay()
+
+    def resolve(b_flat):
+        if g.owner[0] is not resolve:
+            raise RuntimeError("a later factor of this shape has replaced "
+                               "this resolver's")
+        g.b_in.copy_(b_flat)
+        g.resolve.replay()
+        return g.x_out.clone()
+
+    g.owner[0] = resolve
+    return resolve
 
 
 def banded_solve_tridiag_flat(h_flat, b_flat, band: int,
