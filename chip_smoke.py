@@ -26,8 +26,8 @@ dense graph SLAM, which has no hand-written kernel: the reference course
 1024 seeds of it batched with each guard (timed, profiled, its statistics
 held to the reference's bands, and repeated bit for bit: at 256 seeds
 with the full guard), and one full-history solve of 400 and of 1000
-steps.  Then large-scale graph SLAM, which has no hand-written kernel
-either (phases 32-35): a 200-pose scene solved in float32 on the card
+steps.  Then large-scale graph SLAM (phases 32-35), whose Thomas factor
+is K6 on the card: a 200-pose scene solved in float32 on the card
 against float64 on the CPU on each solver path (the tridiagonal Thomas
 solver with factor reuse, one-shot, with ``refactor_every`` 1 and 3, and
 CG), the end-to-end test's scene held to its RMSE bound, the staged
@@ -36,7 +36,8 @@ Thomas solves bit for bit against the one-shot ones; ``bench.py``'s
 100 (the scene and the edge build timed apart, the device edge build
 against the host's, the solve timed with its host syncs counted, repeats
 bit for bit, float64 at 10k, the Thomas factor and one GN iteration timed
-apart with the host clock a chain step, a profile of each at 10k); and
+apart with the host clock a chain step, a profile of each at 10k, the
+solve and the factor timed again with the plain chain in K6's place); and
 one CG solve at 10k with its host syncs.  Then the other banded solvers
 (phases 36-38): on the 200-pose scene, the GN with cyclic reduction, with
 the banded Cholesky and with the partitioned Thomas factor (2 and 5
@@ -48,7 +49,11 @@ bit for bit and its gap to float64 at 10k, one solve profiled with its
 launches a level, and a level's SPD solve in its two forms), the
 partitioned factor and resolve at 8, 32 and 128 chunks, and the GN with
 CR and with the best chunk count, held to the Thomas path's poses; and
-one banded Cholesky solve at 10k.  Each phase
+one banded Cholesky solve at 10k.  Last (phase 39), K6 on the
+graph_large cell's chain (32 seeded 10k-pose scenes): one launch a
+factor, two launches bit-equal, K6 and the plain chain held to float64,
+K6's time beside its bound, the plain chain's eager and as a CUDA graph,
+and K6 on one scene.  Each phase
 prints one line; a failing phase raises, so
 the script exits non-zero and prints no result.  The second-to-last
 line is a JSON object describing each kernel; the last line is
@@ -58,6 +63,7 @@ JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import pathlib
@@ -211,13 +217,26 @@ LARGE_F64_ATOL = (1e-3, 1e-4)
 LARGE_RMSE_RATIO = 0.7
 LARGE_E2E_DRAWS = BANDS_FILE.parent / "large_scene_key0.npz"
 # The Thomas factor's least time a super-block of m = 3 x 40 scalars:
-# about 5.7 m^3 float32 operations (the Schur update's two products, the
-# Cholesky, the triangular inverse and the Gram product, the triangular
-# structure taken into account) and 3 m^2 float32 words written (S^-1, W
-# and the coupling block kept for the substitution).  The chain is
-# sequential: reaching this bound would take the parallel work a step
-# does not have.
-THOMAS_OPS_PER_M3 = 5.7
+# 4 m^3 float32 operations (W = I U 2 m^3, the lower half of S = D - U^T W
+# m^3, the Cholesky, the triangular inverse and the lower half of X^T X
+# m^3 / 3 each) and 3 m^2 float32 words written (S^-1, W and the coupling
+# block kept for the substitution).  The chain is sequential: reaching
+# this bound would take the parallel work a step does not have.  The
+# benchmark's roofline (bench_torch/roofline/graph_large.py) counts the
+# plain chain's general products instead, 22/3 m^3.
+THOMAS_OPS_PER_M3 = 4
+# Phase 39: K6 on the graph_large cell's chain, THOMAS_SCENES seeded scenes
+# of LARGE_SIZES[0] (N = 250 super-blocks of M = 120), and the cell's
+# 32-scene solve.  Its bound counts THOMAS_OPS_PER_M3 and 16 M^2 bytes a
+# step and matrix (D and U read, W and S^-1 written).  K6 and the plain
+# chain round differently (sums of depth 120 in other orders, other
+# Cholesky and inverse algorithms), so each is held to the chain in
+# float64: K6's error at most THOMAS_ERR_RATIO x the plain chain's plus
+# THOMAS_ERR_FLOOR of the largest entry
+# (tests/test_torch_slam_thomas_card.py's bound).
+THOMAS_SCENES = 32
+THOMAS_ERR_RATIO = 2.0
+THOMAS_ERR_FLOOR = 1e-6
 # Phase 32: TestLargeSceneEndToEnd's scene (poses, landmarks, radius,
 # odometry noise, window), float32 on the card against float64 on the
 # CPU.  The tridiag runs stop at delta_tol 1e-2 x poses, above the float32
@@ -2358,13 +2377,14 @@ def _large_cfg(n_poses: int, n_landmarks: int, max_gn_iters: int = 10):
 
 
 def _rel_odom(poses):
-    """Odometry deltas of a pose track, the yaw wrapped."""
+    """Odometry deltas of a pose track (``(..., T1, 3)``), the yaw
+    wrapped."""
     import torch
 
     from tpuslam_torch.core import wrap_angle
 
-    rel = poses[1:] - poses[:-1]
-    return torch.cat([rel[:, :2], wrap_angle(rel[:, 2:3])], dim=1)
+    rel = poses[..., 1:, :] - poses[..., :-1, :]
+    return torch.cat([rel[..., :2], wrap_angle(rel[..., 2:3])], dim=-1)
 
 
 def _pos_rmse(poses, truth) -> float:
@@ -2553,6 +2573,40 @@ def _events_ms(call):
     return out, host_ms, start.elapsed_time(end), syncs.count
 
 
+@contextlib.contextmanager
+def _plain_chain():
+    """The Thomas factor on its plain twin, the torch chain, in K6's
+    place: ``tridiag.block_thomas_factor``, which every chain of the
+    solvers reaches, is ``block_thomas_factor_plain`` meanwhile (the
+    plain chain before K6, and the float64 references on the card, which
+    K6 refuses)."""
+    from tpuslam_torch.slam import tridiag
+
+    factor = tridiag.block_thomas_factor
+    tridiag.block_thomas_factor = tridiag.block_thomas_factor_plain
+    try:
+        yield
+    finally:
+        tridiag.block_thomas_factor = factor
+
+
+def _device_ms(fn, reps: int) -> float:
+    """Device milliseconds a call of ``fn`` (CUDA events around ``reps``
+    calls after one warm-up)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def _large_run(dev, smi, n, lms, chunk, radius_frac, main: bool) -> dict:
     """33-34. One of bench_graph_large's sizes: the scene and the host
     edge build timed apart, then the solve: one warm-up and LARGE_REPS
@@ -2629,13 +2683,14 @@ def _large_run(dev, smi, n, lms, chunk, radius_frac, main: bool) -> dict:
     _require(cost < cost0, f"{label}: GN objective {cost} from {cost0}")
     f64_line = ""
     if main:
-        # The same solve in float64 on the card.
+        # The same solve in float64 on the card, on the plain chain.
         obs64 = GraphObservations(*(t.double() for t in obs[:3]), obs.valid)
-        res64 = graph_solve_banded(
-            cfg, po.double(), obs64, el, band=w,
-            rel_odom=_rel_odom(po.double()), odom_info=LARGE_ODOM_INFO,
-            solver="tridiag", stall_ratio=LARGE_STALL,
-            delta_tol=LARGE_TOL_PER_POSE * n)
+        with _plain_chain():
+            res64 = graph_solve_banded(
+                cfg, po.double(), obs64, el, band=w,
+                rel_odom=_rel_odom(po.double()), odom_info=LARGE_ODOM_INFO,
+                solver="tridiag", stall_ratio=LARGE_STALL,
+                delta_tol=LARGE_TOL_PER_POSE * n)
         gap = res.poses.double() - res64.poses
         gap_xy = float(gap[:, :2].abs().max())
         gap_yaw = float(wrap_angle(gap[:, 2]).abs().max())
@@ -2645,6 +2700,15 @@ def _large_run(dev, smi, n, lms, chunk, radius_frac, main: bool) -> dict:
                     f"iterations): max|dxy| {gap_xy:.3e} m, max|dyaw| "
                     f"{gap_yaw:.3e} rad")
     ms = sorted(times)[len(times) // 2]
+    with _plain_chain():
+        plain, _, plain_ms, _ = _events_ms(solve)
+    plain_gap = float((plain.poses - res.poses)[:, :2].abs().max())
+    _require(bool(plain.poses.isfinite().all()),
+             f"{label}: non-finite poses with the plain chain")
+    print(f"{label}: solve with the plain chain in K6's place (before K6) "
+          f"{plain_ms:.3f} ms, {int(plain.gn_iters)} GN iterations (K6's "
+          f"{iters}), max|dxy| to K6's poses {plain_gap:.3e} m; on {smi}",
+          flush=True)
     print(f"{label}: solve {ms:.3f} ms (median of {len(times)}: "
           f"{', '.join(f'{t:.3f}' for t in times)}), {iters} GN iterations, "
           f"delta_sum {float(res.delta_sum):.4e}, host syncs {syncs}, "
@@ -2658,6 +2722,9 @@ def _large_run(dev, smi, n, lms, chunk, radius_frac, main: bool) -> dict:
     h_flat, rhs = _large_system(cfg, po, obs, el, w, rel, LARGE_ODOM_INFO)
     fac, f_host, f_ms, f_syncs = _events_ms(
         lambda: banded_factor_tridiag_flat(h_flat, w, w))
+    with _plain_chain():
+        _, _, f_plain_ms, _ = _events_ms(
+            lambda: banded_factor_tridiag_flat(h_flat, w, w))
 
     def iteration():
         return banded_resolve_tridiag_flat(fac, -rhs(po), w)
@@ -2668,7 +2735,8 @@ def _large_run(dev, smi, n, lms, chunk, radius_frac, main: bool) -> dict:
     m = 3 * w
     bound_ms, bound_by = _bound(steps * 3 * m * m * 4,
                                 steps * THOMAS_OPS_PER_M3 * m ** 3)
-    print(f"{label}: Thomas factor {f_ms:.3f} ms ({steps} super-blocks of "
+    print(f"{label}: Thomas factor {f_ms:.3f} ms (the plain chain's "
+          f"{f_plain_ms:.3f} ms; {steps} super-blocks of "
           f"{m}: {1e3 * f_ms / steps:.2f} us of device and "
           f"{1e3 * f_host / steps:.2f} us of host a step; bound "
           f"{bound_ms:.4f} ms, {bound_by}, for work in parallel that the "
@@ -2770,23 +2838,25 @@ def _solvers_small(dev, small) -> None:
     # The partitioned factor against the sequential one, float64: on 24
     # random blocks of 3 x 40 in 2, 4 and 12 chunks, and on the scene's
     # flat system with each of LARGE_SMALL_PARTS.
+    # Float64 chains on the card run the plain chain.
     d64, u64, rows64 = (t[:24].double() for t in (diag, upper, rows))
     u64 = u64[:23]
-    x_seq = block_thomas_solve(d64, u64, rows64)
     part_gap = 0.0
-    for c in (2, 4, 12):
-        x = block_thomas_substitute_partitioned(
-            block_thomas_factor_partitioned(d64, u64, c), rows64)
-        part_gap = max(part_gap, float((x - x_seq).abs().max())
-                       / float(x_seq.abs().max()))
     h64, b64 = small["h_flat"].double(), small["b_flat"].double()
-    x_seq = banded_resolve_tridiag_flat(
-        banded_factor_tridiag_flat(h64, w, w), b64, w)
-    for c in LARGE_SMALL_PARTS:
-        x = banded_resolve_tridiag_flat(
-            banded_factor_tridiag_flat(h64, w, w, n_parts=c), b64, w)
-        part_gap = max(part_gap, float((x - x_seq).abs().max())
-                       / float(x_seq.abs().max()))
+    with _plain_chain():
+        x_seq = block_thomas_solve(d64, u64, rows64)
+        for c in (2, 4, 12):
+            x = block_thomas_substitute_partitioned(
+                block_thomas_factor_partitioned(d64, u64, c), rows64)
+            part_gap = max(part_gap, float((x - x_seq).abs().max())
+                           / float(x_seq.abs().max()))
+        x_seq = banded_resolve_tridiag_flat(
+            banded_factor_tridiag_flat(h64, w, w), b64, w)
+        for c in LARGE_SMALL_PARTS:
+            x = banded_resolve_tridiag_flat(
+                banded_factor_tridiag_flat(h64, w, w, n_parts=c), b64, w)
+            part_gap = max(part_gap, float((x - x_seq).abs().max())
+                           / float(x_seq.abs().max()))
     _require(part_gap <= LARGE_PART_RTOL,
              f"the partitioned solves part from the sequential: {part_gap}")
     print(f"block_cr_solve against block_thomas_solve, {nb} blocks of {m}, "
@@ -2981,9 +3051,162 @@ def _cholesky_large(dev, smi, system: dict) -> None:
           f"max|x - x_thomas| {gap:.3e}; on {smi}", flush=True)
 
 
-def _large_phases(dev, smi) -> None:
-    """Large-scale graph SLAM's phases, in order (no kernel of its
-    own)."""
+def _thomas_kernel(dev, smi) -> dict:
+    """39. K6 on the graph_large cell: THOMAS_SCENES seeded scenes at
+    LARGE_SIZES[0] solved as the cell solves them (one lockstep
+    ``graph_solve_banded``, the factor-reuse path), twice, with the
+    launches counted from zero: the first call captures the factor's CUDA
+    graph, the second replays it, profiled (K6 its factor's device work,
+    no library Cholesky, one launch for its one factor span, its poses
+    the first call's).  Then the same chain, prescaled and densified as
+    the solve does it: two launches bit-equal, K6 and the plain chain held
+    to the chain in float64; K6's time a launch and a step beside its
+    bound, the plain chain's (eager, and as the CUDA graph the cell
+    replayed before K6: ``library_ms``), and K6 on one scene (eight CTAs a
+    matrix).  Returns its ``kernels`` entry."""
+    import torch
+
+    from tpuslam_torch.ops import _build, thomas_cuda
+    from tpuslam_torch.slam import (EdgeList, GraphObservations,
+                                    graph_solve_banded, make_large_scene,
+                                    window_pairs_device)
+    from tpuslam_torch.slam.tridiag import (_flat_prescale, _flat_to_tridiag,
+                                            block_thomas_factor_plain,
+                                            pad_flat)
+    from tpuslam_torch.utils import profile_window
+
+    n, lms, _, radius_frac = LARGE_SIZES[0]
+    w = LARGE_WINDOW
+    cfg = _large_cfg(n, lms)
+    poses, obs, edges, systems = [], [], [], []
+    for s in range(THOMAS_SCENES):
+        _, po, ob = make_large_scene(
+            cfg, _gen(dev, 100 + s), n, lms, radius=radius_frac * n,
+            odom_noise=LARGE_ODOM_NOISE, device=dev)
+        el, count = window_pairs_device(ob.valid, w, 8 * w * n)
+        systems.append(_large_system(cfg, po, ob, el, w, _rel_odom(po),
+                                     LARGE_ODOM_INFO)[0])
+        poses.append(po)
+        obs.append(ob)
+        edges.append((el, int(count)))
+    e = max(count for _, count in edges)
+    edges = EdgeList(*(torch.stack([f[:e] for f in fields])
+                       for fields in zip(*(el for el, _ in edges))))
+    poses = torch.stack(poses)
+    obs = GraphObservations(*(torch.stack(f) for f in zip(*obs)))
+    rel = _rel_odom(poses)
+    solved = {}
+
+    def solve(key):
+        solved[key] = graph_solve_banded(
+            cfg, poses, obs, edges, band=w, rel_odom=rel,
+            odom_info=LARGE_ODOM_INFO, solver="tridiag",
+            stall_ratio=LARGE_STALL, delta_tol=LARGE_TOL_PER_POSE * n)
+
+    _build.launches.clear()
+    solve("capture")
+    torch.cuda.synchronize()
+    first = _build.launches["thomas_factor"]
+    got = profile_window(lambda: solve("replay"))
+    replayed = _build.launches["thomas_factor"] - first
+    factors = got["spans"].get("tpuslam.graph_large.factor",
+                               {}).get("count", 0)
+    call = (f"the cell's solve ({THOMAS_SCENES} scenes of {n} poses in "
+            f"lockstep, factor reuse)")
+    # The first call runs the factor before its capture and replays it;
+    # the capture itself runs nothing.
+    _require(first == 2 and replayed == factors == 1,
+             f"{call}: K6 launches {first} in the capturing call, "
+             f"{replayed} in the replayed call for {factors} factor spans")
+    kernels = [(name, ms) for name, ms in got["top"]
+               if not name.startswith("aten::")]
+    library = [k for k, _ in kernels if any(
+        lib in k for lib in ("potrf", "batch_trsm", "offsetPointerArray"))]
+    k6_ms = sum(ms for k, ms in kernels if "thomas_factor_kernel" in k)
+    _require(not library and k6_ms > 0,
+             f"{call}: the factor ran {kernels}")
+    a, b = solved["capture"], solved["replay"]
+    _require(torch.equal(a.poses, b.poses)
+             and torch.equal(a.gn_iters, b.gn_iters),
+             f"{call}: the replayed call's poses differ from the first's")
+    launches = first + replayed
+    print(f"{call}: replayed call {got['wall_ms']:.3f} ms, device busy "
+          f"{got['busy_ms']:.3f} ms, of it K6 {k6_ms:.3f} ms; no potrf, "
+          f"batch_trsm or offsetPointerArray kernel; K6 launches counted "
+          f"from zero over the two calls {launches} (the capturing call 2: "
+          f"the run before the capture and the replay; the replayed call "
+          f"{replayed} for its {factors} factor span), GN iterations "
+          f"{sorted(set(b.gn_iters.tolist()))}, poses equal the capturing "
+          f"call's; on "
+          f"{smi}", flush=True)
+    del poses, obs, edges, rel, solved, a, b
+
+    h = torch.stack(systems)
+    del systems
+    h_pad, b_pad = pad_flat(h, h.new_zeros((h.shape[0], 3, h.shape[-1])), w)
+    h_s, _, _ = _flat_prescale(h_pad, b_pad, w)
+    diag, upper = _flat_to_tridiag(h_s, w, w)
+    del h, h_pad, h_s
+    steps, batch, m = diag.shape[0], diag.shape[1], diag.shape[-1]
+    resident = thomas_cuda._plan(dev, m)[2]
+    cluster = thomas_cuda.cluster_size(batch, resident)
+    label = (f"K6 at {steps} x {batch} x {m} ({cluster} CTAs a matrix; "
+             f"resident clusters of 1-8 CTAs {resident})")
+    k6 = thomas_cuda.thomas_factor(diag, upper)
+    again = thomas_cuda.thomas_factor(diag, upper)
+    _require(torch.equal(again[0], k6[0]) and torch.equal(again[1], k6[1]),
+             f"{label}: two launches on equal inputs differ")
+    ref = block_thomas_factor_plain(diag.double(), upper.double())
+    plain = block_thomas_factor_plain(diag, upper)
+    errs = {}
+    for i, name in enumerate(("invs", "ws")):
+        want = getattr(ref, name)
+        scale = float(want.abs().max())
+        e6 = float((k6[i].double() - want).abs().max()) / scale
+        ep = float((getattr(plain, name).double() - want).abs().max()) / scale
+        _require(e6 <= THOMAS_ERR_RATIO * ep + THOMAS_ERR_FLOOR,
+                 f"{label}: {name} {e6:.3e} from float64, the plain chain's "
+                 f"{ep:.3e}")
+        errs[name] = (e6, ep)
+    del ref, plain, again, k6
+
+    ms = _device_ms(lambda: thomas_cuda.thomas_factor(diag, upper), 5)
+    plain_ms = _device_ms(lambda: block_thomas_factor_plain(diag, upper), 2)
+    # The plain chain as the CUDA graph the cell replayed before K6.
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        block_thomas_factor_plain(diag, upper)
+    torch.cuda.current_stream(dev).wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        block_thomas_factor_plain(diag, upper)
+    library_ms = _device_ms(graph.replay, 5)
+    del graph
+    one = (diag[:, 0].contiguous(), upper[:, 0].contiguous())
+    one_ms = _device_ms(lambda: thomas_cuda.thomas_factor(*one), 5)
+    bound_ms, bound_by = _bound(steps * batch * 16 * m * m,
+                                steps * batch * THOMAS_OPS_PER_M3 * m ** 3)
+    print(f"{label}: {ms:.3f} ms a launch ({1e3 * ms / steps:.2f} us a "
+          f"step), bound {bound_ms:.4f} ms ({bound_by}, "
+          f"{100 * bound_ms / ms:.2f}% of it); the plain chain {plain_ms:.3f} "
+          f"ms eager, {library_ms:.3f} ms as a CUDA graph ({library_ms / ms:.1f}"
+          f" x K6); one scene {one_ms:.3f} ms ({1e3 * one_ms / steps:.2f} us "
+          f"a step, {thomas_cuda.cluster_size(1, resident)} CTAs); against "
+          f"float64: " + ", ".join(f"{k} {e6:.3e} (plain {ep:.3e})"
+                                   for k, (e6, ep) in errs.items())
+          + f"; two launches bit-equal; on {smi}", flush=True)
+    return {"name": "thomas_factor", "route": "cuda",
+            "source": "tpuslam_torch/csrc/thomas_factor.cu",
+            "replaces": None, "launches": launches,
+            "max_abs_err": max(e6 for e6, _ in errs.values()), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def _large_phases(dev, smi) -> list:
+    """Large-scale graph SLAM's phases, in order; returns K6's
+    ``kernels`` entry."""
     t0 = time.perf_counter()
     small = _large_small(dev)
     t_new = time.perf_counter()
@@ -3003,8 +3226,13 @@ def _large_phases(dev, smi) -> None:
     t_new = time.perf_counter()
     _cholesky_large(dev, smi, system)
     new_s += time.perf_counter() - t_new
-    print(f"large phases 32-38: {time.perf_counter() - t0:.1f} s, of which "
-          f"the other banded solvers' phases 36-38 {new_s:.1f} s", flush=True)
+    del system
+    t_k6 = time.perf_counter()
+    entry = _thomas_kernel(dev, smi)
+    print(f"large phases 32-39: {time.perf_counter() - t0:.1f} s, of which "
+          f"the other banded solvers' phases 36-38 {new_s:.1f} s and K6's "
+          f"phase 39 {time.perf_counter() - t_k6:.1f} s", flush=True)
+    return [entry]
 
 
 def main() -> int:
@@ -3188,7 +3416,7 @@ def main() -> int:
     pf_entries += _batch_phases(dev, smi)
     pf_entries += _merge_phases(dev, smi, default_fired)
     _graph_phases(dev, smi)
-    _large_phases(dev, smi)
+    pf_entries += _large_phases(dev, smi)
 
     b, n = FLAGSHIP
     bound_ms, bound_by = _bound(80 * b + 20 * n, EKF_OPS_PER_STEP * b * n,

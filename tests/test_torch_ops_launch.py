@@ -209,6 +209,48 @@ def test_launch_guards_only_a_device_that_is_not_current(monkeypatch,
     assert _build.launches == {"pf_step": 1}
 
 
+def test_a_captured_graph_counts_its_launches_at_each_replay(monkeypatch):
+    """The launches made while a CUDA graph is captured ran nowhere: the
+    capture returns them and takes them off the count, and each replay
+    counts them again."""
+    captures = []
+
+    class Graph:
+        replays = 0
+
+        def replay(self):
+            self.replays += 1
+
+    class Capture:
+        def __init__(self, graph, stream):
+            captures.append((graph, stream))
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    def fn(x):
+        _build.launches["thomas_factor"] += 1
+        _build.launches["compact"] += 2
+        return x + 1
+
+    monkeypatch.setattr(_build, "launches",
+                        collections.Counter({"pf_step": 1}))
+    monkeypatch.setattr(torch.cuda, "graph", Capture)
+    graph = Graph()
+    out, held = _build.capture(graph, "stream", fn, 1)
+    assert out == 2 and captures == [(graph, "stream")]
+    assert held == {"thomas_factor": 1, "compact": 2}
+    assert _build.launches == {"pf_step": 1}
+    for _ in range(2):
+        _build.replay(graph, held)
+    assert graph.replays == 2
+    assert _build.launches == {"pf_step": 1, "thomas_factor": 2,
+                               "compact": 4}
+
+
 def _extern_c_entries():
     """Every ``extern "C"`` entry in ``csrc/``: ``{name: [(type, param)]}``."""
     entries = {}
@@ -223,8 +265,9 @@ def _extern_c_entries():
 ENTRIES = _extern_c_entries()
 #: The entries that copy into host memory rather than launch: the device
 #: reads (the two counters that return to 0, the quotients' fallback
-#: counts) and the occupancy queries.
-HOST_ENTRIES = {"tpuslam_pf_step_ticket", "tpuslam_resample_arrivals"} | {
+#: counts) and the occupancy queries (K6's resident clusters among them).
+HOST_ENTRIES = {"tpuslam_pf_step_ticket", "tpuslam_resample_arrivals",
+                "tpuslam_thomas_clusters"} | {
     f"tpuslam_occupancy_{src}" for src in _build.OCCUPANCY_SOURCES} | set(
     _build.DIV_FALLBACK_ENTRIES.values())
 _SCALARS = {"long long": ctypes.c_longlong, "uint32_t": ctypes.c_uint32,

@@ -65,7 +65,10 @@ MODE_OFF, MODE_PHILOX, MODE_NORMALS = 0, 1, 2
 #: ``resample_expand``, ``resample_expand_seg`` (K3b), ``compact``,
 #: ``compact_seg`` (K3c), ``expand_compressed``, ``expand_compressed_seg``
 #: (K3d), ``pf_batch_step`` (K4), ``wide_boundary`` (K5a), ``wide_stats``
-#: (K5b), ``div_by_const`` (the check of K2b's, K4's and K5b's quotients).
+#: (K5b), ``div_by_const`` (the check of K2b's, K4's and K5b's quotients),
+#: ``thomas_factor`` (K6).  A CUDA graph captured by :func:`capture` and
+#: run by :func:`replay` counts the launches it holds at each replay, and
+#: none at its capture.
 launches: collections.Counter = collections.Counter()
 #: The C entries that read, by kernel form, the count of a PF kernel's
 #: warp-passes whose landmark quotients needed the IEEE divide
@@ -140,6 +143,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
                                c_int, c_int, c_int, ptr],
         "tpuslam_div_by_const": [ptr, ptr, ctypes.c_longlong, c_float,
                                  c_float, c_int, ptr],
+        "tpuslam_thomas_factor": [ptr, ptr, ptr, ptr, c_int, c_int, c_int,
+                                  c_int, ptr],
+        "tpuslam_thomas_clusters": [c_int, ctypes.POINTER(c_int)],
     }
     signatures.update({entry: [ctypes.POINTER(ctypes.c_uint)]
                        for entry in DIV_FALLBACK_ENTRIES.values()})
@@ -288,6 +294,28 @@ def launch(form: str, entry: typing.Callable[..., int], index: int | None,
     if rc != 0:
         raise RuntimeError(f"{entry.__name__} launch failed: CUDA error {rc}")
     launches[form] += 1
+
+
+def capture(graph: torch.cuda.CUDAGraph, stream: torch.cuda.Stream,
+            fn: typing.Callable[..., typing.Any], *args):
+    """``fn(*args)`` captured into ``graph`` on ``stream``: ``(output,
+    held)``, ``held`` the kernel launches (a ``Counter`` by form) that the
+    capture recorded.  They ran nowhere, so they come off
+    :data:`launches`; each :func:`replay` of the graph counts them."""
+    global launches
+    before = launches.copy()
+    with torch.cuda.graph(graph, stream=stream):
+        out = fn(*args)
+    held = launches - before
+    launches -= held
+    return out, held
+
+
+def replay(graph: torch.cuda.CUDAGraph, held: collections.Counter) -> None:
+    """Run ``graph`` and count in :data:`launches` the kernel launches it
+    holds (``held``, from :func:`capture`)."""
+    graph.replay()
+    launches.update(held)
 
 
 def read_word(entry: str, device: torch.device | str) -> int:

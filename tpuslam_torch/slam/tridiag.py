@@ -6,13 +6,20 @@ poses (``3S x 3S`` scalars, ``S >= band``), so the whole band fits in a
 diagonal block and one coupling block, and block-Thomas elimination
 solves it in ``T1 / S`` sequential steps of dense ``3S x 3S`` algebra.
 
-The chain runs as eager torch: one Python step a super-block, each a few
-cuBLAS products, a cuSOLVER Cholesky and a triangular solve.  Nothing in
-it reads the device, so the host enqueues the whole chain without a
-synchronisation.  Its arithmetic is the reference's, in the reference's
-order: ``w = inv_prev @ u_prev``, ``s = a - u_prev^T w``, ``0.5 (s +
-s^T)``, Cholesky, the triangular inverse ``li``, ``inv = li^T li``; the
-right-hand sides ride as ``(K, m)`` rows.  :func:`block_thomas_solve` is
+The factor's chain has two forms with one arithmetic, the reference's in
+the reference's order: ``w = inv_prev @ u_prev``, ``s = a - u_prev^T w``,
+``0.5 (s + s^T)``, Cholesky, the triangular inverse ``li``, ``inv = li^T
+li``.  On a CUDA card the chain runs as K6, one hand-written kernel
+launch for the whole chain (``ops/thomas_cuda.py``,
+``csrc/thomas_factor.cu``; float32, super-blocks of at most 128 scalars,
+any other chain refused); elsewhere, the CPU included, as eager torch
+(:func:`block_thomas_factor_plain`, which a card runs only where a caller
+names it, as a float64 reference): one Python step a super-block, each a
+few cuBLAS products, a cuSOLVER Cholesky and a triangular solve.  Neither
+reads the device, so the host
+enqueues the whole chain without a synchronisation.  The substitution is
+eager torch on every device; its right-hand sides ride as ``(K, m)``
+rows.  :func:`block_thomas_solve` is
 :func:`block_thomas_factor` followed by :func:`block_thomas_substitute`,
 so the staged solve equals the one-shot solve bit for bit, as in the
 reference.
@@ -23,15 +30,16 @@ three batched chains of depth ``N / C`` over the chunks and one reduced
 chain of depth ``C`` over their interfaces, each step the same algebra
 batched over ``C``.  The reference's ``inv_impl="blocked"`` (closed-form
 3x3 panels that kept XLA:TPU's Cholesky from serialising over the batch,
-measured slower there) is refused by name; the batched inverse is
-cuSOLVER's batched Cholesky and cuBLAS's batched triangular solve.
+measured slower there) is refused by name; its chains are
+:func:`block_thomas_factor`'s.
 
 A matrix that is not positive definite: JAX's Cholesky returns NaN, and
 ``torch.linalg.cholesky`` would raise, which reads the device.
 ``torch.linalg.cholesky_ex`` does not check; where its ``info`` is not 0
 the factor is set to NaN on the device, so "a NaN factor means the
 prescaled system lost PD-ness" holds here too, with no synchronisation.
-In a batch, only the matrices whose ``info`` is not 0 become NaN.
+In a batch, only the matrices whose ``info`` is not 0 become NaN.  K6
+does the same where a pivot is not positive.
 
 The factor and its substitution take batch axes after the chain axis,
 ``(N, *B, M, M)``: each step is then one batched Cholesky, triangular
@@ -40,9 +48,9 @@ of one.  The flat path (:func:`banded_solve_tridiag_flat` and the
 factor/resolve pair) takes the ``((band+1)*9, T1)`` storage of
 ``large.py``, and the pair a leading scene axis, ``(S, (band+1)*9, T1)``.
 On a CUDA card :func:`factor_resolver` replays a scene-axis factor and
-its resolves as CUDA graphs: the chain is 250 steps of about 35 launches
-at BASELINE config 5's size, which the host otherwise issues one by one,
-slower than the card runs them.  The JAX
+its resolves as CUDA graphs: a resolve is 500 steps of a few launches at
+BASELINE config 5's size, which the host otherwise issues one by one,
+slower than the card runs them; the factor is then one K6 node.  The JAX
 package builds its dense super-blocks with one-hot matmuls and its row
 interleave with one-hot einsums, which exist only to keep TPU layouts
 unpadded; here both are index gathers and reshapes, which place the same
@@ -54,10 +62,12 @@ from __future__ import annotations
 import collections
 import functools
 import typing
+import weakref
 
 import torch
 
 from tpuslam_torch.core.precision import highest_matmul_precision
+from tpuslam_torch.ops import _build, thomas_cuda
 
 
 def band_to_tridiag(h_band, super_size: int):
@@ -131,7 +141,6 @@ class ThomasFactor(typing.NamedTuple):
     up: torch.Tensor  # (N, M, M)
 
 
-@highest_matmul_precision
 def block_thomas_factor(diag, upper) -> ThomasFactor:
     """Factor the symmetric block-tridiagonal system once (the
     rhs-independent half of :func:`block_thomas_solve`: the
@@ -141,10 +150,37 @@ def block_thomas_factor(diag, upper) -> ThomasFactor:
     chain axis first, then any batch axes, each step batched over them.
     ``block_thomas_substitute(block_thomas_factor(d, u), b)`` is
     :func:`block_thomas_solve`, bit for bit.
+
+    On a CUDA card the chain is K6, one launch for the whole chain
+    (:func:`~tpuslam_torch.ops.thomas_cuda.thomas_factor`), which takes a
+    float32 chain whose super-blocks fit it
+    (:func:`~tpuslam_torch.ops.thomas_cuda.fits`) and raises
+    ``ValueError`` for any other; elsewhere, the CPU included, the torch
+    chain, :func:`block_thomas_factor_plain`, which a float64 reference on
+    a card names itself.
     """
+    if diag.device.type == "cuda":
+        invs, ws = thomas_cuda.thomas_factor(diag.contiguous(),
+                                             upper.contiguous())
+        return ThomasFactor(invs=invs, ws=ws, up=_zero_extended(upper))
+    return block_thomas_factor_plain(diag, upper)
+
+
+def _zero_extended(upper):
+    """``upper`` with a zero block after its last: ``(N, *B, M, M)``."""
+    return torch.cat([upper, upper.new_zeros((1, *upper.shape[1:]))], dim=0)
+
+
+@highest_matmul_precision
+def block_thomas_factor_plain(diag, upper) -> ThomasFactor:
+    """:func:`block_thomas_factor` as the torch chain, K6's plain twin:
+    one Python step a super-block, ``w = inv_prev @ u_prev``, ``s = a -
+    u_prev^T w``, ``0.5 (s + s^T)``, :func:`cholesky_nan`, the triangular
+    inverse ``li`` and ``inv = li^T li``, each batched over the batch
+    axes."""
     n, m = diag.shape[0], diag.shape[-1]
     batch = diag.shape[1:-2]
-    up = torch.cat([upper, diag.new_zeros((1, *batch, m, m))], dim=0)
+    up = _zero_extended(upper)
     eye = torch.eye(m, dtype=diag.dtype, device=diag.device)
     invs = torch.empty_like(diag)
     ws = torch.empty_like(diag)
@@ -569,21 +605,27 @@ _GRAPHS_KEPT = 2
 
 class _Graphs(typing.NamedTuple):
     """One shape's captured factor and resolve, with their static
-    arguments and outputs; ``owner`` is the resolver whose factor the
-    outputs hold."""
+    arguments and outputs and the kernel launches each replay runs;
+    ``owner`` holds a weak reference to the resolver whose factor the
+    outputs hold (a strong one would make a reference cycle, and the
+    cyclic collector may then free a dropped shape's graphs in the middle
+    of another capture, which CUDA refuses)."""
 
     h_in: torch.Tensor
     factor: torch.cuda.CUDAGraph
+    factor_launches: collections.Counter
     b_in: torch.Tensor
     resolve: torch.cuda.CUDAGraph
+    resolve_launches: collections.Counter
     x_out: torch.Tensor
     owner: list
 
 
 def _captured(fn, arg):
-    """``(graph, output)``: a CUDA graph of ``fn(arg)``, captured after
-    one run on the capture's own stream (which sets up cuBLAS and cuSOLVER
-    there)."""
+    """``(graph, output, launches)``: a CUDA graph of ``fn(arg)``, captured
+    after one run on the capture's own stream (which sets up cuBLAS and
+    cuSOLVER there), and the port's kernel launches it holds
+    (``_build.capture``)."""
     dev = arg.device
     stream = torch.cuda.Stream(dev)
     stream.wait_stream(torch.cuda.current_stream(dev))
@@ -591,9 +633,8 @@ def _captured(fn, arg):
         fn(arg)
     torch.cuda.current_stream(dev).wait_stream(stream)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=stream):
-        out = fn(arg)
-    return graph, out
+    out, held = _build.capture(graph, stream, fn, arg)
+    return graph, out, held
 
 
 def factor_resolver(h_flat, band: int, super_size: int,
@@ -615,28 +656,29 @@ def factor_resolver(h_flat, band: int, super_size: int,
     g = _GRAPHS.pop(key, None)
     if g is None:
         h_in = h_flat.clone()
-        factor, fac = _captured(functools.partial(
+        factor, fac, f_held = _captured(functools.partial(
             banded_factor_tridiag_flat, band=band, super_size=super_size),
             h_in)
         b_in = h_flat.new_zeros((h_flat.shape[0], 3, h_flat.shape[-1]))
-        resolve, x_out = _captured(functools.partial(
+        resolve, x_out, r_held = _captured(functools.partial(
             banded_resolve_tridiag_flat, fac, super_size=super_size), b_in)
-        g = _Graphs(h_in, factor, b_in, resolve, x_out, [None])
+        g = _Graphs(h_in, factor, f_held, b_in, resolve, r_held, x_out,
+                    [None])
     _GRAPHS[key] = g
     while len(_GRAPHS) > _GRAPHS_KEPT:
         _GRAPHS.popitem(last=False)
     g.h_in.copy_(h_flat)
-    g.factor.replay()
+    _build.replay(g.factor, g.factor_launches)
 
     def resolve(b_flat):
-        if g.owner[0] is not resolve:
+        if g.owner[0]() is not resolve:
             raise RuntimeError("a later factor of this shape has replaced "
                                "this resolver's")
         g.b_in.copy_(b_flat)
-        g.resolve.replay()
+        _build.replay(g.resolve, g.resolve_launches)
         return g.x_out.clone()
 
-    g.owner[0] = resolve
+    g.owner[0] = weakref.ref(resolve)
     return resolve
 
 
