@@ -1321,8 +1321,10 @@ def _wide_stats_parity(dev):
     Philox; on the natural gate also noise off and the unfused form.
     Poses and log weights at the step tolerances, the filter's lse and
     lse2 at rtol 1e-5 (their sums are taken in another order), the MAP
-    the kernel's own highest-index maximum.  Returns the largest
-    difference."""
+    the kernel's own highest-index maximum, and the next step's gate that
+    the kernel writes (the rollout's only gate after its first step)
+    ``_gate`` of the kernel's lse and lse2 bit for bit, its bad flags the
+    twin's.  Returns the largest difference."""
     import torch
 
     from tpuslam_torch.ops import pf_batch_cuda as pb
@@ -1364,12 +1366,20 @@ def _wide_stats_parity(dev):
                          f"K5b {label}: lse/lse2")
                 _map_agrees(kern[0], kern[1], kern[4], plain[1],
                             f"K5b {label}")
+                want = pb._gate(cfg, kern[2], kern[3])
+                _require(torch.equal(kern[5][0], want[0])
+                         and torch.equal(kern[5][2], want[2])
+                         and torch.equal(kern[5][1].view(torch.int32),
+                                         want[1].view(torch.int32))
+                         and torch.equal(kern[5][0], plain[5][0]),
+                         f"K5b {label}: the next step's gate")
                 worst = max(worst, pose, lw_gap)
                 lines.append(f"{gate} {form} poses {pose:.3e}, log weights "
                              f"{lw_gap:.3e}")
         torch.cuda.synchronize()
-        print(f"wide stats (K5b) parity at {b:,}x{n:,}, lse/lse2 and MAP "
-              f"written by the kernel: " + "; ".join(lines)
+        print(f"wide stats (K5b) parity at {b:,}x{n:,}, lse/lse2, MAP "
+              f"and the next step's gate (bit-equal to torch's of those "
+              f"normalizers) written by the kernel: " + "; ".join(lines)
               + " (atol 1e-4 poses, 1e-4 + 1e-5|lw|)", flush=True)
     return worst
 
@@ -1601,7 +1611,7 @@ def _batch_kernel_times(dev, smi, finals, launches, errs) -> list:
          "tpuslam/ops/pf_batch_pallas.py:876",
          lambda: pb.wide_stats_rows(*k5b_args),
          lambda: pb.wide_stats_rows_plain(*k5b_args), None,
-         _bound(28 * b_w * n_w + 4 * (b_w - n_fire) * n_w + 66 * b_w,
+         _bound(28 * b_w * n_w + 4 * (b_w - n_fire) * n_w + 72 * b_w,
                 PF_STEP_OPS * b_w * n_w),
          errs["wide_stats"], f"{b_w:,}x{n_w:,}, {n_fire} firing"),
     ]

@@ -94,7 +94,8 @@ def plan_and_parent(kernel, cfg, n_steps):
             n=n, n_lm=n_lm, neg_log_n=-math.log(float(n)),
             ess_min=n * cfg.ess_threshold_frac, key0=0, key1=0, **c)
     return pb._wide_plan(cfg, CPU), pb._WideParams(
-        n=n, b=0, n_lm=n_lm, key0=0, key1=0, **c)
+        n=n, b=0, n_lm=n_lm, key0=0, key1=0,
+        ess_min=n * cfg.ess_threshold_frac, **c)
 
 
 def _launch_pf(kernel, cfg, seed, batch=3, flag=0.0):

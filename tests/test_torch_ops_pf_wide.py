@@ -310,7 +310,7 @@ def test_stats_twin_matches_float64(case):
         log_w[2] = float("-inf")
     z = torch.randn((b, N_LM, 2), generator=g)
     off = torch.zeros(b, dtype=torch.bool)
-    p, lw, lse, lse2, x_est = pb.wide_stats_rows_plain(
+    p, lw, lse, lse2, x_est, _ = pb.wide_stats_rows_plain(
         cfg, 0, particles, log_w, z, off, off, noise_on=False)
     want_lse, want_lse2, want_est = _stats64(p, lw)
     np.testing.assert_allclose(lse.numpy(), want_lse, rtol=1e-6)
@@ -440,9 +440,10 @@ def test_structs_mirror_cuda_source():
         body = re.sub(r"//[^\n]*", "", body)
         names = re.findall(r"(\w+)\s*(?:\[[^\]]*\])?\s*[,;]", body)
         assert names == [f[0] for f in mirror._fields_], name
-    assert ctypes.sizeof(pb._WideParams) == 5 * 4 + 10 * 4 + 16 * 4
-    assert {"inv_sx", "inv_sy"} <= {f[0] for f in pb._WideParams._fields_}
-    assert ctypes.sizeof(pb._WideBuffers) == 13 * 8
+    assert ctypes.sizeof(pb._WideParams) == 5 * 4 + 11 * 4 + 16 * 4
+    assert {"inv_sx", "inv_sy", "ess_min"} <= {
+        f[0] for f in pb._WideParams._fields_}
+    assert ctypes.sizeof(pb._WideBuffers) == 16 * 8
     # A filter is one block, within the card's 1024 threads a block; K5a's
     # row-sum order is set by its threads a block.
     assert int(re.search(r"kStatsThreads = (\d+)", src).group(1)) <= 1024

@@ -1,7 +1,8 @@
 """The PF kernels' landmark quotients on a CUDA card: the compiled law
 against the IEEE quotient on every float32, and the count of the passes
 that needed the IEEE divide, on the batched filter's traffic and on
-rare inputs.
+rare inputs; the wide loop's spans and launches a step, and the ESS gate
+K5b writes for the next step.
 
 Every test needs a card and skips without one (the kernels have no CPU
 mode); on a card run them with
@@ -132,3 +133,82 @@ def test_no_fallback_on_the_batched_cells_traffic(dev):
     torch.cuda.synchronize(dev)
     assert _build.launches["pf_batch_step"] - launches == 50
     assert _build.div_fallbacks(dev) == before
+
+
+#: The launch forms of a wide step by its pass B.
+WIDE_FORMS = {"windowed": ("wide_boundary", "resample_expand_seg",
+                           "wide_stats"),
+              "compressed": ("wide_boundary", "compact_seg",
+                             "expand_compressed_seg", "wide_stats")}
+
+
+@pytest.mark.parametrize("pass2", sorted(WIDE_FORMS))
+def test_wide_rollout_spans_and_launches(dev, pass2):
+    """A 30-step ``pf_batch_wide_rollout`` at 64 x 10,000 under the
+    profiler records one ``tpuslam.pf_wide.rollout`` and ``.prepare``, 30
+    ``.step`` and 30 ``.resample`` spans, and launches each kernel form
+    of its pass B once a step and no form of the other."""
+    from tpuslam_torch.utils.profiling import span_totals
+
+    cfg = PfConfig(num_particles=10000, weight_mode="log",
+                   ess_threshold_frac=0.01)
+    forms = set(WIDE_FORMS["windowed"] + WIDE_FORMS["compressed"])
+    before = {f: _build.launches[f] for f in forms}
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        pb.pf_batch_wide_rollout(
+            cfg, torch.Generator(device=dev).manual_seed(11), 64, 30,
+            device=dev, pass2=pass2)
+        torch.cuda.synchronize(dev)
+    counts = {name: row["count"] for name, row in
+              span_totals(prof.events()).items()
+              if name.startswith("tpuslam.pf_wide.")}
+    assert counts == {"tpuslam.pf_wide.rollout": 1,
+                      "tpuslam.pf_wide.prepare": 1,
+                      "tpuslam.pf_wide.step": 30,
+                      "tpuslam.pf_wide.resample": 30}
+    assert {f: _build.launches[f] - before[f] for f in forms} == {
+        f: 30 if f in WIDE_FORMS[pass2] else 0 for f in forms}
+
+
+def test_k5b_writes_the_torch_gate_of_its_normalizers(dev):
+    """K5b's next-step ESS gate is ``_gate`` of the ``lse``, ``lse2`` it
+    writes, bit for bit, on a cloud 30 steps into a 1024 x 10,000 rollout
+    with two filters' log weights made NaN and -inf (their gate is bad);
+    and a 30-step rollout, which carries K5b's gates, equals its steps
+    taken with torch's gate of each state."""
+    cfg = PfConfig(num_particles=10000, weight_mode="log",
+                   ess_threshold_frac=0.01)
+    b, steps = 1024, 30
+    g = torch.Generator(device=dev).manual_seed(7)
+    f32 = dict(dtype=torch.float32, device=dev)
+    noise = 0.3 * torch.randn((steps, b, 5, 2), generator=g, **f32)
+    offs = torch.rand((steps, b), generator=g, **f32)
+    final, outs = pb.pf_batch_wide_rollout(cfg, None, b, steps, device=dev,
+                                           obs_noise=noise, offs=offs)
+    state = pb.pf_batch_wide_init(cfg, b, device=dev)
+    x_tbl, z_clean = pb._truth_tables(cfg, state, steps, True)
+    seed = pb.SEED0
+    for k in range(steps):
+        z = (z_clean[k] + noise[k]).contiguous()
+        state, out, _ = pb._wide_step_core(
+            cfg, state, x_tbl[k], z, seed, offs[k], True, None, "windowed",
+            pb._gate(cfg, state.lse, state.lse2))
+        for got, want in zip(out[1:], (outs.x_est[k], outs.ess[k],
+                                       outs.lse[k], outs.resampled[k],
+                                       outs.bad[k])):
+            assert torch.equal(got, want), k
+        seed += pb.wide_seed_step(cfg, b)
+    assert bool(outs.resampled.any())
+    lw = final.log_w.clone()
+    lw[3] = math.nan
+    lw[5] = -math.inf
+    bad, _, fire = pb._gate(cfg, final.lse, final.lse2)
+    *_, lse, lse2, _, gate = pb.wide_stats_rows(
+        cfg, 99, final.particles, lw, z, bad, fire)
+    want = pb._gate(cfg, lse, lse2)
+    assert torch.equal(gate[0], want[0]) and torch.equal(gate[2], want[2])
+    assert torch.equal(gate[1].view(torch.int32), want[1].view(torch.int32))
+    assert bool(gate[0][3]) and bool(gate[0][5])
+    assert int(gate[0].sum()) == 2

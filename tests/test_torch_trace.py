@@ -3,12 +3,15 @@ a profiler records, named ``tpuslam.<layer>.<part>``, nested by call
 structure, and leaving every output as it is.  CPU only: the plain paths
 run the same loops and spans as the card's."""
 
+import collections
+
 import pytest
 import torch
 
 from tpuslam_torch.filters.ekf import EkfConfig
 from tpuslam_torch.filters.pf import PfConfig
-from tpuslam_torch.ops import _build, ekf_cuda, pf_batch_cuda, pf_cuda
+from tpuslam_torch.ops import (_build, ekf_cuda, pf_batch_cuda, pf_cuda,
+                               resample_cuda)
 from tpuslam_torch.slam import large
 from tpuslam_torch.slam.graph import GraphConfig
 from tpuslam_torch.utils import profiling
@@ -55,6 +58,14 @@ def _pf_batch():
     cfg = PfConfig(num_particles=32, weight_mode="log")
     return pf_batch_cuda.pf_batch_rollout(
         cfg, torch.Generator().manual_seed(3), 4, STEPS, device="cpu")
+
+
+def _pf_wide(pass2="windowed"):
+    cfg = PfConfig(num_particles=40, weight_mode="log",
+                   ess_threshold_frac=0.5)
+    return pf_batch_cuda.pf_batch_wide_rollout(
+        cfg, torch.Generator().manual_seed(4), 3, STEPS, device="cpu",
+        pass2=pass2)
 
 
 def _pf_fused(method="merge"):
@@ -145,6 +156,54 @@ def test_pf_batch_rollout_spans():
     _check_loop(events, "pf_batch", STEPS)
 
 
+@pytest.mark.parametrize("pass2", ["windowed", "compressed"])
+def test_pf_wide_rollout_spans(pass2):
+    """One rollout, one prepare, a step a step, and in each step one
+    resample span (K5a and the segmented expand) inside it."""
+    _, events = _profiled(lambda: _pf_wide(pass2))
+    steps = _check_loop(events, "pf_wide", STEPS)
+    resample = _named(events, "tpuslam.pf_wide.resample")
+    assert len(resample) == STEPS
+    for e, step in zip(resample, steps):
+        assert _ancestors(e)[:2] == ["tpuslam.pf_wide.step",
+                                     "tpuslam.pf_wide.rollout"]
+        assert step.time_range.start <= e.time_range.start
+        assert e.time_range.end <= step.time_range.end
+
+
+#: The wide step's kernel wrappers by module, each one ``_build.launch``
+#: of the form named beside it on a card (``tests/test_torch_pf_card.py``
+#: counts those launches there).
+WIDE_WRAPPERS = {
+    "windowed": [(pf_batch_cuda, "wide_boundary", "wide_boundary"),
+                 (resample_cuda, "resample_expand_seg",
+                  "resample_expand_seg"),
+                 (pf_batch_cuda, "wide_stats_rows", "wide_stats")],
+    "compressed": [(pf_batch_cuda, "wide_boundary", "wide_boundary"),
+                   (resample_cuda, "compact_particles_seg", "compact_seg"),
+                   (resample_cuda, "expand_compressed_seg",
+                    "expand_compressed_seg"),
+                   (pf_batch_cuda, "wide_stats_rows", "wide_stats")]}
+
+
+@pytest.mark.parametrize("pass2", ["windowed", "compressed"])
+def test_pf_wide_step_is_one_launch_of_each_form(pass2, monkeypatch):
+    """Each wide step calls each of its kernels' wrappers once, the
+    resample's inside ``tpuslam.pf_wide.resample``: ``STEPS`` launches of
+    each form a rollout, and none of the other pass B's."""
+    calls = collections.Counter()
+    for module, name, form in set(WIDE_WRAPPERS["windowed"]
+                                  + WIDE_WRAPPERS["compressed"]):
+        real = getattr(module, name)
+
+        def counted(*args, _real=real, _form=form, **kw):
+            calls[_form] += 1
+            return _real(*args, **kw)
+        monkeypatch.setattr(module, name, counted)
+    _pf_wide(pass2)
+    assert calls == {form: STEPS for _, _, form in WIDE_WRAPPERS[pass2]}
+
+
 @pytest.mark.parametrize("method", ["merge", "search"])
 def test_pf_fused_rollout_spans(method):
     _, events = _profiled(lambda: _pf_fused(method))
@@ -155,8 +214,10 @@ def test_pf_fused_rollout_spans(method):
         assert _ancestors(e)[:2] == ["tpuslam.pf.step", "tpuslam.pf.rollout"]
 
 
-@pytest.mark.parametrize("run", [_ekf, _pf_batch, _pf_fused, _graph_large],
-                         ids=["ekf", "pf_batch", "pf_fused", "graph_large"])
+@pytest.mark.parametrize("run", [_ekf, _pf_batch, _pf_fused, _graph_large,
+                                 _pf_wide],
+                         ids=["ekf", "pf_batch", "pf_fused", "graph_large",
+                              "pf_wide"])
 def test_outputs_equal_with_the_profiler_on_and_off(run):
     off = _flat(run())
     on, events = _profiled(run)

@@ -12,7 +12,9 @@
 // in the JAX package's wide benchmark).  Layouts: particles (3, B, n) rows
 // x, y, yaw with filter f's particles contiguous, log weights (B, n), no
 // padding lanes.  A step (ops/pf_batch_cuda.py::pf_batch_wide_step) is:
-//   torch:  the ESS gate from the carried (B,) normalizers: (B,) ops only.
+//   gate:   the ESS gate of the carried (B,) normalizers, which the step
+//           before wrote beside them (K5b, below); the rollout's first
+//           step takes it from torch's (B,) ops.
 //   K5a:    one block a filter.  Every block counts the firing filters
 //           before it (its slot) and in all, and writes the slot
 //           compaction: src[f] (filter -> slot), fids[s] (slot -> filter)
@@ -29,7 +31,12 @@
 //           src[f] and the log weights restart at 0 (the JAX fused form);
 //           where bad & !fire they reset to 0; then predict, the landmark
 //           log-likelihood and the filter's lse, lse2 and MAP particle,
-//           written by the kernel itself.
+//           written by the kernel itself, and the ESS gate that the
+//           next step reads from them (bad = !(isfinite(lse) &&
+//           isfinite(lse2)), ess = bad ? n : expf(2 lse - lse2), fire =
+//           !bad && ess < ess_min, the threshold rounded to float32: the
+//           law of ops/pf_batch_cuda.py::_gate and of resample.cu's
+//           ess_gate, bit for bit), so no torch op runs between steps.
 // Every launch happens every step, whatever the gate says: no host
 // decision, no host sync.
 //
@@ -138,6 +145,7 @@ struct WideParams {
   float sx, sy;        // r_std
   float inv_sx, inv_sy;  // 1 / sx, 1 / sy in float32, correctly rounded
   float log_norm;      // log(2 pi sx sy) (folded in double)
+  float ess_min;       // the gate's threshold n * ess_frac in float32
   float lm[2 * kMaxLandmarks];  // landmark (x, y) pairs
 };
 
@@ -157,6 +165,9 @@ struct WideBuffers {
   float* lse_out;               // (B,) logsumexp(lw')
   float* lse2_out;              // (B,) logsumexp(2 lw')
   float* est_out;               // (B, 3) MAP particle
+  unsigned char* gate_bad;      // (B,) bool: the next step's gate
+  float* gate_ess;              // (B,) its ESS (n where bad)
+  unsigned char* gate_fire;     // (B,) bool
 };
 
 // w_j of four lanes from j on: expf(lw - lse) on the lanes before n, 0
@@ -391,11 +402,19 @@ wide_stats_kernel(const __grid_constant__ WideBuffers buf,
     // The row's sums are taken at stat_shift(max), which is the max
     // wherever the max is finite.
     const float m = s_row[0];
-    buf.lse_out[f] = m + logf(s_row[1]);
-    buf.lse2_out[f] = 2.0f * m + logf(s_row[2]);
+    const float lse = m + logf(s_row[1]);
+    const float lse2 = 2.0f * m + logf(s_row[2]);
+    buf.lse_out[f] = lse;
+    buf.lse2_out[f] = lse2;
     buf.est_out[3 * f] = s_row[3];
     buf.est_out[3 * f + 1] = s_row[4];
     buf.est_out[3 * f + 2] = s_row[5];
+    const bool bad = !(isfinite(lse) && isfinite(lse2));
+    const float ess = bad ? static_cast<float>(n)
+                          : expf(__fsub_rn(__fmul_rn(2.0f, lse), lse2));
+    buf.gate_bad[f] = bad;
+    buf.gate_ess[f] = ess;
+    buf.gate_fire[f] = !bad && ess < prm.ess_min;
   }
 }
 

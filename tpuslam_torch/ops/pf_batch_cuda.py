@@ -12,14 +12,17 @@ reference's scale advance in lockstep, the Monte-Carlo sweep shape.
   filter's new normalizers and MAP particle.  Up to 8192 particles a
   filter.
 * **Wide** (:func:`pf_batch_wide_rollout`): filters of any size up to
-  ``2**24`` particles.  A step is the gate in torch (``(B,)`` ops only),
-  then K5a (the slot compaction of the firing filters, their quantized
-  weights, prefixes and boundaries, one block a filter,
-  ``csrc/pf_wide.cu``), the segmented K3b (the copies,
+  ``2**24`` particles.  A step is the ESS gate of the carried
+  normalizers (which K5b of the step before writes beside them; the
+  first step's, and a lone :func:`pf_batch_wide_step`'s, in torch,
+  ``(B,)`` ops only), then K5a (the slot compaction of the firing
+  filters, their quantized weights, prefixes and boundaries, one block a
+  filter, ``csrc/pf_wide.cu``), the segmented K3b (the copies,
   ``csrc/resample.cu``) and K5b (predict, weight and each filter's
   normalizers and MAP particle, reduced inside the kernel: one
-  1024-thread block a filter; ``csrc/pf_wide.cu``).  With ``pass2="compressed"`` the
-  segmented K3c and K3d take the segmented K3b's place, bit for bit.
+  1024-thread block a filter; ``csrc/pf_wide.cu``).  With
+  ``pass2="compressed"`` the segmented K3c and K3d take the segmented
+  K3b's place, bit for bit.
 
 Layouts: particles ``(3, B, n)`` rows x, y, yaw (filter f's particles
 contiguous), log weights ``(B, n)``, per-filter normalizers ``(B,)``; the
@@ -52,7 +55,14 @@ Spans (:func:`~tpuslam_torch.utils.profiling.span`, recorded only while a
 profiler records): :func:`pf_batch_rollout` records
 ``tpuslam.pf_batch.rollout`` around the call, ``tpuslam.pf_batch.prepare``
 from its start to the step loop and ``tpuslam.pf_batch.step`` around each
-step, one K4 launch.
+step, one K4 launch.  :func:`pf_batch_wide_rollout` records
+``tpuslam.pf_wide.rollout``, ``.prepare`` and ``.step`` in the same way;
+inside each step, ``tpuslam.pf_wide.resample`` holds K5a and the
+segmented expand (or the segmented K3c and K3d under
+``pass2="compressed"``), after the gate and before K5b.  A wide step is
+one launch of each form it uses (``_build.launches``: ``wide_boundary``,
+``resample_expand_seg`` or ``compact_seg`` and ``expand_compressed_seg``,
+``wide_stats``).
 
 Host synchronisation: none a step.  The gate, the slot compaction and the
 kernels' arguments stay on the device, and no wrapper reads a device
@@ -120,7 +130,8 @@ class _WideParams(ctypes.Structure):
 
     _fields_ = [("n", ctypes.c_int), ("b", ctypes.c_int),
                 ("n_lm", ctypes.c_int), ("key0", ctypes.c_uint32),
-                ("key1", ctypes.c_uint32)] + _F32 + _LM
+                ("key1", ctypes.c_uint32)] + _F32 + [
+        ("ess_min", ctypes.c_float)] + _LM
 
 
 class _WideBuffers(ctypes.Structure):
@@ -128,7 +139,8 @@ class _WideBuffers(ctypes.Structure):
 
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "p_in", "lw_in", "z", "normals", "bad", "fire", "src", "expanded",
-        "p_out", "lw_out", "lse_out", "lse2_out", "est_out")]
+        "p_out", "lw_out", "lse_out", "lse2_out", "est_out", "gate_bad",
+        "gate_ess", "gate_fire")]
 
 
 class PfBatchState(typing.NamedTuple):
@@ -785,7 +797,8 @@ def wide_stats_rows_plain(cfg: PfConfig, seed: int, particles: torch.Tensor,
                                      particles[2], mode, normals, int(seed))
     p_new = torch.stack([x, y, yaw])
     lw = lw0 + acc
-    return (p_new, lw) + _map_plain(p_new, lw)
+    out = (p_new, lw) + _map_plain(p_new, lw)
+    return out + (_gate(cfg, out[2], out[3]),)
 
 
 def wide_stats_rows(cfg: PfConfig, seed: int, particles: torch.Tensor,
@@ -803,11 +816,14 @@ def wide_stats_rows(cfg: PfConfig, seed: int, particles: torch.Tensor,
     does not fire restarts at 0 in either form.
 
     Returns:
-        ``(particles', log_w', lse, lse2, x_est)``: ``lse`` and ``lse2``
-        the ``(B,)`` logsumexp of ``log_w'`` and of twice it, ``x_est``
-        the ``(B, 3)`` MAP particle (the highest index among the maxima; a
-        NaN log weight never wins).  A CPU tensor runs
-        :func:`wide_stats_rows_plain`.
+        ``(particles', log_w', lse, lse2, x_est, gate)``: ``lse`` and
+        ``lse2`` the ``(B,)`` logsumexp of ``log_w'`` and of twice it,
+        ``x_est`` the ``(B, 3)`` MAP particle (the highest index among the
+        maxima; a NaN log weight never wins), ``gate`` the next step's ESS
+        gate ``(bad, ess, fire)`` of those normalizers, as :func:`_gate`
+        computes it, bit for bit: the kernel writes it from the values it
+        writes ``lse`` and ``lse2`` from, so the next step needs no torch
+        op.  A CPU tensor runs :func:`wide_stats_rows_plain`.
     """
     device = log_w.device
     if device.type == "cpu":
@@ -823,11 +839,13 @@ def wide_stats_rows(cfg: PfConfig, seed: int, particles: torch.Tensor,
 
 def _wide_plan(cfg: PfConfig, device: torch.device) -> _build.Plan:
     """K5b's launch plan for ``(cfg, device)``, built at its first launch:
-    the parameters from ``pf_cuda._constants``, their key and batch left 0
-    for the entry to set."""
+    the parameters from ``pf_cuda._constants`` and the gate's threshold,
+    their key and batch left 0 for the entry to set."""
+    n = cfg.num_particles
     return _build.plan(
         ("wide_stats", cfg, device), device, "tpuslam_wide_stats",
-        lambda: _WideParams(n=cfg.num_particles, n_lm=len(cfg.landmarks),
+        lambda: _WideParams(n=n, n_lm=len(cfg.landmarks),
+                            ess_min=n * cfg.ess_threshold_frac,
                             **_constants(cfg)))
 
 
@@ -846,32 +864,40 @@ def _launch_wide_stats(cfg: PfConfig, seed: int, particles: torch.Tensor,
     f32 = dict(dtype=torch.float32, device=device)
     lse, lse2 = torch.empty(b, **f32), torch.empty(b, **f32)
     x_est = torch.empty((b, 3), **f32)
+    gate = (torch.empty(b, dtype=torch.bool, device=device),
+            torch.empty(b, **f32),
+            torch.empty(b, dtype=torch.bool, device=device))
     ptr = _build.ptr
     bufs = _WideBuffers(
         p_in=particles.data_ptr(), lw_in=log_w.data_ptr(), z=z.data_ptr(),
         normals=ptr(normals), bad=bad.data_ptr(), fire=fire.data_ptr(),
         src=ptr(src), expanded=ptr(expanded), p_out=p_out.data_ptr(),
         lw_out=lw_out.data_ptr(), lse_out=lse.data_ptr(),
-        lse2_out=lse2.data_ptr(), est_out=x_est.data_ptr())
+        lse2_out=lse2.data_ptr(), est_out=x_est.data_ptr(),
+        gate_bad=gate[0].data_ptr(), gate_ess=gate[1].data_ptr(),
+        gate_fire=gate[2].data_ptr())
     _build.launch("wide_stats", plan.entry, plan.index,
                   ctypes.addressof(bufs), plan.params_ptr,
                   *_build.seed_words(seed), b, mode,
                   int(expanded is not None))
-    return p_out, lw_out, lse, lse2, x_est
+    return p_out, lw_out, lse, lse2, x_est, gate
 
 
 def _wide_step_core(cfg, state, x_true, z, seed, offs, noise_on, normals,
-                    pass2):
-    """One wide step from the step's truth and observation."""
-    bad, ess, fire = _gate(cfg, state.lse, state.lse2)
-    slots = wide_boundary(state.log_w, state.lse, fire, offs)
-    expanded = resample_cuda.expand_seg(state.particles, slots.t_hi,
-                                        slots.fids, slots.valid, pass2)
-    p, lw, lse, lse2, x_est = wide_stats_rows(
+                    pass2, gate):
+    """One wide step from the step's truth and observation, on ``gate``,
+    ``(bad, ess, fire)`` of the state's normalizers.  Returns
+    ``(next_state, out, next_gate)``."""
+    bad, ess, fire = gate
+    with span("tpuslam.pf_wide.resample"):
+        slots = wide_boundary(state.log_w, state.lse, fire, offs)
+        expanded = resample_cuda.expand_seg(state.particles, slots.t_hi,
+                                            slots.fids, slots.valid, pass2)
+    p, lw, lse, lse2, x_est, next_gate = wide_stats_rows(
         cfg, seed, state.particles, state.log_w, z, bad, fire, slots.src,
         expanded, noise_on, normals)
     return (PfBatchWideState(x_true, p, lw, lse, lse2, x_est),
-            PfBatchOut(x_true, x_est, ess, lse, fire, bad))
+            PfBatchOut(x_true, x_est, ess, lse, fire, bad), next_gate)
 
 
 def pf_batch_wide_step(cfg: PfConfig, state: PfBatchWideState,
@@ -905,7 +931,8 @@ def pf_batch_wide_step(cfg: PfConfig, state: PfBatchWideState,
     x_true = circular_step(state.x_true, cfg.vel, cfg.yaw_rate, cfg.dt)
     z = (_observe(cfg, x_true) + noise).contiguous()
     return _wide_step_core(cfg, state, x_true, z, seed, offs, noise_on,
-                           normals, pass2)
+                           normals, pass2,
+                           _gate(cfg, state.lse, state.lse2))[:2]
 
 
 def pf_batch_wide_rollout(cfg: PfConfig, generator: torch.Generator | None,
@@ -930,26 +957,33 @@ def pf_batch_wide_rollout(cfg: PfConfig, generator: torch.Generator | None,
     Returns:
         ``(final_state, outs)`` as :func:`pf_batch_rollout`'s.
     """
-    resample_cuda.check_pass2(pass2)
-    device = _rollout_device(generator, device)
-    if n_steps < 1:
-        raise ValueError(f"n_steps {n_steps} must be positive")
-    if device.type == "cuda":
-        _build.cuda_library(device)
-    state = (pf_batch_wide_init(cfg, batch, device=device) if state0 is None
-             else state0)
-    b = state.log_w.shape[0]
-    x_tbl, z_clean = _truth_tables(cfg, state, n_steps, state0 is None)
-    noise = _obs_noise(cfg, generator, (n_steps, b), obs_noise, device)
-    z_all = (z_clean[:, None] + noise).contiguous()
-    offs = _draw(generator, (n_steps, b), offs, device, "offsets",
-                 uniform=True)
-    seed, stride = SEED0, wide_seed_step(cfg, b)
-    outs = []
-    for k in range(n_steps):
-        state, out = _wide_step_core(cfg, state, x_tbl[k], z_all[k], seed,
-                                     offs[k], noise_on, None, pass2)
-        outs.append(out)
-        seed += stride
-    return state, PfBatchOut(x_tbl, *(torch.stack(f) for f in
-                                      list(zip(*outs))[1:]))
+    with span("tpuslam.pf_wide.rollout"):
+        with span("tpuslam.pf_wide.prepare"):
+            resample_cuda.check_pass2(pass2)
+            device = _rollout_device(generator, device)
+            if n_steps < 1:
+                raise ValueError(f"n_steps {n_steps} must be positive")
+            if device.type == "cuda":
+                _build.cuda_library(device)
+            state = (pf_batch_wide_init(cfg, batch, device=device)
+                     if state0 is None else state0)
+            b = state.log_w.shape[0]
+            x_tbl, z_clean = _truth_tables(cfg, state, n_steps,
+                                           state0 is None)
+            noise = _obs_noise(cfg, generator, (n_steps, b), obs_noise,
+                               device)
+            z_all = (z_clean[:, None] + noise).contiguous()
+            offs = _draw(generator, (n_steps, b), offs, device, "offsets",
+                         uniform=True)
+            seed, stride = SEED0, wide_seed_step(cfg, b)
+            gate = _gate(cfg, state.lse, state.lse2)
+            outs = []
+        for k in range(n_steps):
+            with span("tpuslam.pf_wide.step"):
+                state, out, gate = _wide_step_core(
+                    cfg, state, x_tbl[k], z_all[k], seed, offs[k], noise_on,
+                    None, pass2, gate)
+                outs.append(out)
+                seed += stride
+        return state, PfBatchOut(x_tbl, *(torch.stack(f) for f in
+                                          list(zip(*outs))[1:]))

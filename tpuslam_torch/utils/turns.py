@@ -453,6 +453,14 @@ def _pf_args(dev):
     return k2, out["k4"], out["k5b"]
 
 
+def _k5b_rows(pb):
+    """K5b's wrapper, its outputs cut to the five that every checkout
+    returns (particles, log weights, lse, lse2, MAP), so that its digests
+    compare with those of a checkout whose K5b does not also write the
+    next step's gate."""
+    return lambda *args, **kw: pb.wide_stats_rows(*args, **kw)[:5]
+
+
 def _pf_rare(pb, build, dev, k4, k5b_args) -> dict:
     """Digests of K4 and K5b with noise off and with injected normals, and
     on rare inputs: an observation coordinate at 0 (filter 0), particles
@@ -465,7 +473,7 @@ def _pf_rare(pb, build, dev, k4, k5b_args) -> dict:
     gen = torch.Generator(device=dev).manual_seed(9)
     out = {}
     for name, fn, args, at in (("k4", pb.pf_batch_step_rows, k4, 2),
-                               ("k5b", pb.wide_stats_rows, k5b_args, 2)):
+                               ("k5b", _k5b_rows(pb), k5b_args, 2)):
         nrm = torch.randn(args[at].shape, generator=gen, device=dev)
         for mode, kw in (("off", dict(noise_on=False)),
                          ("normals", dict(normals=nrm))):
@@ -656,7 +664,7 @@ def _measure(tree: pathlib.Path, share: pathlib.Path, label: str) -> dict:
     expanded = rs.resample_expand_seg(parts_w, t_hi, fids, valid)
     k5b_args = (cfg_w, 1, parts_w, lw_w, z_w, bad_w, fire_w, src, expanded)
     for name, fn in (("k4", lambda: pb.pf_batch_step_rows(*k4)),
-                     ("k5b", lambda: pb.wide_stats_rows(*k5b_args))):
+                     ("k5b", lambda: _k5b_rows(pb)(*k5b_args))):
         out[f"{name}_ms"] = device_ms(fn, 20)
         out[f"{name}_digest"] = _digest(tuple(fn()))
     out.update(_pf_rare(pb, _build, dev, k4, k5b_args))
